@@ -1,0 +1,182 @@
+"""Headline benchmark of the port: speculative against autoregressive
+decoding of an INT4 LayerSkip pair on the card (counterpart of the root
+``bench.py``, which measures the JAX package).
+
+The pair is synthetic but shaped like a real one: a TinyLlama-1.1B-shaped
+bf16 target (22 layers, D=2048, F=5632, 32 query heads, 4 KV heads of 64,
+V=32000) whose layers 4..21 have ``wo`` and ``w_down`` damped by 0.08 (a
+residual refinement on top of the first 4 layers), and a drafter made of
+the target's first 4 layers. Both are weight-only INT4
+(``quantize_params(kind="int4", fuse=True)``, quantized ``lm_head``). The
+drafter's layers are views of the target's stacked containers and it shares
+the embedding, final norm and ``lm_head``, so no weight exists twice.
+Weights are random, drawn on the device from a ``torch.Generator`` seeded 0.
+
+Run: ``python -m specdec_tpu_torch.bench``. It decodes 256 tokens after a
+60-token prompt with MultinomialProcessor(1.0), speculating gamma=12, and
+prints one JSON line to stdout,
+``{"metric": "spec_decode_int4_tokens_per_sec", "value": spec tok/s,
+"unit": "tokens/s", "vs_baseline": spec/AR speedup}``; everything else goes
+to stderr. Each measurement is one warm-up call and REPS timed calls,
+timed with CUDA events; tokens/s is the best of the timed calls.
+"""
+from __future__ import annotations
+
+import json
+import sys
+from typing import Callable, Dict, List
+
+import numpy as np
+import torch
+
+from specdec_tpu_torch import resolve_device
+from specdec_tpu_torch.core.config import ModelConfig
+from specdec_tpu_torch.core.model import init_params
+from specdec_tpu_torch.quant.core import Int4Weight, quantize_params
+from specdec_tpu_torch.sampling.base_decoding import autoregressive_generate
+from specdec_tpu_torch.sampling.processors import (
+    LogitsProcessor, MultinomialProcessor,
+)
+from specdec_tpu_torch.sampling.speculative import _spec_generate
+
+DRAFT_LAYERS = 4
+V = 32000
+TAIL_DAMP = 0.08
+PROMPT_LEN = 60
+GAMMA = 12
+GEN = 256
+REPS = 3
+
+
+def log(*a):
+    print(*a, file=sys.stderr, flush=True)
+
+
+def target_config(num_layers: int = 22,
+                  dtype: torch.dtype = torch.bfloat16) -> ModelConfig:
+    return ModelConfig(
+        vocab_size=V, hidden_size=2048, intermediate_size=5632,
+        num_layers=num_layers, num_heads=32, num_kv_heads=4, head_dim=64,
+        max_position_embeddings=2048, rope_theta=10000.0, dtype=dtype)
+
+
+def layer_views(layers: dict, n: int) -> dict:
+    """The first ``n`` layers of a stacked layer dict, as views."""
+    return {k: Int4Weight(packed=v.packed[:n], absmax=v.absmax[:n])
+            if isinstance(v, Int4Weight) else v[:n]
+            for k, v in layers.items()}
+
+
+def build_pair(device=None):
+    """The LayerSkip INT4 pair. Returns (t_cfg, d_cfg, target, drafter)."""
+    device = resolve_device(device)
+    t_cfg = target_config()
+    d_cfg = t_cfg.replace(num_layers=DRAFT_LAYERS)
+    gen = torch.Generator(device=device).manual_seed(0)
+    base = init_params(t_cfg, scale=0.02, device=device, generator=gen)
+    layer_scale = torch.ones(t_cfg.num_layers, device=device)
+    layer_scale[DRAFT_LAYERS:] = TAIL_DAMP
+    layers = dict(base["layers"])
+    for name in ("wo", "w_down"):
+        layers[name] = (layers[name].to(torch.float32)
+                        * layer_scale[:, None, None]).to(t_cfg.dtype)
+    target = quantize_params(dict(base, layers=layers), kind="int4",
+                             fuse=True)
+    drafter = dict(target, layers=layer_views(target["layers"],
+                                              d_cfg.num_layers))
+    return t_cfg, d_cfg, target, drafter
+
+
+def bench_prompt(seed: int = 0) -> List[int]:
+    rng = np.random.default_rng(seed)
+    return [int(t) for t in rng.integers(1, V, size=PROMPT_LEN)]
+
+
+def _timed(fn: Callable[[], dict]) -> dict:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    rec = fn()
+    end.record()
+    end.synchronize()
+    rec["seconds"] = start.elapsed_time(end) / 1e3
+    return rec
+
+
+def _summary(runs: List[dict]) -> dict:
+    timed = runs[1:]
+    best = min(timed, key=lambda r: r["seconds"])
+    return {"runs": runs, "tok_s": best["tokens"] / best["seconds"]}
+
+
+def run_ar(t_cfg: ModelConfig, target, prompt: List[int], gen: int,
+           proc: LogitsProcessor, seed: int, device) -> dict:
+    """One AR call. Returns {tokens, ids}."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    ids = autoregressive_generate(prompt, t_cfg, target, max_gen_len=gen,
+                                  logits_processor=proc, eos_tokens_id=(),
+                                  generator=g, device=device)
+    return {"tokens": len(ids), "ids": ids}
+
+
+def run_spec(d_cfg: ModelConfig, drafter, t_cfg: ModelConfig, target,
+             prompt: List[int], gen: int, gamma: int, proc: LogitsProcessor,
+             seed: int, device) -> dict:
+    """One speculative call. Returns {tokens, ids, windows, acceptance}."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    ids, accepted, speculated, accept_log = _spec_generate(
+        prompt, d_cfg, drafter, t_cfg, target, gamma, gen, proc, (), True,
+        False, g, 0, device)
+    return {"tokens": len(ids), "ids": ids, "windows": len(accept_log),
+            "acceptance": accepted / speculated if speculated else 0.0}
+
+
+def measure_ar(t_cfg: ModelConfig, target, prompt: List[int], gen: int,
+               proc: LogitsProcessor, device=None) -> dict:
+    """One warm-up and REPS timed AR calls. Returns {"runs": [{tokens,
+    ids, seconds}], "tok_s"}; runs[0] is the warm-up."""
+    device = resolve_device(device)
+    runs = [_timed(lambda s=1 + i: run_ar(t_cfg, target, prompt, gen, proc,
+                                          s, device))
+            for i in range(REPS + 1)]
+    return _summary(runs)
+
+
+def measure_spec(d_cfg: ModelConfig, drafter, t_cfg: ModelConfig, target,
+                 prompt: List[int], gen: int, gamma: int,
+                 proc: LogitsProcessor, device=None) -> dict:
+    """One warm-up and REPS timed speculative calls. Returns {"runs":
+    [{tokens, ids, windows, acceptance, seconds}], "tok_s",
+    "acceptance"}; runs[0] is the warm-up."""
+    device = resolve_device(device)
+    runs = [_timed(lambda s=100 + i: run_spec(d_cfg, drafter, t_cfg, target,
+                                              prompt, gen, gamma, proc, s,
+                                              device))
+            for i in range(REPS + 1)]
+    out = _summary(runs)
+    out["acceptance"] = float(np.mean([r["acceptance"] for r in runs[1:]]))
+    return out
+
+
+def main() -> Dict[str, float]:
+    device = resolve_device(None)
+    log(f"device: {torch.cuda.get_device_name(device)}")
+    t_cfg, d_cfg, target, drafter = build_pair(device)
+    proc = MultinomialProcessor(temperature=1.0)
+    prompt = bench_prompt()
+    ar = measure_ar(t_cfg, target, prompt, GEN, proc, device)
+    spec = measure_spec(d_cfg, drafter, t_cfg, target, prompt, GEN, GAMMA,
+                        proc, device)
+    speedup = spec["tok_s"] / ar["tok_s"]
+    log(f"AR {ar['tok_s']:.1f} tok/s; spec(gamma={GAMMA}) "
+        f"{spec['tok_s']:.1f} tok/s, acceptance {spec['acceptance']:.3f}; "
+        f"speedup {speedup:.3f}x")
+    result = {"metric": "spec_decode_int4_tokens_per_sec",
+              "value": round(spec["tok_s"], 2), "unit": "tokens/s",
+              "vs_baseline": round(speedup, 3)}
+    print(json.dumps(result))
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,296 @@
+"""Decoder-only transformer forward pass
+(counterpart of ``specdec_tpu/core/model.py``).
+
+Same families and semantics as the JAX model: llama/mistral/qwen (RMSNorm,
+RoPE, SwiGLU, GQA, optional qk-norm and qkv bias), gpt-neox (LayerNorm,
+parallel residual, partial rotary, biases) and gemma (embedding scale, tied
+head), with an optional logit softcap. ``forward_step`` processes a [B, T]
+block against the slotted cache at per-sequence offsets: prefill, one-token
+decode and the (gamma+1)-token verify are the same function with another T.
+
+Params are a dict of tensors whose layer leaves are STACKED with a leading
+L axis. The layer loop is a Python loop over ``range(L)``: dense leaves are
+indexed (a view), and 4-bit containers are handed to ``qmatmul`` as
+``StackedSlice(container, i)`` so that the kernel reads layer ``i`` in place.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from specdec_tpu_torch import resolve_device
+from specdec_tpu_torch.core.cache import KVCache, init_cache, write_block
+from specdec_tpu_torch.core.config import ModelConfig
+from specdec_tpu_torch.core.rope import apply_rope, rope_cos_sin
+from specdec_tpu_torch.quant.core import Int4Weight, StackedSlice, qmatmul
+
+Params = Dict[str, Any]
+
+_NEG_INF = -1e30
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """Upcast to f32 for the statistics; the weight multiplies in x's dtype."""
+    x32 = x.to(torch.float32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    normed = x32 * torch.rsqrt(var + eps)
+    return (w * normed.to(x.dtype)).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    mean = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    normed = (x32 - mean) * torch.rsqrt(var + eps)
+    return (normed.to(x.dtype) * w + b).to(x.dtype)
+
+
+def _norm(cfg: ModelConfig, x, w, b=None):
+    if cfg.norm_type == "rmsnorm":
+        return rms_norm(x, w, cfg.norm_eps)
+    return layer_norm(x, w, b, cfg.norm_eps)
+
+
+def _act(cfg: ModelConfig, x):
+    if cfg.act == "silu":
+        return F.silu(x)
+    if cfg.act == "gelu":
+        return F.gelu(x, approximate="none")
+    if cfg.act == "gelu_tanh":
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown activation {cfg.act}")
+
+
+def _attention(cfg: ModelConfig, q, k_all, v_all, q_pos):
+    """q: [B, T, Hq, Dh]; k_all/v_all: [B, S, Hk, Dh]; q_pos: [B, T].
+
+    The mask admits key position s iff s <= q_pos[b, t]; it covers
+    causality, cache validity and staleness after rollback. Scores and
+    softmax are f32; grouped-query heads are a reshape of q, so K/V are
+    never repeated."""
+    B, T, Hq, Dh = q.shape
+    S = k_all.shape[1]
+    Hk, G = cfg.num_kv_heads, cfg.q_per_kv
+    qg = q.reshape(B, T, Hk, G, Dh)
+    # the f32 number 1/sqrt(Dh), as a host scalar (no host-to-device copy)
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(Dh)))
+    scores = torch.einsum("bthgd,bshd->bhgts", qg.to(torch.float32),
+                          k_all.to(torch.float32)) * scale
+    k_pos = torch.arange(S, device=q.device)
+    mask = k_pos[None, None, :] <= q_pos[:, :, None]           # [B, T, S]
+    scores = scores.masked_fill(~mask[:, None, None], _NEG_INF)
+    if cfg.logit_softcap > 0.0:
+        scores = torch.tanh(scores / cfg.logit_softcap) * cfg.logit_softcap
+    probs = torch.softmax(scores, dim=-1).to(v_all.dtype)
+    out = torch.einsum("bhgts,bshd->bthgd", probs, v_all)
+    return out.reshape(B, T, Hq * Dh)
+
+
+def _qkv(cfg: ModelConfig, lp: Params, h):
+    """q/k/v projections; a fused ``wqkv`` runs as one matmul and is split."""
+    Hq, Hk, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if "wqkv" in lp:
+        qkv = qmatmul(h, lp["wqkv"])
+        if cfg.attn_qkv_bias:
+            qkv = qkv + lp["bqkv"]
+        q = qkv[..., :Hq * Dh]
+        k = qkv[..., Hq * Dh:(Hq + Hk) * Dh]
+        v = qkv[..., (Hq + Hk) * Dh:]
+        return q, k, v
+    q = qmatmul(h, lp["wq"])
+    k = qmatmul(h, lp["wk"])
+    v = qmatmul(h, lp["wv"])
+    if cfg.attn_qkv_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    return q, k, v
+
+
+def _mlp_up(cfg: ModelConfig, lp: Params, m):
+    """Gate/up projections (a fused ``w_gateup`` runs as one matmul)."""
+    if cfg.gated_mlp:
+        if "w_gateup" in lp:
+            gu = qmatmul(m, lp["w_gateup"])
+            if cfg.mlp_bias:
+                gu = gu + lp["b_gateup"]
+            Fd = gu.shape[-1] // 2
+            return _act(cfg, gu[..., :Fd]) * gu[..., Fd:]
+        gate = qmatmul(m, lp["w_gate"])
+        up = qmatmul(m, lp["w_up"])
+        if cfg.mlp_bias:
+            gate, up = gate + lp["b_gate"], up + lp["b_up"]
+        return _act(cfg, gate) * up
+    up = qmatmul(m, lp["w_up"])
+    if cfg.mlp_bias:
+        up = up + lp["b_up"]
+    return _act(cfg, up)
+
+
+def _block(cfg: ModelConfig, lp: Params, x, cos, sin, q_pos,
+           layer_k, layer_v, offsets):
+    """One transformer block over a [B, T, D] activation block; writes the
+    block's K/V into the layer's cache in place."""
+    B, T, D = x.shape
+    Hq, Hk, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    h = _norm(cfg, x, lp["attn_norm_w"], lp.get("attn_norm_b"))
+    q, k, v = _qkv(cfg, lp, h)
+    q = q.reshape(B, T, Hq, Dh)
+    k = k.reshape(B, T, Hk, Dh)
+    v = v.reshape(B, T, Hk, Dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, lp["q_norm_w"], cfg.norm_eps)
+        k = rms_norm(k, lp["k_norm_w"], cfg.norm_eps)
+    rd = cfg.rotary_dim
+    q = apply_rope(q, cos, sin, rd)
+    k = apply_rope(k, cos, sin, rd)
+
+    write_block(layer_k, layer_v, k, v, offsets)
+    attn = _attention(cfg, q, layer_k, layer_v, q_pos)
+    attn = qmatmul(attn, lp["wo"])
+    if cfg.attn_out_bias:
+        attn = attn + lp["bo"]
+
+    if cfg.parallel_residual:
+        m = _norm(cfg, x, lp["mlp_norm_w"], lp.get("mlp_norm_b"))
+    else:
+        x = x + attn
+        m = _norm(cfg, x, lp["mlp_norm_w"], lp.get("mlp_norm_b"))
+
+    mlp = qmatmul(_mlp_up(cfg, lp, m), lp["w_down"])
+    if cfg.mlp_bias:
+        mlp = mlp + lp["b_down"]
+
+    if cfg.parallel_residual:
+        return x + attn + mlp
+    return x + mlp
+
+
+def _layer_params(layers: Params, i: int) -> Params:
+    """Layer ``i``'s params: views of the dense stacks, ``StackedSlice``s of
+    the 4-bit containers."""
+    return {name: StackedSlice(v, i) if isinstance(v, Int4Weight) else v[i]
+            for name, v in layers.items()}
+
+
+def _forward_common(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                    cache: KVCache, q_pos: torch.Tensor,
+                    ) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
+    """embed -> layers -> final norm -> logits. Returns (logits f32,
+    features = the residual stream before the final norm, cache advanced by
+    T)."""
+    T = tokens.shape[1]
+    offsets = cache.length
+    cos, sin = rope_cos_sin(q_pos, cfg.rotary_dim, cfg.rope_theta,
+                            scaling=cfg.rope_scaling)
+    x = params["embed"][tokens].to(cfg.dtype)
+    if cfg.embed_scale != 1.0:  # gemma: sqrt(hidden) on the embedding only
+        # a CPU 0-dim tensor is a scalar operand: rounded to cfg.dtype first,
+        # as jnp.asarray(embed_scale, dtype) is, and never copied to the card
+        x = x * torch.tensor(cfg.embed_scale, dtype=cfg.dtype)
+
+    layers = params["layers"]
+    for i in range(cfg.num_layers):
+        x = _block(cfg, _layer_params(layers, i), x, cos, sin, q_pos,
+                   cache.k[i], cache.v[i], offsets)
+
+    feats = x
+    x = _norm(cfg, x, params["final_norm_w"], params.get("final_norm_b"))
+    if cfg.tie_embeddings:
+        logits = torch.einsum("btd,vd->btv", x.to(torch.float32),
+                              params["embed"].to(torch.float32))
+    else:
+        logits = qmatmul(x, params["lm_head"]).to(torch.float32)
+    if cfg.logit_softcap > 0.0:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    return logits, feats, cache.with_length(cache.length + T)
+
+
+def forward_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                 cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+    """Process a [B, T] token block against the cache at per-sequence
+    offsets: writes the block's K/V at ``cache.length`` (in place), attends
+    over everything written so far, and returns (logits [B, T, V] f32, the
+    cache advanced by T)."""
+    T = tokens.shape[1]
+    q_pos = cache.length[:, None] + torch.arange(
+        T, dtype=torch.int32, device=tokens.device)[None, :]
+    logits, _, cache = _forward_common(cfg, params, tokens, cache, q_pos)
+    return logits, cache
+
+
+def forward_full(cfg: ModelConfig, params: Params,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    """Causal full-sequence forward over a scratch cache; logits [B, T, V]."""
+    B, T = tokens.shape
+    cache = init_cache(cfg, B, T, device=tokens.device)
+    logits, _ = forward_step(cfg, params, tokens, cache)
+    return logits
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, scale: float = 0.02,
+                device=None, generator: Optional[torch.Generator] = None,
+                ) -> Params:
+    """Random init (normal * scale, drawn in f32 then cast to cfg.dtype),
+    made on ``device`` (``None``: the card) from ``generator`` or ``seed``.
+    The numbers differ from the JAX package's init; tests carry JAX params
+    over with ``bridge.params_from_numpy`` instead."""
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(seed)
+
+    def w(shape, s=scale):
+        return (torch.randn(shape, generator=generator, dtype=torch.float32,
+                            device=device) * s).to(cfg.dtype)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=cfg.dtype, device=device)
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=cfg.dtype, device=device)
+
+    L, D, Fd = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
+    Hq, Hk, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    layers: Params = {
+        "attn_norm_w": ones((L, D)),
+        "mlp_norm_w": ones((L, D)),
+        "wq": w((L, D, Hq * Dh)),
+        "wk": w((L, D, Hk * Dh)),
+        "wv": w((L, D, Hk * Dh)),
+        "wo": w((L, Hq * Dh, D)),
+        "w_up": w((L, D, Fd)),
+        "w_down": w((L, Fd, D)),
+    }
+    if cfg.gated_mlp:
+        layers["w_gate"] = w((L, D, Fd))
+    if cfg.norm_type == "layernorm":
+        layers["attn_norm_b"] = zeros((L, D))
+        layers["mlp_norm_b"] = zeros((L, D))
+    if cfg.attn_qkv_bias:
+        layers["bq"] = zeros((L, Hq * Dh))
+        layers["bk"] = zeros((L, Hk * Dh))
+        layers["bv"] = zeros((L, Hk * Dh))
+    if cfg.attn_out_bias:
+        layers["bo"] = zeros((L, D))
+    if cfg.mlp_bias:
+        layers["b_up"] = zeros((L, Fd))
+        layers["b_down"] = zeros((L, D))
+        if cfg.gated_mlp:
+            layers["b_gate"] = zeros((L, Fd))
+    if cfg.qk_norm:
+        layers["q_norm_w"] = ones((L, Dh))
+        layers["k_norm_w"] = ones((L, Dh))
+
+    params: Params = {
+        "embed": w((cfg.vocab_size, D)),
+        "layers": layers,
+        "final_norm_w": ones((D,)),
+    }
+    if cfg.norm_type == "layernorm":
+        params["final_norm_b"] = zeros((D,))
+    if not cfg.tie_embeddings:
+        params["lm_head"] = w((D, cfg.vocab_size))
+    return params

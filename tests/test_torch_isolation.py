@@ -1,0 +1,44 @@
+"""The port stands alone: neither ``specdec_tpu_torch`` nor ``chip_smoke.py``
+imports JAX, ml_dtypes or the JAX package (the machine with the card has
+none of them)."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "specdec_tpu")
+SOURCES = sorted((ROOT / "specdec_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_import_leaves_jax_unloaded():
+    code = ("import sys, specdec_tpu_torch, specdec_tpu_torch.bench, "
+            "specdec_tpu_torch.bridge; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]; "
+            "assert not bad, bad; print('ok')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
