@@ -6,24 +6,43 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 switched off
    for float32 matmuls and convolutions;
-2. build: nvcc builds the port's kernel from ``specdec_tpu_torch/ops/csrc``
-   into ``build/kernels/`` (git-ignored);
-3. kernel vs plain: the INT4 pair4 dequant-matmul kernel against its plain
-   PyTorch version at every shape the main path gives it, on the main
-   path's own weights; its time beside the plain version's, a bf16
-   ``torch.matmul`` on pre-dequantized weights (a yardstick the port never
-   calls) and the bound; and a check that a row's result does not depend on
-   how many rows share the call;
+2. build: nvcc builds the port's kernels from ``specdec_tpu_torch/ops/csrc``
+   into ``build/kernels/`` (git-ignored), all sources at once;
+3. kernel vs plain, INT4: the pair4 dequant-matmul kernel against its plain
+   PyTorch version at every shape the main paths give it (M = 1, 2, 13, 64
+   for single-sequence decoding; 8, 72, 256 for the serving engine's draft
+   step, verify and admission prefill), on the main path's own weights;
+   its time beside the plain version's, a bf16 ``torch.matmul`` on
+   pre-dequantized weights (a yardstick the port never calls) and the
+   bound; and a check that a row's result does not depend on how many rows
+   share the call;
+3b. kernel vs plain, paged attention: the paged decode-attention kernel,
+   through both wrappers (a 4D pool, and a layer of stacked pools, which
+   must agree bit for bit), against its plain version in float32 and bf16
+   at the decode, verify, long-context and serving shapes; its time beside
+   the plain version's, ``scaled_dot_product_attention`` over K/V gathered
+   beforehand (a yardstick the port never calls) and the bound;
 4. greedy oracle: greedy self-draft speculative decoding equals greedy AR
    on the card (full widths, 2 layers, float32 activations, kernel on every
    projection);
-5. main path: ``specdec_tpu_torch.bench``'s 22-layer INT4 LayerSkip pair,
-   AR and speculative decoding (gamma 12, 256 tokens), with the kernel's
-   launch counts checked against what the configuration implies.
+4b. serving oracle: the default serving engine (``PagedContinuousBatcher``,
+   self-draft, greedy, more requests than slots) gives every request
+   greedy AR's tokens with acceptance 1.0 (full widths, 2 layers, float32),
+   also with prefix caching and chunked prefill on prompts that share a
+   prefix;
+5. main path, single sequence: ``specdec_tpu_torch.bench``'s 22-layer INT4
+   LayerSkip pair, AR and speculative decoding (gamma 12, 256 tokens), with
+   the kernel's launch counts checked against what the configuration
+   implies, and a profile of the card's busy share;
+6. main path, serving: ``bench.measure_serving`` on the same pair, the
+   paged engine and the slotted one (16 requests x 128 tokens, 8 slots,
+   gamma 8), with every page back in the pool, launch counts checked (the
+   attention kernel once per target layer per paged forward) and a profile
+   of the card's busy share.
 
 Any failed phase exits 1 (without a CUDA device, or outside a checkout,
 too, before any result is printed). Standard output ends with the card's
-name and power limit, a JSON line of the main path's numbers, a JSON line
+name and power limit, a JSON line of the main paths' numbers, a JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -34,7 +53,9 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
@@ -46,7 +67,9 @@ BF16_OPS_PER_S = 989e12
 STACKED = [("wqkv", 2048, 2560), ("wo", 2048, 2048),
            ("w_gateup", 2048, 11264), ("w_down", 5632, 2048)]
 LM_HEAD = ("lm_head", 2048, 32000)
-ROWS = (1, 2, 13, 64)   # AR/draft step, drafter catch-up, verify, prefill
+# single sequence: AR/draft step, drafter catch-up, verify (gamma 12),
+# prefill; serving (8 slots, gamma 8): draft step, verify, admission prefill
+ROWS = (1, 2, 8, 13, 64, 72, 256)
 # kernel vs plain: relative Frobenius error and elementwise tolerance (the
 # JAX package's kernel-vs-oracle tolerance, tests/test_quant.py); both
 # sides round x and y to bf16 and differ only in f32 summation order
@@ -54,6 +77,25 @@ REL_FRO_TOL = 1e-2
 RTOL, ATOL = 2e-2, 2e-1
 TIMED_RUNS = 25
 SLEEP_CYCLES = 50_000_000   # keeps the card busy while the runs enqueue
+
+# paged attention shapes (Hq=32, Hk=4, Dh=64, page 64, the pair's heads):
+# (label, B, T, MP, offsets). decode/verify are tools/bench_paged.py's
+# validation shapes; long reaches the config's 2048 positions; serve is the
+# serving engine's verify (8 slots, gamma 8) at its table width of 9 pages
+PAGED_HEADS = (32, 4, 64, 64)
+SERVE_TABLE_PAGES = 9
+PAGED_SHAPES = [
+    ("decode", 8, 1, 8, [40, 100, 511, 7, 250, 64, 63, 300]),
+    ("verify", 4, 9, 8, [40, 100, 350, 7]),
+    ("long", 8, 9, 32, [2000, 1500, 1023, 64, 7, 1800, 2030, 511]),
+    ("serve", 8, 9, SERVE_TABLE_PAGES,
+     [60, 150, 230, 320, 90, 200, 280, 330]),
+]
+# kernel vs plain: float32 sides differ in summation order only (online
+# vs dense softmax); bf16 adds the rounding of the probabilities before
+# P.V and of the output, one bf16 ulp (2**-7 at |out| in [1, 2))
+PAGED_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+             torch.bfloat16: dict(rtol=1e-2, atol=2e-2)}
 
 
 def say(*a):
@@ -242,6 +284,153 @@ def phase_oracle(device):
         f"acceptance {rate:.4f}")
 
 
+def paged_bound_ms(B, T, Hq, Hk, Dh, page, MP, offsets):
+    """Least time for one bf16 paged attention call: the live K and V pages
+    of each sequence ((offset+T-1)//page + 1 of them, per KV head), q, out,
+    the table and the offsets at HBM_BYTES_PER_S, or the products of the
+    keys each query attends (offset+t+1 of them; q.k and p.v, a multiply
+    and an add each) at the bf16 rate, whichever is longer. Returns (ms,
+    "bytes" | "operations")."""
+    esize = 2
+    live = sum(min((o + T - 1) // page, MP - 1) + 1 for o in offsets)
+    nbytes = (2 * live * Hk * page * Dh * esize + 2 * B * T * Hq * Dh * esize
+              + B * MP * 4 + B * 4)
+    keys = sum(min(o + t + 1, MP * page) for o in offsets for t in range(T))
+    ops = 4 * Hq * Dh * keys
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_paged_kernel(device):
+    """The paged attention kernel vs its plain version at PAGED_SHAPES, in
+    float32 and bf16, through both wrappers. Returns the per-shape records
+    (timed in bf16, the main path's type) and the largest absolute
+    error."""
+    from specdec_tpu_torch.core.paged_cache import gather_pages
+    from specdec_tpu_torch.ops import paged_attention as pa
+
+    Hq, Hk, Dh, page = PAGED_HEADS
+    gen = torch.Generator(device=device).manual_seed(4321)
+    flush = torch.zeros(256 * 2 ** 20, dtype=torch.uint8, device=device)
+    records, max_err = [], 0.0
+    for label, B, T, MP, offsets in PAGED_SHAPES:
+        NP = B * MP + 1
+        table = (1 + torch.randperm(NP - 1, generator=gen, device=device)
+                 )[:B * MP].reshape(B, MP).to(torch.int32)
+        off = torch.tensor(offsets, dtype=torch.int32, device=device)
+        for dtype in (torch.float32, torch.bfloat16):
+            ks, vs = (torch.randn((2, NP, Hk, page, Dh), generator=gen,
+                                  device=device).to(dtype) for _ in range(2))
+            q = torch.randn((B, T, Hq, Dh), generator=gen,
+                            device=device).to(dtype)
+            k2 = pa.paged_decode_attention(q, ks[1], vs[1], table, off)
+            k8 = pa.paged_decode_attention_stacked(q, ks, vs, 1, table, off)
+            torch.cuda.synchronize()
+            if not torch.equal(k2, k8):
+                fail(f"paged {label} {dtype}: the stacked wrapper (layer 1) "
+                     "differs from the 4D wrapper on that layer")
+            plain = pa.paged_attention_reference(q, ks[1], vs[1], table, off)
+            err = (k2.float() - plain.float()).abs().max().item()
+            if not torch.allclose(k2.float(), plain.float(),
+                                  **PAGED_TOL[dtype]):
+                fail(f"paged {label} {dtype}: kernel vs plain max abs err "
+                     f"{err:.3g} beyond {PAGED_TOL[dtype]}")
+            max_err = max(max_err, err)
+            rec = {"name": label, "dtype": str(dtype).split(".")[-1],
+                   "B": B, "T": T, "MP": MP, "offsets": offsets,
+                   "max_abs_err": err}
+            if dtype == torch.bfloat16:
+                # yardstick: SDPA over K/V gathered (and GQA-expanded)
+                # beforehand, the same mask; only the SDPA call is timed
+                S = MP * page
+                kg = gather_pages(ks[1], table).permute(0, 2, 1, 3)
+                vg = gather_pages(vs[1], table).permute(0, 2, 1, 3)
+                kg = kg.repeat_interleave(Hq // Hk, dim=1).contiguous()
+                vg = vg.repeat_interleave(Hq // Hk, dim=1).contiguous()
+                qt = q.permute(0, 2, 1, 3).contiguous()
+                q_pos = off[:, None] + torch.arange(T, device=device)
+                mask = (torch.arange(S, device=device)[None, None, :]
+                        <= q_pos[:, :, None])[:, None]
+                b, by = paged_bound_ms(B, T, Hq, Hk, Dh, page, MP, offsets)
+                rec.update(
+                    ms=gpu_ms(lambda: pa.paged_decode_attention_stacked(
+                        q, ks, vs, 1, table, off), flush),
+                    plain_ms=gpu_ms(lambda: pa.paged_attention_reference(
+                        q, ks[1], vs[1], table, off), flush),
+                    library_ms=gpu_ms(lambda: F.scaled_dot_product_attention(
+                        qt, kg, vg, attn_mask=mask), flush),
+                    bound_ms=b, bound_by=by)
+                say(f"[3b paged] {label:6s} B={B} T={T} MP={MP}: kernel "
+                    f"{rec['ms'] * 1e3:7.1f} us, plain "
+                    f"{rec['plain_ms'] * 1e3:7.1f} us, SDPA "
+                    f"{rec['library_ms'] * 1e3:7.1f} us, bound "
+                    f"{b * 1e3:5.1f} us ({by}); max abs err {err:.3g}")
+            records.append(rec)
+    say(f"[3b paged] all {len(records)} comparisons within "
+        f"{ {str(k).split('.')[-1]: v for k, v in PAGED_TOL.items()} }; "
+        "stacked == 4D bit for bit")
+    return records, max_err
+
+
+def phase_serve_oracle(device):
+    """The default serving engine, self-draft greedy on a float32 model,
+    equals greedy AR per request with acceptance 1.0; then again with
+    prefix caching and chunked prefill (chunks of 64, so partial
+    admissions attend through the kernel at T=64). Dense float32 weights
+    keep every product in float32: the engine and AR then differ only in
+    summation order (the kernel against dense attention, batched against
+    single-row matmuls), ~1e-6 of a logit, far below the gap between the
+    top two logits; INT4's bf16 outputs would round logits to bf16, where
+    ties between the top two are common (phase 4 allows them)."""
+    from specdec_tpu_torch import bench
+    from specdec_tpu_torch.core.model import init_params
+    from specdec_tpu_torch.sampling.base_decoding import (
+        autoregressive_generate,
+    )
+    from specdec_tpu_torch.serve import DefaultBatcher
+
+    cfg = bench.target_config(num_layers=2, dtype=torch.float32)
+    gen = torch.Generator(device=device).manual_seed(2)
+    params = init_params(cfg, scale=0.02, device=device, generator=gen)
+    rng = np.random.default_rng(3)
+
+    def tokens(n):
+        return [int(t) for t in rng.integers(1, bench.V, size=n)]
+
+    shared = tokens(128)
+    cases = (
+        ("default", [tokens(n) for n in (40, 130, 75, 200, 33, 160)], {}),
+        ("prefix+chunked", [shared + tokens(n) for n in (20, 45, 70, 9, 60)],
+         dict(prefix_caching=True, prefill_chunk=64)),
+    )
+    new = 32
+    for label, prompts, kw in cases:
+        b = DefaultBatcher(cfg, params, cfg, params, num_slots=4, gamma=4,
+                           max_prompt_len=256, max_new_tokens=new,
+                           page_size=64, eos_tokens_id=(), device=device,
+                           **kw)
+        ids = [b.submit(p) for p in prompts]
+        done = b.run()
+        for i, (rid, p) in enumerate(zip(ids, prompts)):
+            ar = autoregressive_generate(p, cfg, params, max_gen_len=new,
+                                         eos_tokens_id=(), device=device)
+            got = done[rid]
+            if got.output_ids != ar or len(ar) != new:
+                fail(f"serve oracle ({label}): request {i} gave "
+                     f"{got.output_ids} where greedy AR gives {ar}")
+            if got.metrics.acceptance_rate != 1.0:
+                fail(f"serve oracle ({label}): request {i} acceptance "
+                     f"{got.metrics.acceptance_rate}, not 1.0")
+        if len(b._alloc_t.free) + len(b.prefix_cache) != b.num_pages - 1:
+            fail(f"serve oracle ({label}): pages not returned")
+        if kw and b.prefix_cache.hit_tokens == 0:
+            fail(f"serve oracle ({label}): no prefix-cache hit")
+        say(f"[4b serve oracle] {label}: {len(prompts)} requests on 4 slots "
+            f"== greedy AR ({new} tokens each), acceptance 1.0; prefix hit "
+            f"tokens {b.prefix_cache.hit_tokens}")
+
+
 def phase_main(pair, device):
     """The main path with launch counts. Returns its summary."""
     from specdec_tpu_torch import bench
@@ -372,6 +561,123 @@ def phase_profile(pair, summary, device):
     return out
 
 
+def serving_busy(batcher, device):
+    """Device busy share of one more serving pass on ``batcher``:
+    torch.profiler's CUDA kernel time over the pass's wall time (under the
+    profiler, whose own overhead lengthens the wall time a little)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from specdec_tpu_torch import bench
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rec = bench.serve_pass(batcher, bench.serving_prompts())
+    totals = sorted(((e.key[:80], e.self_device_time_total / 1e3)
+                     for e in prof.key_averages()), key=lambda kv: -kv[1])
+    device_ms = sum(t for _, t in totals)
+    if device_ms <= 0:
+        return None
+    wall_ms = rec["seconds"] * 1e3
+    return {"device_ms": device_ms, "wall_ms": wall_ms,
+            "busy_share": device_ms / wall_ms, "top": totals[:6]}
+
+
+def phase_serve(pair, device):
+    """The serving main path: both engines, launch counts of this run.
+    Returns (summary, launches)."""
+    from specdec_tpu_torch import bench
+    from specdec_tpu_torch.core import model as tmodel
+    from specdec_tpu_torch.ops import paged_attention as pa
+    from specdec_tpu_torch.ops import quant_matmul as qm
+
+    t_cfg = pair[0]
+    kernels = (qm.quant_matmul_stacked, qm.quant_matmul,
+               pa.paged_decode_attention, pa.paged_decode_attention_stacked)
+    for k in kernels:
+        k.launches = 0
+    tmodel.forward_step_paged.calls = 0
+    runs = [bench.measure_serving(paged, pair, device)
+            for paged in (True, False)]
+    launches = {"stacked": qm.quant_matmul_stacked.launches,
+                "2d": qm.quant_matmul.launches,
+                "paged_4d": pa.paged_decode_attention.launches,
+                "paged_stacked": pa.paged_decode_attention_stacked.launches}
+    paged_forwards = tmodel.forward_step_paged.calls
+
+    for r in runs:
+        for name in ("warm", "timed"):
+            outs = r[name]["outputs"]
+            if len(outs) != bench.SERVE_REQUESTS or any(
+                    len(o) != bench.SERVE_GEN or not all(
+                        0 <= t < bench.V for t in o) for o in outs):
+                fail(f"serve ({r['engine']}, {name}): not every request "
+                     f"completed {bench.SERVE_GEN} in-vocabulary tokens")
+            if not 0.0 < r[name]["acceptance"] <= 1.0:
+                fail(f"serve ({r['engine']}, {name}): acceptance "
+                     f"{r[name]['acceptance']}")
+    b = runs[0]["batcher"]
+    if len(b._alloc_t.free) != b.num_pages - 1:
+        fail(f"serve: {len(b._alloc_t.free)} of {b.num_pages - 1} pages "
+             "back in the pool")
+    if b.max_pages_per_seq != SERVE_TABLE_PAGES:
+        fail(f"serve: table width {b.max_pages_per_seq}, phase 3b timed "
+             f"{SERVE_TABLE_PAGES}")
+    want = t_cfg.num_layers * paged_forwards
+    if paged_forwards == 0 or launches["paged_stacked"] != want or (
+            launches["paged_4d"] != 0):
+        fail(f"serve: {launches['paged_stacked']} stacked and "
+             f"{launches['paged_4d']} 4D paged attention launches over "
+             f"{paged_forwards} paged forwards; expected {want} and 0")
+    if launches["stacked"] == 0 or launches["2d"] == 0:
+        fail(f"serve: INT4 launches {launches}")
+
+    paged, slotted = (r["timed"] for r in runs)
+    # where the engines' greedy outputs first differ: the two attention
+    # paths round differently in bf16, and a one-ulp difference flips a
+    # near-tie of the bf16 logits, after which the continuations part
+    agree = [next((i for i, (x, y) in enumerate(zip(a, c)) if x != y),
+                  len(a))
+             for a, c in zip(paged["outputs"], slotted["outputs"])]
+    same = sum(n == bench.SERVE_GEN for n in agree)
+    summary = {
+        eng: {k: r["timed"][k] for k in ("tok_s", "ttft_p50_ms",
+                                         "ttft_p99_ms", "acceptance",
+                                         "seconds", "tokens")}
+        for eng, r in (("paged", runs[0]), ("slotted", runs[1]))}
+    summary["paged"]["preemptions"] = runs[0]["preemptions"]
+    summary["paged_over_slotted"] = paged["tok_s"] / slotted["tok_s"]
+    summary["same_outputs"] = same
+    summary["agreeing_prefix_tokens"] = agree
+    summary["paged_forwards"] = paged_forwards
+    summary["launches"] = launches
+    for r in runs:
+        say(f"[6 serve] {r['engine']}: {r['timed']['tokens']} tokens in "
+            f"{r['timed']['seconds']:.2f} s = {r['timed']['tok_s']:.1f} "
+            f"tok/s, TTFT p50 {r['timed']['ttft_p50_ms']:.0f} ms, p99 "
+            f"{r['timed']['ttft_p99_ms']:.0f} ms, acceptance "
+            f"{r['timed']['acceptance']:.3f} (warm-up pass "
+            f"{r['warm']['tok_s']:.1f} tok/s)")
+    say(f"[6 serve] paged/slotted {summary['paged_over_slotted']:.3f}; "
+        f"{same}/{len(slotted['outputs'])} requests with equal outputs, "
+        f"agreeing prefixes of {min(agree)}-{max(agree)} tokens (median "
+        f"{int(np.median(agree))}); "
+        f"{paged_forwards} paged forwards, {launches['paged_stacked']} "
+        f"attention launches (= {t_cfg.num_layers} per forward); all pages "
+        "returned; preemptions " + str(runs[0]["preemptions"]))
+    summary["profile"] = {}
+    for r in runs:
+        busy = serving_busy(r["batcher"], device)
+        summary["profile"][r["engine"]] = busy
+        if busy is None:
+            say(f"[6 profile] {r['engine']}: device time not measured (the "
+                "profiler recorded no CUDA activity)")
+            continue
+        say(f"[6 profile] {r['engine']}: device {busy['device_ms']:.0f} ms "
+            f"of {busy['wall_ms']:.0f} ms wall (busy "
+            f"{busy['busy_share']:.1%}); top: " + "; ".join(
+                f"{k[:40]} {t:.0f} ms" for k, t in busy["top"][:4]))
+    return summary, launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
@@ -394,9 +700,12 @@ def main():
     say(f"[5 main] built the INT4 LayerSkip pair in "
         f"{time.perf_counter() - t1:.1f} s")
     records, max_err = phase_kernel(pair[2], device)
+    paged_records, paged_err = phase_paged_kernel(device)
     phase_oracle(device)
+    phase_serve_oracle(device)
     summary, launches = phase_main(pair, device)
     summary["profile"] = phase_profile(pair, summary, device)
+    summary["serving"], serve_launches = phase_serve(pair, device)
 
     def total(key, rows):
         return sum(r[key] for r in rows)
@@ -409,11 +718,14 @@ def main():
         mine = [r for r in records if (r["layer"] is None) == is_2d]
         timed = [r for r in mine if "ms" in r]
         step = [r for r in timed if r["M"] == 1]
+        key = "2d" if is_2d else "stacked"
         entries.append({
             "name": name, "route": "cuda",
             "source": "specdec_tpu_torch/ops/csrc/int4_pair_matmul.cu",
             "replaces": f"specdec_tpu/ops/quant_matmul.py:{line}",
-            "launches": launches["2d" if is_2d else "stacked"],
+            "launches": launches[key] + serve_launches[key],
+            "launches_by_path": {"spec_decode": launches[key],
+                                 "serving": serve_launches[key]},
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": total("ms", step), "plain_ms": total("plain_ms", step),
             "bound_ms": total("bound_ms", step), "bound_by": "bytes",
@@ -421,8 +733,28 @@ def main():
             "work": "M=1: " + ", ".join(f"{r['name']} {r['K']}x{r['N']}"
                                         for r in step),
             "shapes": timed})
-    say(f"[6 done] all phases passed in {time.perf_counter() - t0:.1f} s; "
-        f"largest kernel-vs-plain abs error {max_err:.3g}")
+    # the paged attention kernel: one CUDA kernel for K2 (4D pool) and K8a
+    # (a layer of the stacks, the wrapper the serving path calls); the
+    # top-level times are one verify call of the serving engine
+    serve_shape = next(r for r in paged_records
+                       if r["name"] == "serve" and "ms" in r)
+    entries.append({
+        "name": "paged_decode_attention (K8a stacked layer; K2 4D pool)",
+        "route": "cuda",
+        "source": "specdec_tpu_torch/ops/csrc/paged_attention.cu",
+        "replaces": "specdec_tpu/ops/paged_attention.py:258",
+        "also_replaces": "specdec_tpu/ops/paged_attention.py:26",
+        "launches": (serve_launches["paged_stacked"]
+                     + serve_launches["paged_4d"]),
+        "max_abs_err": paged_err,
+        **{k: serve_shape[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+        "work": "serving verify: B=8, T=9, Hq=32, Hk=4, Dh=64, page 64, "
+                "MP=9, bf16",
+        "shapes": [r for r in paged_records if "ms" in r]})
+    say(f"[7 done] all phases passed in {time.perf_counter() - t0:.1f} s; "
+        f"largest kernel-vs-plain abs error {max_err:.3g} (INT4), "
+        f"{paged_err:.3g} (paged attention)")
     say(card)
     say(json.dumps(summary))
     say(json.dumps({"kernels": entries}))

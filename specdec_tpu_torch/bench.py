@@ -19,11 +19,22 @@ prints one JSON line to stdout,
 "unit": "tokens/s", "vs_baseline": spec/AR speedup}``; everything else goes
 to stderr. Each measurement is one warm-up call and REPS timed calls,
 timed with CUDA events; tokens/s is the best of the timed calls.
+
+``python -m specdec_tpu_torch.bench --serve`` measures serving instead (the
+counterpart of ``tools/bench_paged.py::bench_serving``): 16 requests with
+prompt lengths drawn from ``default_rng(1).integers(30, 200)``, 128 new
+tokens each, no EOS, greedy, through the default engine
+(``PagedContinuousBatcher``: page 64, a pool of (slots+1)*S tokens, so no
+request is preempted) and the slotted ``ContinuousBatcher``, both with 8
+slots, gamma 8 and 8 windows per host sync. Each engine runs one warm-up
+pass and one timed pass; it prints one JSON line with aggregate tok/s, TTFT
+p50/p99, mean acceptance and preemptions per engine.
 """
 from __future__ import annotations
 
 import json
 import sys
+import time
 from typing import Callable, Dict, List
 
 import numpy as np
@@ -38,6 +49,7 @@ from specdec_tpu_torch.sampling.processors import (
     LogitsProcessor, MultinomialProcessor,
 )
 from specdec_tpu_torch.sampling.speculative import _spec_generate
+from specdec_tpu_torch.serve import ContinuousBatcher, PagedContinuousBatcher
 
 DRAFT_LAYERS = 4
 V = 32000
@@ -46,6 +58,14 @@ PROMPT_LEN = 60
 GAMMA = 12
 GEN = 256
 REPS = 3
+# serving measurement
+SERVE_REQUESTS = 16
+SERVE_SLOTS = 8
+SERVE_GAMMA = 8
+SERVE_GEN = 128
+SERVE_MAX_PROMPT = 256
+SERVE_PAGE = 64
+WINDOWS_PER_SYNC = 8
 
 
 def log(*a):
@@ -158,6 +178,90 @@ def measure_spec(d_cfg: ModelConfig, drafter, t_cfg: ModelConfig, target,
     return out
 
 
+def serving_prompts() -> List[List[int]]:
+    rng = np.random.default_rng(1)
+    return [[int(t) for t in rng.integers(1, V, size=int(n))]
+            for n in rng.integers(30, 200, size=SERVE_REQUESTS)]
+
+
+def make_batcher(paged: bool, pair, device):
+    """The serving engine on the pair: paged (the default engine) or
+    slotted."""
+    t_cfg, d_cfg, target, drafter = pair
+    kw = dict(num_slots=SERVE_SLOTS, gamma=SERVE_GAMMA,
+              max_prompt_len=SERVE_MAX_PROMPT, max_new_tokens=SERVE_GEN,
+              windows_per_sync=WINDOWS_PER_SYNC, eos_tokens_id=(),
+              device=device)
+    if not paged:
+        return ContinuousBatcher(d_cfg, drafter, t_cfg, target, **kw)
+    # a pool that backs every slot at full length: measures the paged path,
+    # not preemption
+    S = SERVE_MAX_PROMPT + SERVE_GEN + SERVE_GAMMA + 2
+    return PagedContinuousBatcher(d_cfg, drafter, t_cfg, target,
+                                  page_size=SERVE_PAGE,
+                                  pool_tokens=(SERVE_SLOTS + 1) * S, **kw)
+
+
+def serve_pass(batcher, prompts: List[List[int]]) -> dict:
+    """Submit every prompt at once and drain the batcher; host clock
+    around the run, which ends in a host read. Returns {seconds, tokens,
+    tok_s, ttft_p50_ms, ttft_p99_ms (numpy percentiles over requests),
+    acceptance (mean over requests), outputs (per request, in submission
+    order)}."""
+    ids = [batcher.submit(p, max_new_tokens=SERVE_GEN) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = batcher.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    reqs = [done[i] for i in ids]
+    batcher.completed.clear()
+    toks = sum(len(r.output_ids) for r in reqs)
+    ttft = np.percentile([r.metrics.ttft * 1e3 for r in reqs], [50, 99])
+    return {"seconds": dt, "tokens": toks, "tok_s": toks / dt,
+            "ttft_p50_ms": float(ttft[0]), "ttft_p99_ms": float(ttft[1]),
+            "acceptance": float(np.mean([r.metrics.acceptance_rate
+                                         for r in reqs])),
+            "outputs": [r.output_ids for r in reqs]}
+
+
+def measure_serving(paged: bool, pair, device=None) -> dict:
+    """One warm-up pass and one timed pass of one engine. Returns
+    {"engine", "warm", "timed", "preemptions", "batcher"}."""
+    device = resolve_device(device)
+    b = make_batcher(paged, pair, device)
+    prompts = serving_prompts()
+    warm = serve_pass(b, prompts)
+    timed = serve_pass(b, prompts)
+    return {"engine": "paged" if paged else "slotted", "warm": warm,
+            "timed": timed, "preemptions": getattr(b, "preemptions", 0),
+            "batcher": b}
+
+
+def main_serve() -> Dict[str, float]:
+    device = resolve_device(None)
+    log(f"device: {torch.cuda.get_device_name(device)}")
+    pair = build_pair(device)
+    rows = {}
+    for paged in (True, False):
+        r = measure_serving(paged, pair, device)
+        t = r["timed"]
+        log(f"{r['engine']}: {t['tokens']} tokens in {t['seconds']:.2f} s = "
+            f"{t['tok_s']:.1f} tok/s, TTFT p50 {t['ttft_p50_ms']:.0f} ms, "
+            f"p99 {t['ttft_p99_ms']:.0f} ms, acceptance "
+            f"{t['acceptance']:.3f}, preemptions {r['preemptions']}")
+        rows[r["engine"]] = {k: t[k] for k in (
+            "tok_s", "ttft_p50_ms", "ttft_p99_ms", "acceptance")}
+        rows[r["engine"]]["preemptions"] = r["preemptions"]
+    result = {"metric": "serve_int4_tokens_per_sec",
+              "value": round(rows["paged"]["tok_s"], 2), "unit": "tokens/s",
+              "vs_slotted": round(rows["paged"]["tok_s"]
+                                  / rows["slotted"]["tok_s"], 3),
+              "engines": rows}
+    print(json.dumps(result))
+    return result
+
+
 def main() -> Dict[str, float]:
     device = resolve_device(None)
     log(f"device: {torch.cuda.get_device_name(device)}")
@@ -179,4 +283,7 @@ def main() -> Dict[str, float]:
 
 
 if __name__ == "__main__":
-    main()
+    if "--serve" in sys.argv[1:]:
+        main_serve()
+    else:
+        main()

@@ -10,7 +10,8 @@ Unlike the JAX version, which returns new arrays, ``write_block`` writes the
 new block IN PLACE. ``with_length`` and ``rolled_back`` return a new
 ``KVCache`` that shares the ``k``/``v`` storage with the old one: after a
 forward, the old cache object sees the new entries too, and only its
-``length`` differs.
+``length`` differs. ``install_slot`` and ``zero_slot`` likewise edit the
+storage in place and return a cache with a new length tensor.
 """
 from __future__ import annotations
 
@@ -67,3 +68,29 @@ def write_block(layer_k: torch.Tensor, layer_v: torch.Tensor,
     layer_k.index_put_((rows, cols), new_k.to(layer_k.dtype))
     layer_v.index_put_((rows, cols), new_v.to(layer_v.dtype))
     return layer_k, layer_v
+
+
+def with_row_length(cache, slot: int, new_len):
+    """``cache`` (slotted or paged) with row ``slot`` of its length set. The
+    length tensor is copied, not edited: other caches may share it."""
+    length = cache.length.clone()
+    length[slot] = new_len
+    return cache.with_length(length)
+
+
+def install_slot(dst: KVCache, src: KVCache, slot: int, new_len) -> KVCache:
+    """Copy the batch-of-one cache ``src`` into ``dst``'s batch row ``slot``
+    (the scheduler's admission primitive) and set that row's length. The
+    rows are copied IN PLACE into ``dst``'s storage, so ``dst`` never aliases
+    ``src``; returns ``dst`` with the new length."""
+    dst.k[:, slot].copy_(src.k[:, 0])
+    dst.v[:, slot].copy_(src.v[:, 0])
+    return with_row_length(dst, slot, new_len)
+
+
+def zero_slot(cache: KVCache, slot: int, new_len) -> KVCache:
+    """Zero batch row ``slot`` in place and set its length (slot-recycling
+    hygiene for caches whose stale rows would otherwise be attended)."""
+    cache.k[:, slot].zero_()
+    cache.v[:, slot].zero_()
+    return with_row_length(cache, slot, new_len)

@@ -7,6 +7,9 @@ parallel residual, partial rotary, biases) and gemma (embedding scale, tied
 head), with an optional logit softcap. ``forward_step`` processes a [B, T]
 block against the slotted cache at per-sequence offsets: prefill, one-token
 decode and the (gamma+1)-token verify are the same function with another T.
+``forward_step_paged`` is the same forward over the paged pool
+(``core/paged_cache.py``), attending through the paged decode-attention
+kernel.
 
 Params are a dict of tensors whose layer leaves are STACKED with a leading
 L axis. The layer loop is a Python loop over ``range(L)``: dense leaves are
@@ -15,6 +18,7 @@ indexed (a view), and 4-bit containers are handed to ``qmatmul`` as
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -24,6 +28,9 @@ import torch.nn.functional as F
 from specdec_tpu_torch import resolve_device
 from specdec_tpu_torch.core.cache import KVCache, init_cache, write_block
 from specdec_tpu_torch.core.config import ModelConfig
+from specdec_tpu_torch.core.paged_cache import (
+    PagedKVCache, gather_pages, write_block_paged_stacked,
+)
 from specdec_tpu_torch.core.rope import apply_rope, rope_cos_sin
 from specdec_tpu_torch.quant.core import Int4Weight, StackedSlice, qmatmul
 
@@ -65,8 +72,10 @@ def _act(cfg: ModelConfig, x):
     raise ValueError(f"unknown activation {cfg.act}")
 
 
-def _attention(cfg: ModelConfig, q, k_all, v_all, q_pos):
+def masked_attention(q, k_all, v_all, q_pos, num_kv_heads: int,
+                     logit_softcap: float = 0.0):
     """q: [B, T, Hq, Dh]; k_all/v_all: [B, S, Hk, Dh]; q_pos: [B, T].
+    Returns [B, T, Hq * Dh] in v's dtype.
 
     The mask admits key position s iff s <= q_pos[b, t]; it covers
     causality, cache validity and staleness after rollback. Scores and
@@ -74,8 +83,8 @@ def _attention(cfg: ModelConfig, q, k_all, v_all, q_pos):
     never repeated."""
     B, T, Hq, Dh = q.shape
     S = k_all.shape[1]
-    Hk, G = cfg.num_kv_heads, cfg.q_per_kv
-    qg = q.reshape(B, T, Hk, G, Dh)
+    Hk = num_kv_heads
+    qg = q.reshape(B, T, Hk, Hq // Hk, Dh)
     # the f32 number 1/sqrt(Dh), as a host scalar (no host-to-device copy)
     scale = float(np.float32(1.0) / np.sqrt(np.float32(Dh)))
     scores = torch.einsum("bthgd,bshd->bhgts", qg.to(torch.float32),
@@ -83,8 +92,8 @@ def _attention(cfg: ModelConfig, q, k_all, v_all, q_pos):
     k_pos = torch.arange(S, device=q.device)
     mask = k_pos[None, None, :] <= q_pos[:, :, None]           # [B, T, S]
     scores = scores.masked_fill(~mask[:, None, None], _NEG_INF)
-    if cfg.logit_softcap > 0.0:
-        scores = torch.tanh(scores / cfg.logit_softcap) * cfg.logit_softcap
+    if logit_softcap > 0.0:
+        scores = torch.tanh(scores / logit_softcap) * logit_softcap
     probs = torch.softmax(scores, dim=-1).to(v_all.dtype)
     out = torch.einsum("bhgts,bshd->bthgd", probs, v_all)
     return out.reshape(B, T, Hq * Dh)
@@ -129,10 +138,10 @@ def _mlp_up(cfg: ModelConfig, lp: Params, m):
     return _act(cfg, up)
 
 
-def _block(cfg: ModelConfig, lp: Params, x, cos, sin, q_pos,
-           layer_k, layer_v, offsets):
-    """One transformer block over a [B, T, D] activation block; writes the
-    block's K/V into the layer's cache in place."""
+def _block(cfg: ModelConfig, lp: Params, x, cos, sin, attend):
+    """One transformer block over a [B, T, D] activation block.
+    ``attend(q, k, v)`` stores the block's K/V in the layer's cache (in
+    place) and returns the attention output [B, T, Hq * Dh]."""
     B, T, D = x.shape
     Hq, Hk, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
@@ -148,9 +157,7 @@ def _block(cfg: ModelConfig, lp: Params, x, cos, sin, q_pos,
     q = apply_rope(q, cos, sin, rd)
     k = apply_rope(k, cos, sin, rd)
 
-    write_block(layer_k, layer_v, k, v, offsets)
-    attn = _attention(cfg, q, layer_k, layer_v, q_pos)
-    attn = qmatmul(attn, lp["wo"])
+    attn = qmatmul(attend(q, k, v), lp["wo"])
     if cfg.attn_out_bias:
         attn = attn + lp["bo"]
 
@@ -177,13 +184,10 @@ def _layer_params(layers: Params, i: int) -> Params:
 
 
 def _forward_common(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                    cache: KVCache, q_pos: torch.Tensor,
-                    ) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
-    """embed -> layers -> final norm -> logits. Returns (logits f32,
-    features = the residual stream before the final norm, cache advanced by
-    T)."""
-    T = tokens.shape[1]
-    offsets = cache.length
+                    q_pos: torch.Tensor, layer_attend) -> torch.Tensor:
+    """embed -> layers -> final norm -> logits (f32).
+    ``layer_attend(i, q, k, v)`` is layer ``i``'s cache write and attention
+    (see ``_block``)."""
     cos, sin = rope_cos_sin(q_pos, cfg.rotary_dim, cfg.rope_theta,
                             scaling=cfg.rope_scaling)
     x = params["embed"][tokens].to(cfg.dtype)
@@ -194,10 +198,9 @@ def _forward_common(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
     layers = params["layers"]
     for i in range(cfg.num_layers):
-        x = _block(cfg, _layer_params(layers, i), x, cos, sin, q_pos,
-                   cache.k[i], cache.v[i], offsets)
+        x = _block(cfg, _layer_params(layers, i), x, cos, sin,
+                   functools.partial(layer_attend, i))
 
-    feats = x
     x = _norm(cfg, x, params["final_norm_w"], params.get("final_norm_b"))
     if cfg.tie_embeddings:
         logits = torch.einsum("btd,vd->btv", x.to(torch.float32),
@@ -206,7 +209,13 @@ def _forward_common(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         logits = qmatmul(x, params["lm_head"]).to(torch.float32)
     if cfg.logit_softcap > 0.0:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
-    return logits, feats, cache.with_length(cache.length + T)
+    return logits
+
+
+def _positions(cache, T: int) -> torch.Tensor:
+    """q_pos [B, T]: cache.length[b] + t."""
+    return cache.length[:, None] + torch.arange(
+        T, dtype=torch.int32, device=cache.length.device)[None, :]
 
 
 def forward_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -216,10 +225,64 @@ def forward_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     over everything written so far, and returns (logits [B, T, V] f32, the
     cache advanced by T)."""
     T = tokens.shape[1]
-    q_pos = cache.length[:, None] + torch.arange(
-        T, dtype=torch.int32, device=tokens.device)[None, :]
-    logits, _, cache = _forward_common(cfg, params, tokens, cache, q_pos)
-    return logits, cache
+    q_pos = _positions(cache, T)
+
+    def attend(i, q, k, v):
+        write_block(cache.k[i], cache.v[i], k, v, cache.length)
+        return masked_attention(q, cache.k[i], cache.v[i], q_pos,
+                                cfg.num_kv_heads, cfg.logit_softcap)
+
+    logits = _forward_common(cfg, params, tokens, q_pos, attend)
+    return logits, cache.with_length(cache.length + T)
+
+
+def forward_step_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                       cache: PagedKVCache, use_kernel: Optional[bool] = None,
+                       ) -> Tuple[torch.Tensor, PagedKVCache]:
+    """``forward_step`` over a ``PagedKVCache``: the same math, with K/V in
+    a page pool addressed through per-sequence page tables. Each layer
+    writes its block through the page table into the stacked pools in
+    place, then attends through the paged decode-attention kernel on layer
+    ``i`` of the stacks (``ops/paged_attention.py``; on a CPU tensor its
+    wrapper computes the plain version).
+
+    ``use_kernel=None`` takes the kernel unless the model soft-caps its
+    attention logits, which the kernel does not do; such models gather the
+    pages and run ``masked_attention``, as the JAX dispatch does. ``True``
+    forces the kernel (and raises for a softcap model), ``False`` the
+    gather path. The CUDA kernel tiles query rows over blocks, so any T
+    takes it."""
+    from specdec_tpu_torch.ops.paged_attention import (
+        paged_decode_attention_stacked,
+    )
+
+    if use_kernel is None:
+        use_kernel = cfg.logit_softcap == 0.0
+    elif use_kernel and cfg.logit_softcap != 0.0:
+        raise ValueError("the paged attention kernel has no logit softcap; "
+                         "use_kernel=True needs logit_softcap == 0")
+    B, T = tokens.shape
+    q_pos = _positions(cache, T)
+    table, offsets = cache.page_table, cache.length
+
+    def attend(i, q, k, v):
+        write_block_paged_stacked(cache.k, cache.v, i, k, v, table, offsets,
+                                  cache.page_size)
+        if use_kernel:
+            out = paged_decode_attention_stacked(q, cache.k, cache.v, i,
+                                                 table, offsets)
+            return out.reshape(B, T, -1)
+        return masked_attention(q, gather_pages(cache.k[i], table),
+                                gather_pages(cache.v[i], table), q_pos,
+                                cfg.num_kv_heads, cfg.logit_softcap)
+
+    logits = _forward_common(cfg, params, tokens, q_pos, attend)
+    forward_step_paged.calls += 1
+    return logits, cache.with_length(cache.length + T)
+
+
+# target paged forwards (a run's kernel launches are checked against it)
+forward_step_paged.calls = 0
 
 
 def forward_full(cfg: ModelConfig, params: Params,

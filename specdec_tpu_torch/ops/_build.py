@@ -24,11 +24,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _c_void_p, _c_int, _c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_c_float = ctypes.c_float
 # C signature of each kernel library's entry point
 SIGNATURES = {
     "int4_pair_matmul": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
                          _c_int, _c_int, _c_int, _c_ll, _c_ll, _c_ll,
                          _c_void_p],
+    "paged_attention": [_c_void_p] * 6 + [_c_int] * 8
+                       + [_c_ll, _c_ll, _c_float, _c_void_p],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -5,5 +5,6 @@ from specdec_tpu_torch.sampling.processors import (
     TopKProcessor,
     NucleusProcessor,
     TopKNucleusProcessor,
+    PerSlotProcessor,
     build_processor,
 )

@@ -53,6 +53,26 @@ class LogitsProcessor:
         """Sample straight from logits (the AR loop's fast path)."""
         return self.sample(self(logits), generator)
 
+    # --- batched entry points (serving). ``samp`` is an optional per-row
+    # [B, 3] (temperature, top_k, top_p) tensor carried by BatchState; the
+    # uniform processors ignore it, PerSlotProcessor consumes it. One
+    # generator draws for every row.
+
+    def batched(self, logits: torch.Tensor,
+                samp: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self(logits)
+
+    def sample_batched(self, probs: torch.Tensor,
+                       generator: Optional[torch.Generator],
+                       samp: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.sample(probs, generator)
+
+    def sample_from_logits_batched(self, logits: torch.Tensor,
+                                   generator: Optional[torch.Generator],
+                                   samp: Optional[torch.Tensor] = None
+                                   ) -> torch.Tensor:
+        return self.sample_from_logits(logits, generator)
+
 
 class GreedyProcessor(LogitsProcessor):
     """Argmax; ties go to the first maximal index, as ``jnp.argmax``."""
@@ -129,6 +149,77 @@ class TopKNucleusProcessor(MultinomialProcessor):
         return NucleusProcessor(self.temperature, self.top_p)._process(logits)
 
     sample_from_logits = LogitsProcessor.sample_from_logits
+
+
+class PerSlotProcessor(LogitsProcessor):
+    """Per-request sampling params for batched serving (vLLM SamplingParams
+    semantics). Each batch row carries its own (temperature, top_k, top_p)
+    in a [B, 3] float32 tensor (``BatchState.samp``).
+
+    Per row: top-k filter (``top_k <= 0`` disables), then the nucleus
+    filter over the survivors with the untempered-cumsum boundary of
+    ``NucleusProcessor`` (``top_p >= 1`` disables), then the temperature
+    softmax. ``temperature <= 1e-5`` means greedy: the tempered softmax
+    underflows to the one-hot argmax distribution, so speculative
+    accept/reject stays exact for greedy rows, and the draw is the argmax.
+    """
+
+    _GREEDY_EPS = 1e-5
+
+    def batched(self, logits, samp):
+        f = logits.to(torch.float32)
+        V = f.shape[-1]
+        lead = (f.shape[0],) + (1,) * (f.dim() - 1)  # row scalar -> [B,1,..]
+        temp = samp[:, 0].reshape(lead)
+        top_k = samp[:, 1].to(torch.int64).reshape(lead)
+        top_p = samp[:, 2].reshape(lead)
+
+        # top-k: threshold at each row's k-th largest logit
+        use_k = (top_k > 0) & (top_k < V)
+        k = torch.clamp(top_k, 1, V)
+        sorted_desc = torch.sort(f, dim=-1, descending=True).values
+        kth = torch.gather(sorted_desc, -1,
+                           (k - 1).expand(f.shape[:-1] + (1,)))
+        f = torch.where(use_k & (f < kth), _FILTER_VALUE, f)
+
+        # nucleus over the k-survivors (TopKNucleusProcessor's order)
+        use_p = top_p < 1.0
+        sorted2 = torch.sort(f, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted2, dim=-1), dim=-1)
+        remove_sorted = cum > top_p
+        remove_sorted = torch.cat(
+            [torch.zeros_like(remove_sorted[..., :1]), remove_sorted[..., :-1]],
+            dim=-1)
+        kept = torch.where(remove_sorted, torch.inf, sorted2)
+        threshold = torch.amin(kept, dim=-1, keepdim=True)
+        f = torch.where(use_p & (f < threshold), _FILTER_VALUE, f)
+
+        return torch.softmax(f / torch.clamp_min(temp, self._GREEDY_EPS),
+                             dim=-1)
+
+    def sample_batched(self, probs, generator, samp):
+        mult = _gumbel_argmax(torch.log(torch.clamp_min(probs, 1e-38)),
+                              generator)
+        greedy = torch.argmax(probs, dim=-1)
+        is_greedy = (samp[:, 0] <= self._GREEDY_EPS).reshape(
+            (probs.shape[0],) + (1,) * (mult.dim() - 1))
+        return torch.where(is_greedy, greedy, mult)
+
+    def sample_from_logits_batched(self, logits, generator, samp):
+        return self.sample_batched(self.batched(logits, samp), generator,
+                                   samp)
+
+    def __call__(self, logits):
+        raise TypeError("PerSlotProcessor needs per-row params; use "
+                        "batched(logits, samp) (serving path only)")
+
+    @staticmethod
+    def row(temperature: float = 1.0, top_k: int = 0,
+            top_p: float = 1.0) -> torch.Tensor:
+        """One request's [3] param row (CPU); temperature <= 1e-5 is
+        greedy."""
+        return torch.tensor([float(temperature), float(top_k), float(top_p)],
+                            dtype=torch.float32)
 
 
 _REGISTRY = {

@@ -43,14 +43,16 @@ def accept_step(p_all: torch.Tensor, q_all: torch.Tensor,
                 processor: LogitsProcessor,
                 generator: Optional[torch.Generator],
                 skip_sample_adjustment: bool = False,
+                samp: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The accept / residual step over a leading batch axis.
 
     p_all: [B, gamma+1, V] target distributions; q_all: [B, gamma, V]
     drafter distributions; drafts: [B, gamma] drafted tokens; r: [B, gamma]
-    uniform draws. Returns (n [B] accepted drafts, next_tok [B]): the bonus
-    token from p_all[:, gamma] when n == gamma, else a draw from the
-    residual at position n."""
+    uniform draws; samp: per-row sampling params for
+    ``processor.sample_batched`` (serving). Returns (n [B] accepted drafts,
+    next_tok [B]): the bonus token from p_all[:, gamma] when n == gamma,
+    else a draw from the residual at position n."""
     B, g1, _ = p_all.shape
     gamma = g1 - 1
     p_x = p_all[:, :gamma].gather(-1, drafts[..., None])[..., 0]
@@ -70,7 +72,7 @@ def accept_step(p_all: torch.Tensor, q_all: torch.Tensor,
         resample_dist = torch.where(has_mass[:, None], residual, p_n)
     next_dist = torch.where((n == gamma)[:, None], p_all[:, gamma],
                             resample_dist)
-    return n, processor.sample(next_dist, generator)
+    return n, processor.sample_batched(next_dist, generator, samp)
 
 
 def commit_step(drafts: torch.Tensor, n: torch.Tensor,

@@ -33,7 +33,11 @@ def test_no_jax_import(path):
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, specdec_tpu_torch, specdec_tpu_torch.bench, "
-            "specdec_tpu_torch.bridge; "
+            "specdec_tpu_torch.bridge, specdec_tpu_torch.serve, "
+            "specdec_tpu_torch.serve.streaming, "
+            "specdec_tpu_torch.engine.batch_engine, "
+            "specdec_tpu_torch.core.paged_cache, "
+            "specdec_tpu_torch.ops.paged_attention; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; "
             "assert not bad, bad; print('ok')")
