@@ -19,26 +19,41 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 3b. kernel vs plain, paged attention: the paged decode-attention kernel,
    through both wrappers (a 4D pool, and a layer of stacked pools, which
    must agree bit for bit), against its plain version in float32 and bf16
-   at the decode, verify, long-context and serving shapes; its time beside
-   the plain version's, ``scaled_dot_product_attention`` over K/V gathered
-   beforehand (a yardstick the port never calls) and the bound;
+   at the decode, verify, long-context and serving shapes, over bf16/f32
+   pools and over int8 pools with their scales; its time beside the plain
+   version's, ``scaled_dot_product_attention`` over K/V gathered (and, for
+   int8, dequantized) beforehand (a yardstick the port never calls) and
+   the bound;
+3c. kernel vs plain, flash-decode attention: the slotted-cache kernel over
+   K/V of q's type and over int8 K/V, in float32 and bf16, at the shapes
+   the main paths give it (single sequence B=1, S=334, T = 1, 2, 13, 64;
+   the serving drafter B=8, T = 1, 2 over the batcher's S; the admission
+   prefill T=256), offsets up to S; a row's result must not depend on T;
+   times beside the plain version's, SDPA over the live K/V and the bound;
 4. greedy oracle: greedy self-draft speculative decoding equals greedy AR
    on the card (full widths, 2 layers, float32 activations, kernel on every
-   projection);
+   projection), with the plain attention and with int8 KV under the
+   flash-decode kernel; int8-KV prefill logits stay within 8% (relative
+   max error) of bf16-KV logits;
 4b. serving oracle: the default serving engine (``PagedContinuousBatcher``,
    self-draft, greedy, more requests than slots) gives every request
    greedy AR's tokens with acceptance 1.0 (full widths, 2 layers, float32),
    also with prefix caching and chunked prefill on prompts that share a
-   prefix;
+   prefix; with bf16 KV and with int8 KV under the flash-decode kernel;
 5. main path, single sequence: ``specdec_tpu_torch.bench``'s 22-layer INT4
    LayerSkip pair, AR and speculative decoding (gamma 12, 256 tokens), with
-   the kernel's launch counts checked against what the configuration
-   implies, and a profile of the card's busy share;
+   the kernels' launch counts checked against what the configuration
+   implies, and a profile of the card's busy share; again with
+   ``--kv-quant int8 --attn flash`` (every attention on the int8
+   flash-decode kernel) and, with fewer timed calls, ``--attn flash``
+   (the flash-decode kernel over bf16 KV);
 6. main path, serving: ``bench.measure_serving`` on the same pair, the
    paged engine and the slotted one (16 requests x 128 tokens, 8 slots,
    gamma 8), with every page back in the pool, launch counts checked (the
-   attention kernel once per target layer per paged forward) and a profile
-   of the card's busy share.
+   paged attention kernel once per target layer per paged forward, the
+   int8 flash-decode kernel on every slotted forward) and a profile of the
+   card's busy share; with bf16 KV and with ``--kv-quant int8 --attn
+   flash``.
 
 Any failed phase exits 1 (without a CUDA device, or outside a checkout,
 too, before any result is printed). Standard output ends with the card's
@@ -91,11 +106,38 @@ PAGED_SHAPES = [
     ("serve", 8, 9, SERVE_TABLE_PAGES,
      [60, 150, 230, 320, 90, 200, 280, 330]),
 ]
-# kernel vs plain: float32 sides differ in summation order only (online
-# vs dense softmax); bf16 adds the rounding of the probabilities before
-# P.V and of the output, one bf16 ulp (2**-7 at |out| in [1, 2))
-PAGED_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
-             torch.bfloat16: dict(rtol=1e-2, atol=2e-2)}
+# kernel vs plain, float32: the sides differ in summation order only
+# (online vs dense softmax)
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+# kernel vs plain, bf16: scores and softmax statistics are f32 on both
+# sides; each rounds every probability (times its v-scale) to bf16 before
+# P.V, the plain version after normalizing and the kernel before, against
+# its running max, with a relative error of at most BF16_U each; so their
+# f32 sums differ by at most 2 * BF16_U * sum_s p_s |v_s| (the attention
+# of |V|), and each rounds its output to bf16 once: one ulp. Elementwise,
+# |kernel - plain| <= ulp + 2 * BF16_U * (P.|V|) (check_attention)
+BF16_U = 2.0 ** -8
+
+# flash-decode shapes (the pair's heads Hq=32, Hk=4, Dh=64): (label, B, S, T,
+# offsets). Single sequence: the speculative loop's cache capacity S =
+# 64 + 256 + 12 + 2, T = 1 (AR and draft step), 2 (drafter catch-up), 13
+# (gamma-12 verify) and 64 (prefill); serving: the slotted drafter's draft
+# step and catch-up over the batcher's S = 256 + 128 + 8 + 2, 8 slots, and
+# the dense admission prefill of max_prompt_len = 256 rows. Offsets reach
+# S - T.
+SINGLE_S, SERVE_S = 334, 394
+FLASH_SHAPES = [
+    ("decode", 1, SINGLE_S, 1, [333]),
+    ("catch-up", 1, SINGLE_S, 2, [150]),
+    ("verify", 1, SINGLE_S, 13, [321]),
+    ("prefill", 1, SINGLE_S, 64, [0]),
+    ("serve-draft", 8, SERVE_S, 1, [0, 5, 63, 64, 200, 300, 391, 393]),
+    ("serve-catch-up", 8, SERVE_S, 2, [1, 7, 62, 130, 257, 333, 390, 392]),
+    ("admission", 1, SERVE_S, 256, [0]),
+]
+# row independence: the rows of a T=64 call at one offset against the same
+# rows of calls at smaller T
+ROW_CHECK_T = (1, 2, 13)
 
 
 def say(*a):
@@ -241,8 +283,15 @@ def phase_kernel(target, device):
     return records, max_err
 
 
-def phase_oracle(device):
-    """Greedy self-draft speculative == greedy AR, on the kernel."""
+# the configurations the oracles and main paths run besides the default
+# (bf16 KV, plain attention on the slotted cache): ModelConfig fields
+KVINT8_FLASH = dict(kv_quant="int8", attention_impl="flash")
+FLASH = dict(attention_impl="flash")
+
+
+def phase_oracle(device, label="bf16 KV", **cfg_kw):
+    """Greedy self-draft speculative == greedy AR, on the kernels, in the
+    configuration ``cfg_kw`` (ModelConfig fields)."""
     from specdec_tpu_torch import bench
     from specdec_tpu_torch.core.model import forward_full, init_params
     from specdec_tpu_torch.quant.core import quantize_params
@@ -251,7 +300,7 @@ def phase_oracle(device):
     )
     from specdec_tpu_torch.sampling.speculative import speculative_generate
 
-    cfg = bench.target_config(num_layers=2, dtype=torch.float32)
+    cfg = bench.target_config(num_layers=2, dtype=torch.float32, **cfg_kw)
     gen = torch.Generator(device=device).manual_seed(1)
     params = quantize_params(
         init_params(cfg, scale=0.02, device=device, generator=gen),
@@ -263,12 +312,13 @@ def phase_oracle(device):
                                       gamma=bench.GAMMA, max_gen_len=64,
                                       eos_tokens_id=(), device=device)
     if len(ar) != 64 or len(spec) != 64:
-        fail(f"oracle: {len(ar)} AR and {len(spec)} spec tokens, not 64")
+        fail(f"oracle ({label}): {len(ar)} AR and {len(spec)} spec tokens, "
+             "not 64")
     if spec == ar:
         if rate != 1.0:
-            fail(f"oracle: tokens equal but acceptance {rate}")
-        say(f"[4 oracle] greedy self-draft spec == greedy AR over 64 tokens "
-            f"(2 layers, float32 activations), acceptance {rate}")
+            fail(f"oracle ({label}): tokens equal but acceptance {rate}")
+        say(f"[4 oracle] {label}: greedy self-draft spec == greedy AR over "
+            f"64 tokens (2 layers, float32 activations), acceptance {rate}")
         return
     i = next(j for j, (a, b) in enumerate(zip(ar, spec)) if a != b)
     toks = torch.tensor([prompt + ar[:i]], device=device)
@@ -276,108 +326,401 @@ def phase_oracle(device):
     gap = top2[0] - top2[1]
     ulp = 2.0 ** (math.floor(math.log2(abs(top2[0]))) - 7)
     if i < 16 or gap > ulp:
-        fail(f"oracle: spec diverges from AR at token {i} where the "
-             f"target's top-2 logit gap {gap:.3g} exceeds one bf16 ulp "
+        fail(f"oracle ({label}): spec diverges from AR at token {i} where "
+             f"the target's top-2 logit gap {gap:.3g} exceeds one bf16 ulp "
              f"({ulp:.3g}), or before token 16")
-    say(f"[4 oracle] spec == AR for the first {i} tokens; token {i} is a "
-        f"tie within one bf16 ulp (top-2 gap {gap:.3g} <= {ulp:.3g}); "
+    say(f"[4 oracle] {label}: spec == AR for the first {i} tokens; token {i} "
+        f"is a tie within one bf16 ulp (top-2 gap {gap:.3g} <= {ulp:.3g}); "
         f"acceptance {rate:.4f}")
 
 
-def paged_bound_ms(B, T, Hq, Hk, Dh, page, MP, offsets):
-    """Least time for one bf16 paged attention call: the live K and V pages
-    of each sequence ((offset+T-1)//page + 1 of them, per KV head), q, out,
-    the table and the offsets at HBM_BYTES_PER_S, or the products of the
-    keys each query attends (offset+t+1 of them; q.k and p.v, a multiply
-    and an add each) at the bf16 rate, whichever is longer. Returns (ms,
-    "bytes" | "operations")."""
-    esize = 2
-    live = sum(min((o + T - 1) // page, MP - 1) + 1 for o in offsets)
-    nbytes = (2 * live * Hk * page * Dh * esize + 2 * B * T * Hq * Dh * esize
-              + B * MP * 4 + B * 4)
-    keys = sum(min(o + t + 1, MP * page) for o in offsets for t in range(T))
+def phase_kv_error(pair, device):
+    """Bounded error of the int8 KV cache at full width: the prefill logits
+    of the bench prompt with int8 KV against bf16 KV, on the pair's target
+    under the flash-decode kernel, within a relative max error of 0.08
+    (tests/test_kv_quant.py's bound)."""
+    from specdec_tpu_torch import bench
+    from specdec_tpu_torch.core.cache import init_cache
+    from specdec_tpu_torch.core.model import forward_step
+
+    t_cfg, _, target, _ = pair
+    toks = torch.tensor([bench.bench_prompt()], device=device)
+    logits = {}
+    for kv in ("none", "int8"):
+        cfg = t_cfg.replace(kv_quant=kv, attention_impl="flash")
+        logits[kv], _ = forward_step(cfg, target, toks,
+                                     init_cache(cfg, 1, toks.shape[1],
+                                                device=device))
+    err = ((logits["int8"] - logits["none"]).abs().max()
+           / logits["none"].abs().max()).item()
+    if not err < 0.08:
+        fail(f"int8 KV: prefill logits off bf16 KV's by {err:.3g} "
+             "(relative max error), not < 0.08")
+    say(f"[4 oracle] int8 KV prefill logits vs bf16 KV (22 layers, flash "
+        f"kernels): relative max error {err:.4f} < 0.08")
+    return err
+
+
+def attention_bound_ms(live_positions, B, T, Hq, Hk, Dh, keys, int8=False,
+                       index_bytes=0):
+    """Least time for one bf16 attention call: the live K and V
+    (``live_positions`` summed over the batch, x Hk x Dh, one byte each
+    for int8 with a 4-byte scale per position and head, two for bf16), q
+    and out (bf16) and ``index_bytes`` of tables and offsets at
+    HBM_BYTES_PER_S, or the products of the ``keys`` every query row
+    attends (q.k and p.v, a multiply and an add each, for each of the Hq
+    heads) at the bf16 rate, whichever is longer. Returns (ms, "bytes" |
+    "operations")."""
+    kv = live_positions * Hk * (Dh + 4 if int8 else 2 * Dh)
+    nbytes = 2 * kv + 2 * B * T * Hq * Dh * 2 + index_bytes
     ops = 4 * Hq * Dh * keys
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def paged_bound_ms(B, T, Hq, Hk, Dh, page, MP, offsets, int8=False):
+    """``attention_bound_ms`` of a paged call: each sequence's live
+    positions min(offset + T, MP * page), the table entries of its live
+    pages and the offsets; the keys each query attends are offset+t+1."""
+    live = [min(o + T, MP * page) for o in offsets]
+    pages = sum(-(-n // page) for n in live)
+    keys = sum(min(o + t + 1, MP * page) for o in offsets for t in range(T))
+    return attention_bound_ms(sum(live), B, T, Hq, Hk, Dh, keys, int8,
+                              pages * 4 + B * 4)
+
+
+def sdpa_args(q, k, v, offsets, k_scale=None, v_scale=None):
+    """Arguments of the SDPA yardstick over dense [B, S, Hk, Dh] K/V:
+    dequantized to q's type beforehand for int8, GQA-expanded, with the
+    kernel's mask; built outside the timed call."""
+    B, T, Hq, Dh = q.shape
+    S, Hk = k.shape[1], k.shape[2]
+    if k_scale is not None:
+        k = (k.float() * k_scale[..., None]).to(q.dtype)
+        v = (v.float() * v_scale[..., None]).to(q.dtype)
+    kg = k.permute(0, 2, 1, 3).repeat_interleave(Hq // Hk, dim=1)
+    vg = v.permute(0, 2, 1, 3).repeat_interleave(Hq // Hk, dim=1)
+    q_pos = offsets[:, None] + torch.arange(T, device=q.device)
+    mask = (torch.arange(S, device=q.device)[None, None, :]
+            <= q_pos[:, :, None])[:, None]
+    return (q.permute(0, 2, 1, 3).contiguous(), kg.contiguous(),
+            vg.contiguous(), mask)
+
+
+def bf16_ulp(x):
+    """One bf16 ulp at |x| (2**-7 in [1, 2)); below the smallest normal,
+    its ulp."""
+    a = x.abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def check_attention(what, got, plain, pv_abs=None):
+    """Kernel against plain: float32 within F32_TOL; bf16 elementwise within
+    one ulp plus 2 * BF16_U * ``pv_abs`` (the plain version's attention of
+    |V|, in float32; see BF16_U). Returns the max abs error and, for bf16,
+    the worst error in ulps, the share of elements within one ulp and the
+    worst error over its allowance."""
+    got, plain = got.float(), plain.float()
+    diff = (got - plain).abs()
+    err = diff.max().item()
+    if pv_abs is None:
+        if not torch.allclose(got, plain, **F32_TOL):
+            fail(f"{what}: kernel vs plain max abs err {err:.3g} beyond "
+                 f"{F32_TOL}")
+        return {"max_abs_err": err}
+    ulp = bf16_ulp(torch.maximum(got.abs(), plain.abs()))
+    ratio = (diff / (ulp + 2 * BF16_U * pv_abs.float())).max().item()
+    if not ratio <= 1.0:
+        fail(f"{what}: kernel vs plain beyond one bf16 ulp + 2 * 2**-8 * "
+             f"P.|V| (worst error {ratio:.3g} of its allowance)")
+    ulps = diff / ulp
+    return {"max_abs_err": err, "max_ulps": ulps.max().item(),
+            "within_1ulp": (ulps <= 1.0).float().mean().item(),
+            "bound_ratio": ratio}
+
+
+def tol_summary(recs):
+    """The tolerances of a phase's comparisons and how close bf16 came."""
+    bf = [r for r in recs if r["dtype"] == "bfloat16"]
+    return (f"float32 within {F32_TOL}; bf16 within one ulp + 2 * 2**-8 * "
+            f"P.|V| (worst {max(r['bound_ratio'] for r in bf):.2f} of it; "
+            f"{min(r['within_1ulp'] for r in bf):.1%}-"
+            f"{max(r['within_1ulp'] for r in bf):.1%} of elements within "
+            "one ulp)")
+
+
 def phase_paged_kernel(device):
     """The paged attention kernel vs its plain version at PAGED_SHAPES, in
-    float32 and bf16, through both wrappers. Returns the per-shape records
-    (timed in bf16, the main path's type) and the largest absolute
+    float32 and bf16, through both wrappers, over pools of q's type and
+    over int8 pools with scales (quantized from the same kind of random
+    pools). Returns the per-shape records of each pool format (timed in
+    bf16, the main path's type) and each format's largest absolute
     error."""
-    from specdec_tpu_torch.core.paged_cache import gather_pages
+    from specdec_tpu_torch.core.cache import quantize_kv_block
+    from specdec_tpu_torch.core.paged_cache import (
+        gather_page_scales, gather_pages,
+    )
     from specdec_tpu_torch.ops import paged_attention as pa
 
     Hq, Hk, Dh, page = PAGED_HEADS
     gen = torch.Generator(device=device).manual_seed(4321)
     flush = torch.zeros(256 * 2 ** 20, dtype=torch.uint8, device=device)
-    records, max_err = [], 0.0
+    records, max_err = {"bf16": [], "int8": []}, {"bf16": 0.0, "int8": 0.0}
     for label, B, T, MP, offsets in PAGED_SHAPES:
         NP = B * MP + 1
         table = (1 + torch.randperm(NP - 1, generator=gen, device=device)
                  )[:B * MP].reshape(B, MP).to(torch.int32)
         off = torch.tensor(offsets, dtype=torch.int32, device=device)
-        for dtype in (torch.float32, torch.bfloat16):
-            ks, vs = (torch.randn((2, NP, Hk, page, Dh), generator=gen,
-                                  device=device).to(dtype) for _ in range(2))
-            q = torch.randn((B, T, Hq, Dh), generator=gen,
-                            device=device).to(dtype)
-            k2 = pa.paged_decode_attention(q, ks[1], vs[1], table, off)
-            k8 = pa.paged_decode_attention_stacked(q, ks, vs, 1, table, off)
-            torch.cuda.synchronize()
-            if not torch.equal(k2, k8):
-                fail(f"paged {label} {dtype}: the stacked wrapper (layer 1) "
-                     "differs from the 4D wrapper on that layer")
-            plain = pa.paged_attention_reference(q, ks[1], vs[1], table, off)
-            err = (k2.float() - plain.float()).abs().max().item()
-            if not torch.allclose(k2.float(), plain.float(),
-                                  **PAGED_TOL[dtype]):
-                fail(f"paged {label} {dtype}: kernel vs plain max abs err "
-                     f"{err:.3g} beyond {PAGED_TOL[dtype]}")
-            max_err = max(max_err, err)
-            rec = {"name": label, "dtype": str(dtype).split(".")[-1],
-                   "B": B, "T": T, "MP": MP, "offsets": offsets,
-                   "max_abs_err": err}
-            if dtype == torch.bfloat16:
-                # yardstick: SDPA over K/V gathered (and GQA-expanded)
-                # beforehand, the same mask; only the SDPA call is timed
-                S = MP * page
-                kg = gather_pages(ks[1], table).permute(0, 2, 1, 3)
-                vg = gather_pages(vs[1], table).permute(0, 2, 1, 3)
-                kg = kg.repeat_interleave(Hq // Hk, dim=1).contiguous()
-                vg = vg.repeat_interleave(Hq // Hk, dim=1).contiguous()
-                qt = q.permute(0, 2, 1, 3).contiguous()
-                q_pos = off[:, None] + torch.arange(T, device=device)
-                mask = (torch.arange(S, device=device)[None, None, :]
-                        <= q_pos[:, :, None])[:, None]
-                b, by = paged_bound_ms(B, T, Hq, Hk, Dh, page, MP, offsets)
-                rec.update(
-                    ms=gpu_ms(lambda: pa.paged_decode_attention_stacked(
-                        q, ks, vs, 1, table, off), flush),
-                    plain_ms=gpu_ms(lambda: pa.paged_attention_reference(
-                        q, ks[1], vs[1], table, off), flush),
-                    library_ms=gpu_ms(lambda: F.scaled_dot_product_attention(
-                        qt, kg, vg, attn_mask=mask), flush),
-                    bound_ms=b, bound_by=by)
-                say(f"[3b paged] {label:6s} B={B} T={T} MP={MP}: kernel "
-                    f"{rec['ms'] * 1e3:7.1f} us, plain "
-                    f"{rec['plain_ms'] * 1e3:7.1f} us, SDPA "
-                    f"{rec['library_ms'] * 1e3:7.1f} us, bound "
-                    f"{b * 1e3:5.1f} us ({by}); max abs err {err:.3g}")
-            records.append(rec)
-    say(f"[3b paged] all {len(records)} comparisons within "
-        f"{ {str(k).split('.')[-1]: v for k, v in PAGED_TOL.items()} }; "
-        "stacked == 4D bit for bit")
+        pools = [torch.randn((2, NP, Hk, page, Dh), generator=gen,
+                             device=device) for _ in range(2)]
+        (kq, kss), (vq, vss) = (quantize_kv_block(p) for p in pools)
+        for fmt in ("bf16", "int8"):
+            for dtype in (torch.float32, torch.bfloat16):
+                q = torch.randn((B, T, Hq, Dh), generator=gen,
+                                device=device).to(dtype)
+                if fmt == "int8":
+                    stack = (kq, kss, vq, vss)
+                    layer = [a[1] for a in stack]
+                    k4 = pa.paged_decode_attention_quant(q, *layer, table,
+                                                         off)
+                    k8 = pa.paged_decode_attention_quant_stacked(
+                        q, *stack, 1, table, off)
+                    plain = pa.paged_attention_reference(
+                        q, layer[0], layer[2], table, off, layer[1],
+                        layer[3])
+                    pv_abs = pa.paged_attention_reference(
+                        q.float(), layer[0], layer[2].abs(), table, off,
+                        layer[1], layer[3])
+                else:
+                    ks, vs = (p.to(dtype) for p in pools)
+                    k4 = pa.paged_decode_attention(q, ks[1], vs[1], table,
+                                                   off)
+                    k8 = pa.paged_decode_attention_stacked(q, ks, vs, 1,
+                                                           table, off)
+                    plain = pa.paged_attention_reference(q, ks[1], vs[1],
+                                                         table, off)
+                    pv_abs = pa.paged_attention_reference(
+                        q.float(), ks[1].float(), vs[1].float().abs(),
+                        table, off)
+                torch.cuda.synchronize()
+                what = f"paged {label} {fmt} pool, q {dtype}"
+                if not torch.equal(k4, k8):
+                    fail(f"{what}: the stacked wrapper (layer 1) differs "
+                         "from the 4D wrapper on that layer")
+                rec = {"name": label, "pool": fmt,
+                       "dtype": str(dtype).split(".")[-1], "B": B, "T": T,
+                       "MP": MP, "offsets": offsets,
+                       **check_attention(what, k4, plain,
+                                         pv_abs if dtype == torch.bfloat16
+                                         else None)}
+                err = rec["max_abs_err"]
+                max_err[fmt] = max(max_err[fmt], err)
+                if dtype == torch.bfloat16:
+                    # yardstick: SDPA over K/V gathered (dequantized for
+                    # int8) and GQA-expanded beforehand, the same mask;
+                    # only the SDPA call is timed
+                    if fmt == "int8":
+                        lib = sdpa_args(
+                            q, gather_pages(kq[1], table),
+                            gather_pages(vq[1], table), off,
+                            gather_page_scales(kss[1], table),
+                            gather_page_scales(vss[1], table))
+
+                        def kern():
+                            return pa.paged_decode_attention_quant_stacked(
+                                q, *stack, 1, table, off)
+
+                        def ref():
+                            return pa.paged_attention_reference(
+                                q, layer[0], layer[2], table, off, layer[1],
+                                layer[3])
+                    else:
+                        lib = sdpa_args(q, gather_pages(ks[1], table),
+                                        gather_pages(vs[1], table), off)
+
+                        def kern():
+                            return pa.paged_decode_attention_stacked(
+                                q, ks, vs, 1, table, off)
+
+                        def ref():
+                            return pa.paged_attention_reference(
+                                q, ks[1], vs[1], table, off)
+                    b, by = paged_bound_ms(B, T, Hq, Hk, Dh, page, MP,
+                                           offsets, int8=fmt == "int8")
+                    rec.update(
+                        ms=gpu_ms(kern, flush), plain_ms=gpu_ms(ref, flush),
+                        library_ms=gpu_ms(
+                            lambda: F.scaled_dot_product_attention(
+                                lib[0], lib[1], lib[2], attn_mask=lib[3]),
+                            flush),
+                        bound_ms=b, bound_by=by)
+                    say(f"[3b paged] {label:6s} {fmt} B={B} T={T} MP={MP}: "
+                        f"kernel {rec['ms'] * 1e3:7.1f} us, plain "
+                        f"{rec['plain_ms'] * 1e3:7.1f} us, SDPA "
+                        f"{rec['library_ms'] * 1e3:7.1f} us, bound "
+                        f"{b * 1e3:5.2f} us ({by}); max abs err {err:.3g} "
+                        f"({rec['max_ulps']:.0f} ulps at worst, "
+                        f"{rec['within_1ulp']:.1%} within one; "
+                        f"{rec['bound_ratio']:.2f} of the allowance)")
+                records[fmt].append(rec)
+    n = sum(map(len, records.values()))
+    say(f"[3b paged] all {n} comparisons within tolerance: "
+        f"{tol_summary(records['bf16'] + records['int8'])}; stacked == 4D "
+        "bit for bit, for bf16/f32 and int8 pools")
     return records, max_err
 
 
-def phase_serve_oracle(device):
-    """The default serving engine, self-draft greedy on a float32 model,
-    equals greedy AR per request with acceptance 1.0; then again with
-    prefix caching and chunked prefill (chunks of 64, so partial
-    admissions attend through the kernel at T=64). Dense float32 weights
+def flash_bound_ms(B, S, T, Hq, Hk, Dh, offsets, int8):
+    """``attention_bound_ms`` of a flash-decode call: each sequence's live
+    positions min(offset + T, S) and the offsets; the keys each query
+    attends are offset+t+1."""
+    live = sum(min(o + T, S) for o in offsets)
+    keys = sum(min(o + t + 1, S) for o in offsets for t in range(T))
+    return attention_bound_ms(live, B, T, Hq, Hk, Dh, keys, int8, B * 4)
+
+
+def phase_flash_kernel(device):
+    """The flash-decode kernel vs its plain version at FLASH_SHAPES: over
+    K/V of q's type (K3) and over int8 K/V quantized from the same random
+    K/V (K4), q in float32 and bf16; and a check that a query row's result
+    does not depend on T. Returns the per-shape records of each kernel
+    (timed in bf16) and each kernel's largest absolute error."""
+    from specdec_tpu_torch.core.cache import quantize_kv_block
+    from specdec_tpu_torch.ops import decode_attention as da
+    from specdec_tpu_torch.ops import paged_attention as pa
+
+    Hq, Hk, Dh, _ = PAGED_HEADS
+    gen = torch.Generator(device=device).manual_seed(5678)
+    flush = torch.zeros(256 * 2 ** 20, dtype=torch.uint8, device=device)
+    records, max_err = {"K3": [], "K4": []}, {"K3": 0.0, "K4": 0.0}
+
+    def run(kernel, q, k, v, off, quant):
+        if kernel == "kernel":
+            return (da.flash_decode_attention_quant(q, k[0], k[1], v[0], v[1],
+                                                    off) if quant else
+                    da.flash_decode_attention(q, k, v, off))
+        return (da.decode_attention_reference(q, k[0], v[0], off, k[1], v[1])
+                if quant else da.decode_attention_reference(q, k, v, off))
+
+    def pv_abs(q, k, v, off, quant):
+        """The plain version's attention of |V| in float32 (the scale of
+        the bf16 allowance, see BF16_U)."""
+        if quant:
+            return da.decode_attention_reference(q.float(), k[0], v[0].abs(),
+                                                  off, k[1], v[1])
+        return da.decode_attention_reference(q.float(), k.float(),
+                                             v.float().abs(), off)
+
+    for label, B, S, T, offsets in FLASH_SHAPES:
+        off = torch.tensor(offsets, dtype=torch.int32, device=device)
+        kf, vf = (torch.randn((B, S, Hk, Dh), generator=gen, device=device)
+                  for _ in range(2))
+        kq, vq = quantize_kv_block(kf), quantize_kv_block(vf)
+        for name, quant in (("K3", False), ("K4", True)):
+            for dtype in (torch.float32, torch.bfloat16):
+                q = torch.randn((B, T, Hq, Dh), generator=gen,
+                                device=device).to(dtype)
+                k, v = (kq, vq) if quant else (kf.to(dtype), vf.to(dtype))
+                got = run("kernel", q, k, v, off, quant)
+                plain = run("plain", q, k, v, off, quant)
+                torch.cuda.synchronize()
+                rec = {"name": label, "kernel": name,
+                       "dtype": str(dtype).split(".")[-1], "B": B, "S": S,
+                       "T": T, "offsets": offsets,
+                       **check_attention(
+                           f"flash {label} {name} q {dtype}", got, plain,
+                           pv_abs(q, k, v, off, quant)
+                           if dtype == torch.bfloat16 else None)}
+                err = rec["max_abs_err"]
+                max_err[name] = max(max_err[name], err)
+                if dtype == torch.bfloat16:
+                    # yardstick: SDPA over the live K/V (positions below
+                    # max(offsets) + T), dequantized beforehand for int8
+                    n = min(max(offsets) + T, S)
+                    lib = sdpa_args(q, *((k[0][:, :n], v[0][:, :n], off,
+                                          k[1][:, :n], v[1][:, :n])
+                                         if quant else
+                                         (k[:, :n], v[:, :n], off)))
+                    b, by = flash_bound_ms(B, S, T, Hq, Hk, Dh, offsets,
+                                           quant)
+                    rec.update(
+                        ms=gpu_ms(lambda: run("kernel", q, k, v, off, quant),
+                                  flush),
+                        plain_ms=gpu_ms(
+                            lambda: run("plain", q, k, v, off, quant), flush),
+                        library_ms=gpu_ms(
+                            lambda: F.scaled_dot_product_attention(
+                                lib[0], lib[1], lib[2], attn_mask=lib[3]),
+                            flush),
+                        bound_ms=b, bound_by=by)
+                    say(f"[3c flash] {label:14s} {name} B={B} S={S} "
+                        f"T={T:3d}: kernel {rec['ms'] * 1e3:7.1f} us, plain "
+                        f"{rec['plain_ms'] * 1e3:7.1f} us, SDPA "
+                        f"{rec['library_ms'] * 1e3:7.1f} us, bound "
+                        f"{b * 1e3:5.2f} us ({by}); max abs err {err:.3g} "
+                        f"({rec['max_ulps']:.0f} ulps at worst, "
+                        f"{rec['within_1ulp']:.1%} within one; "
+                        f"{rec['bound_ratio']:.2f} of the allowance)")
+                records[name].append(rec)
+
+    # a row's result does not depend on T: the rows of a T=64 call against
+    # the same rows (same positions) of calls at smaller T
+    o = 200
+    off = torch.tensor([o], dtype=torch.int32, device=device)
+    kf, vf = (torch.randn((1, SINGLE_S, Hk, Dh), generator=gen,
+                          device=device) for _ in range(2))
+    kq, vq = quantize_kv_block(kf), quantize_kv_block(vf)
+    page = PAGED_HEADS[3]
+    MP = -(-SINGLE_S // page)
+    table = torch.arange(1, MP + 1, dtype=torch.int32, device=device)[None]
+
+    def as_pages(a):
+        """[1, S, Hk(, Dh)] -> a one-layer pool [1, MP + 1, Hk, page(, Dh)]
+        whose page p + 1 holds positions p * page ..; page 0 and the tail
+        past S are zero."""
+        pad = torch.zeros((MP * page,) + a.shape[2:], dtype=a.dtype,
+                          device=device)
+        pad[:SINGLE_S] = a[0]
+        pool = pad.reshape(MP, page, *a.shape[2:]).transpose(1, 2)
+        return torch.cat([torch.zeros_like(pool[:1]), pool])[None].contiguous()
+
+    for name, quant in (("K3", False), ("K4", True)):
+        for dtype in (torch.float32, torch.bfloat16):
+            k, v = (kq, vq) if quant else (kf.to(dtype), vf.to(dtype))
+            q = torch.randn((1, 64, Hq, Dh), generator=gen,
+                            device=device).to(dtype)
+            full = run("kernel", q, k, v, off, quant)
+            for T in ROW_CHECK_T:
+                part = run("kernel", q[:, :T].contiguous(), k, v, off, quant)
+                if not torch.equal(part, full[:, :T]):
+                    fail(f"flash {name} {dtype}: rows of the T={T} call "
+                         "differ from the same rows of the T=64 call")
+            # the slotted kernel's key tile is the paged kernel's page (64
+            # keys) and both run one kernel body: over the same keys laid
+            # out in pages, K3 equals K8a and K4 equals K8b bit for bit
+            paged = pa.paged_decode_attention_quant_stacked(
+                q, *map(as_pages, (k[0], k[1], v[0], v[1])), 0, table,
+                off) if quant else pa.paged_decode_attention_stacked(
+                q, as_pages(k), as_pages(v), 0, table, off)
+            if not torch.equal(full, paged):
+                fail(f"flash {name} {dtype}: the slotted kernel differs from "
+                     "the paged kernel over the same keys")
+    n = sum(map(len, records.values()))
+    say(f"[3c flash] all {n} comparisons within tolerance: "
+        f"{tol_summary(records['K3'] + records['K4'])}; rows independent of T (T in {ROW_CHECK_T} against 64, offset {o}); "
+        "K3 == K8a and K4 == K8b bit for bit over the same keys in pages")
+    return records, max_err
+
+
+def phase_serve_oracle(device, label="bf16 KV", **cfg_kw):
+    """The default serving engine, self-draft greedy on a float32 model in
+    the configuration ``cfg_kw``, equals greedy AR per request with
+    acceptance 1.0; then again with prefix caching and chunked prefill
+    (chunks of 64, so partial admissions attend through the paged kernel
+    at T=64). Under int8 KV both sides read the same quantized state
+    (quantized from K/V that agree to f32 summation order). Dense float32
+    weights
     keep every product in float32: the engine and AR then differ only in
     summation order (the kernel against dense attention, batched against
     single-row matmuls), ~1e-6 of a logit, far below the gap between the
@@ -390,7 +733,7 @@ def phase_serve_oracle(device):
     )
     from specdec_tpu_torch.serve import DefaultBatcher
 
-    cfg = bench.target_config(num_layers=2, dtype=torch.float32)
+    cfg = bench.target_config(num_layers=2, dtype=torch.float32, **cfg_kw)
     gen = torch.Generator(device=device).manual_seed(2)
     params = init_params(cfg, scale=0.02, device=device, generator=gen)
     rng = np.random.default_rng(3)
@@ -405,7 +748,7 @@ def phase_serve_oracle(device):
          dict(prefix_caching=True, prefill_chunk=64)),
     )
     new = 32
-    for label, prompts, kw in cases:
+    for case, prompts, kw in cases:
         b = DefaultBatcher(cfg, params, cfg, params, num_slots=4, gamma=4,
                            max_prompt_len=256, max_new_tokens=new,
                            page_size=64, eos_tokens_id=(), device=device,
@@ -417,74 +760,113 @@ def phase_serve_oracle(device):
                                          eos_tokens_id=(), device=device)
             got = done[rid]
             if got.output_ids != ar or len(ar) != new:
-                fail(f"serve oracle ({label}): request {i} gave "
+                fail(f"serve oracle ({label}, {case}): request {i} gave "
                      f"{got.output_ids} where greedy AR gives {ar}")
             if got.metrics.acceptance_rate != 1.0:
-                fail(f"serve oracle ({label}): request {i} acceptance "
-                     f"{got.metrics.acceptance_rate}, not 1.0")
+                fail(f"serve oracle ({label}, {case}): request {i} "
+                     f"acceptance {got.metrics.acceptance_rate}, not 1.0")
         if len(b._alloc_t.free) + len(b.prefix_cache) != b.num_pages - 1:
-            fail(f"serve oracle ({label}): pages not returned")
+            fail(f"serve oracle ({label}, {case}): pages not returned")
         if kw and b.prefix_cache.hit_tokens == 0:
-            fail(f"serve oracle ({label}): no prefix-cache hit")
-        say(f"[4b serve oracle] {label}: {len(prompts)} requests on 4 slots "
-            f"== greedy AR ({new} tokens each), acceptance 1.0; prefix hit "
-            f"tokens {b.prefix_cache.hit_tokens}")
+            fail(f"serve oracle ({label}, {case}): no prefix-cache hit")
+        say(f"[4b serve oracle] {label}, {case}: {len(prompts)} requests on "
+            f"4 slots == greedy AR ({new} tokens each), acceptance 1.0; "
+            f"prefix hit tokens {b.prefix_cache.hit_tokens}")
 
 
-def phase_main(pair, device):
-    """The main path with launch counts. Returns its summary."""
-    from specdec_tpu_torch import bench
+def kernel_wrappers():
+    """Every kernel wrapper of the port, by the short name of the TPU
+    kernel it replaces (K1 split into its two wrappers)."""
+    from specdec_tpu_torch.ops import decode_attention as da
+    from specdec_tpu_torch.ops import paged_attention as pa
     from specdec_tpu_torch.ops import quant_matmul as qm
+
+    return {"stacked": qm.quant_matmul_stacked, "2d": qm.quant_matmul,
+            "K2": pa.paged_decode_attention,
+            "K8a": pa.paged_decode_attention_stacked,
+            "K5": pa.paged_decode_attention_quant,
+            "K8b": pa.paged_decode_attention_quant_stacked,
+            "K3": da.flash_decode_attention,
+            "K4": da.flash_decode_attention_quant}
+
+
+def reset_launches():
+    for w in kernel_wrappers().values():
+        w.launches = 0
+
+
+def launches():
+    return {k: w.launches for k, w in kernel_wrappers().items()}
+
+
+def slotted_attention_kernel(cfg):
+    """The kernel a slotted forward of ``cfg`` attends through (None: the
+    plain attention)."""
+    if cfg.attention_impl != "flash":
+        return None
+    return "K4" if cfg.kv_quant == "int8" else "K3"
+
+
+def phase_main(pair, device, label="bf16 KV", reps=None):
+    """The main path with launch counts: every INT4 projection on K1 and,
+    under ``attention_impl="flash"``, every attention on K3 (bf16 KV) or K4
+    (int8 KV); no other kernel launches. Returns its summary and the
+    launch counts of this run."""
+    from specdec_tpu_torch import bench
     from specdec_tpu_torch.sampling.processors import MultinomialProcessor
 
     t_cfg, d_cfg, target, drafter = pair
+    reps = bench.REPS if reps is None else reps
     proc = MultinomialProcessor(temperature=1.0)
     prompt = bench.bench_prompt()
     per_fwd = {"stacked": 4 * t_cfg.num_layers, "2d": 1}
     per_draft = {"stacked": 4 * d_cfg.num_layers, "2d": 1}
+    attn = slotted_attention_kernel(t_cfg)
+    if attn is not None:
+        per_fwd[attn] = t_cfg.num_layers
+        per_draft[attn] = d_cfg.num_layers
 
-    def counts():
-        return {"stacked": qm.quant_matmul_stacked.launches,
-                "2d": qm.quant_matmul.launches}
-
-    qm.quant_matmul_stacked.launches = 0
-    qm.quant_matmul.launches = 0
+    reset_launches()
     gen, gamma = bench.GEN, bench.GAMMA
-    ar = bench.measure_ar(t_cfg, target, prompt, gen, proc, device)
-    ar_counts = counts()
+    ar = bench.measure_ar(t_cfg, target, prompt, gen, proc, device,
+                          reps=reps)
+    ar_counts = launches()
     spec = bench.measure_spec(d_cfg, drafter, t_cfg, target, prompt, gen,
-                              gamma, proc, device)
-    total = counts()
+                              gamma, proc, device, reps=reps)
+    total = launches()
 
     for run in ar["runs"] + spec["runs"]:
         if run["tokens"] != gen or not all(0 <= t < bench.V
                                            for t in run["ids"]):
-            fail(f"main path: {run['tokens']} tokens (expected {gen}) or a "
-                 "token outside the vocabulary")
+            fail(f"main path ({label}): {run['tokens']} tokens (expected "
+                 f"{gen}) or a token outside the vocabulary")
     for run in spec["runs"]:
         if not 0.0 < run["acceptance"] <= 1.0:
-            fail(f"main path: acceptance {run['acceptance']}")
+            fail(f"main path ({label}): acceptance {run['acceptance']}")
     ar_tokens = sum(r["tokens"] for r in ar["runs"])
     windows = sum(r["windows"] for r in spec["runs"])
     n_spec = len(spec["runs"])
-    for kind in ("stacked", "2d"):
+    for kind in total:
         # AR: the prefill yields token 1, one forward for each later token
-        want_ar = per_fwd[kind] * ar_tokens
+        want_ar = per_fwd.get(kind, 0) * ar_tokens
         # spec: target and drafter prefill, then per window gamma drafter
         # forwards and one target verify
-        want_spec = (n_spec * (per_fwd[kind] + per_draft[kind])
-                     + windows * (gamma * per_draft[kind] + per_fwd[kind]))
+        want_spec = (n_spec * (per_fwd.get(kind, 0) + per_draft.get(kind, 0))
+                     + windows * (gamma * per_draft.get(kind, 0)
+                                  + per_fwd.get(kind, 0)))
         if ar_counts[kind] != want_ar:
-            fail(f"main path: {ar_counts[kind]} {kind} launches in AR, "
-                 f"expected {want_ar}")
+            fail(f"main path ({label}): {ar_counts[kind]} {kind} launches in "
+                 f"AR, expected {want_ar}")
         if total[kind] - ar_counts[kind] != want_spec:
-            fail(f"main path: {total[kind] - ar_counts[kind]} {kind} "
-                 f"launches in spec, expected {want_spec}")
-    per_token = per_fwd["stacked"] + per_fwd["2d"]
-    per_window = gamma * (per_draft["stacked"] + 1) + per_token
+            fail(f"main path ({label}): {total[kind] - ar_counts[kind]} "
+                 f"{kind} launches in spec, expected {want_spec}")
+    per_token = dict(per_fwd)
+    per_window = {k: gamma * per_draft[k] + per_fwd[k] for k in per_fwd}
     best_ar = min(ar["runs"][1:], key=lambda r: r["seconds"])
     best_spec = min(spec["runs"][1:], key=lambda r: r["seconds"])
     summary = {
+        "config": label, "kv_quant": t_cfg.kv_quant,
+        "attention_impl": t_cfg.attention_impl,
         "ar_tok_s": ar["tok_s"], "spec_tok_s": spec["tok_s"],
         "speedup": spec["tok_s"] / ar["tok_s"],
         "acceptance": spec["acceptance"],
@@ -496,17 +878,17 @@ def phase_main(pair, device):
         "spec_seconds": [r["seconds"] for r in spec["runs"]],
         "launches": {"per_ar_token": per_token,
                      "per_spec_window": per_window,
-                     "stacked": total["stacked"], "2d": total["2d"]},
-        "gamma": gamma, "gen": gen, "reps": bench.REPS,
+                     "total": {k: n for k, n in total.items() if n}},
+        "gamma": gamma, "gen": gen, "reps": reps,
         "device": torch.cuda.get_device_name(0)}
-    say(f"[5 main] AR {summary['ar_tok_s']:.1f} tok/s, spec "
+    say(f"[5 main] {label}: AR {summary['ar_tok_s']:.1f} tok/s, spec "
         f"{summary['spec_tok_s']:.1f} tok/s ({summary['speedup']:.3f}x), "
         f"acceptance {summary['acceptance']:.3f}; launches as implied: "
         f"{per_token} per AR token, {per_window} per window")
     return summary, total
 
 
-def phase_profile(pair, summary, device):
+def phase_profile(pair, summary, device, config="bf16 KV"):
     """Device time per AR step and per speculative window, from
     torch.profiler's CUDA activity, against the wall times of phase 5: the
     share of wall time the card is busy, and the kernels that take it.
@@ -534,8 +916,7 @@ def phase_profile(pair, summary, device):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             _, steps = run(gen)
             torch.cuda.synchronize()
-        return steps, {e.key: e.self_device_time_total
-                       for e in prof.key_averages()}
+        return steps, device_times(prof)
 
     out = {}
     for label, run, gens, wall in (
@@ -547,18 +928,47 @@ def phase_profile(pair, summary, device):
                        for k in t1), key=lambda kv: -kv[1])
         per_step = sum(t for _, t in diff)
         if per_step <= 0:
-            say(f"[5 profile] {label}: device time not measured (the "
-                "profiler recorded no CUDA activity)")
+            say(f"[5 profile] {config}, {label}: device time not measured "
+                "(the profiler recorded no CUDA activity)")
             out[label] = None
             continue
         out[label] = {"device_ms_per_step": per_step,
                       "wall_ms_per_step": wall,
                       "busy_share": per_step / wall, "top": diff[:6]}
-        say(f"[5 profile] {label}: device {per_step:.3f} ms per "
+        say(f"[5 profile] {config}, {label}: device {per_step:.3f} ms per "
             f"{'token' if label == 'ar' else 'window'} of {wall:.3f} ms "
             f"wall (busy {per_step / wall:.1%}); top: " + "; ".join(
-                f"{k[:48]} {t:.3f} ms" for k, t in diff[:4]))
+                f"{k} {t:.3f} ms" for k, t in diff[:4]))
     return out
+
+
+def kernel_label(key):
+    """A profiler key, shortened: the port's kernels by what they are (the
+    attention body's instantiations by key layout and K/V type), others to
+    their first 48 characters."""
+    if "int4_pair_matmul" in key:
+        return "int4_pair_matmul"
+    if "attention_kernel" in key:
+        layout = "paged" if "PagedKeys" in key else "slotted"
+        kv = "int8" if "signed char" in key else (
+            "bf16" if key.count("bfloat16") > 1 else "f32")
+        return f"attention_kernel[{layout}, {kv} K/V]"
+    return key[:48]
+
+
+def device_times(prof):
+    """Device µs by ``kernel_label`` (instantiations of one kernel summed)
+    from a torch.profiler run: the durations of its CUDA events (kernels,
+    copies, sets), read straight from the kineto results. A device event
+    has no children, so this is the self device time ``key_averages()``
+    reports, without building the profiler's event tree, which takes most
+    of a profiled serving pass's time."""
+    times = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            key = kernel_label(e.name())
+            times[key] = times.get(key, 0.0) + e.duration_ns() / 1e3
+    return times
 
 
 def serving_busy(batcher, device):
@@ -571,8 +981,8 @@ def serving_busy(batcher, device):
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         rec = bench.serve_pass(batcher, bench.serving_prompts())
-    totals = sorted(((e.key[:80], e.self_device_time_total / 1e3)
-                     for e in prof.key_averages()), key=lambda kv: -kv[1])
+    totals = sorted(((k, t / 1e3) for k, t in device_times(prof).items()),
+                    key=lambda kv: -kv[1])
     device_ms = sum(t for _, t in totals)
     if device_ms <= 0:
         return None
@@ -581,27 +991,34 @@ def serving_busy(batcher, device):
             "busy_share": device_ms / wall_ms, "top": totals[:6]}
 
 
-def phase_serve(pair, device):
-    """The serving main path: both engines, launch counts of this run.
-    Returns (summary, launches)."""
+def phase_serve(pair, device, label="bf16 KV"):
+    """The serving main path: both engines, each with the launch counts of
+    its own passes. The paged engine's target attends through K8a (bf16
+    KV) or K8b (int8 KV), 22 launches per paged forward; under
+    ``attention_impl="flash"`` every slotted forward (the hybrid drafter's
+    steps, the dense admissions, all of the slotted engine's forwards)
+    attends through K3 or K4. Returns (summary, launches summed over both
+    engines)."""
     from specdec_tpu_torch import bench
     from specdec_tpu_torch.core import model as tmodel
-    from specdec_tpu_torch.ops import paged_attention as pa
-    from specdec_tpu_torch.ops import quant_matmul as qm
 
-    t_cfg = pair[0]
-    kernels = (qm.quant_matmul_stacked, qm.quant_matmul,
-               pa.paged_decode_attention, pa.paged_decode_attention_stacked)
-    for k in kernels:
-        k.launches = 0
-    tmodel.forward_step_paged.calls = 0
-    runs = [bench.measure_serving(paged, pair, device)
-            for paged in (True, False)]
-    launches = {"stacked": qm.quant_matmul_stacked.launches,
-                "2d": qm.quant_matmul.launches,
-                "paged_4d": pa.paged_decode_attention.launches,
-                "paged_stacked": pa.paged_decode_attention_stacked.launches}
-    paged_forwards = tmodel.forward_step_paged.calls
+    t_cfg, d_cfg = pair[0], pair[1]
+    L, Ld, gamma = t_cfg.num_layers, d_cfg.num_layers, bench.SERVE_GAMMA
+    paged_kernel = "K8b" if t_cfg.kv_quant == "int8" else "K8a"
+    attn = slotted_attention_kernel(t_cfg)
+    runs, by_engine = [], {}
+    for paged in (True, False):
+        reset_launches()
+        tmodel.forward_step_paged.calls = 0
+        t0 = time.perf_counter()
+        runs.append(bench.measure_serving(paged, pair, device))
+        by_engine[runs[-1]["engine"]] = dict(
+            launches(), paged_forwards=tmodel.forward_step_paged.calls)
+        say(f"[time] {label}, {runs[-1]['engine']}: two passes in "
+            f"{time.perf_counter() - t0:.1f} s")
+    total = {k: by_engine["paged"][k] + by_engine["slotted"][k]
+             for k in kernel_wrappers()}
+    paged_forwards = by_engine["paged"]["paged_forwards"]
 
     for r in runs:
         for name in ("warm", "timed"):
@@ -609,73 +1026,129 @@ def phase_serve(pair, device):
             if len(outs) != bench.SERVE_REQUESTS or any(
                     len(o) != bench.SERVE_GEN or not all(
                         0 <= t < bench.V for t in o) for o in outs):
-                fail(f"serve ({r['engine']}, {name}): not every request "
-                     f"completed {bench.SERVE_GEN} in-vocabulary tokens")
+                fail(f"serve ({label}, {r['engine']}, {name}): not every "
+                     f"request completed {bench.SERVE_GEN} in-vocabulary "
+                     "tokens")
             if not 0.0 < r[name]["acceptance"] <= 1.0:
-                fail(f"serve ({r['engine']}, {name}): acceptance "
+                fail(f"serve ({label}, {r['engine']}, {name}): acceptance "
                      f"{r[name]['acceptance']}")
     b = runs[0]["batcher"]
     if len(b._alloc_t.free) != b.num_pages - 1:
-        fail(f"serve: {len(b._alloc_t.free)} of {b.num_pages - 1} pages "
-             "back in the pool")
+        fail(f"serve ({label}): {len(b._alloc_t.free)} of {b.num_pages - 1} "
+             "pages back in the pool")
     if b.max_pages_per_seq != SERVE_TABLE_PAGES:
-        fail(f"serve: table width {b.max_pages_per_seq}, phase 3b timed "
-             f"{SERVE_TABLE_PAGES}")
-    want = t_cfg.num_layers * paged_forwards
-    if paged_forwards == 0 or launches["paged_stacked"] != want or (
-            launches["paged_4d"] != 0):
-        fail(f"serve: {launches['paged_stacked']} stacked and "
-             f"{launches['paged_4d']} 4D paged attention launches over "
-             f"{paged_forwards} paged forwards; expected {want} and 0")
-    if launches["stacked"] == 0 or launches["2d"] == 0:
-        fail(f"serve: INT4 launches {launches}")
+        fail(f"serve ({label}): table width {b.max_pages_per_seq}, phase 3b "
+             f"timed {SERVE_TABLE_PAGES}")
+    # what the code implies: the paged engine verifies through the paged
+    # kernel (every paged forward is the target's: the drafter is slotted),
+    # drafts gamma slotted 4-layer steps per window and admits densely (a
+    # 22-layer and a 4-layer slotted prefill per admission, preempted
+    # requests again); the slotted engine runs gamma drafter steps and a
+    # 22-layer verify per window
+    admissions = 2 * bench.SERVE_REQUESTS + runs[0]["preemptions"]
+    per_admission = L + Ld
+    want_paged = {k: 0 for k in ("K2", "K8a", "K5", "K8b", "K3", "K4")}
+    want_paged[paged_kernel] = L * paged_forwards
+    if attn is not None:
+        want_paged[attn] = (Ld * gamma * paged_forwards
+                            + per_admission * admissions)
+    got_paged = {k: by_engine["paged"][k] for k in want_paged}
+    if paged_forwards == 0 or got_paged != want_paged:
+        fail(f"serve ({label}, paged): attention launches {got_paged} over "
+             f"{paged_forwards} paged forwards and {admissions} admissions; "
+             f"expected {want_paged}")
+    slotted = by_engine["slotted"]
+    if any(slotted[k] for k in ("K2", "K8a", "K5", "K8b")):
+        fail(f"serve ({label}, slotted): paged attention launches {slotted}")
+    slotted_windows = None
+    if attn is not None:
+        n = slotted[attn] - per_admission * 2 * bench.SERVE_REQUESTS
+        per_window = Ld * gamma + L
+        if n <= 0 or n % per_window:
+            fail(f"serve ({label}, slotted): {slotted[attn]} {attn} "
+                 f"launches are not {per_admission} per admission plus "
+                 f"{per_window} per window")
+        slotted_windows = n // per_window
+    for eng, counts in by_engine.items():
+        if counts["stacked"] == 0 or counts["2d"] == 0:
+            fail(f"serve ({label}, {eng}): INT4 launches {counts}")
 
-    paged, slotted = (r["timed"] for r in runs)
+    paged, slotted_pass = (r["timed"] for r in runs)
     # where the engines' greedy outputs first differ: the two attention
     # paths round differently in bf16, and a one-ulp difference flips a
     # near-tie of the bf16 logits, after which the continuations part
     agree = [next((i for i, (x, y) in enumerate(zip(a, c)) if x != y),
                   len(a))
-             for a, c in zip(paged["outputs"], slotted["outputs"])]
+             for a, c in zip(paged["outputs"], slotted_pass["outputs"])]
     same = sum(n == bench.SERVE_GEN for n in agree)
     summary = {
         eng: {k: r["timed"][k] for k in ("tok_s", "ttft_p50_ms",
                                          "ttft_p99_ms", "acceptance",
                                          "seconds", "tokens")}
         for eng, r in (("paged", runs[0]), ("slotted", runs[1]))}
+    summary["config"] = label
     summary["paged"]["preemptions"] = runs[0]["preemptions"]
-    summary["paged_over_slotted"] = paged["tok_s"] / slotted["tok_s"]
+    summary["paged_over_slotted"] = paged["tok_s"] / slotted_pass["tok_s"]
     summary["same_outputs"] = same
     summary["agreeing_prefix_tokens"] = agree
     summary["paged_forwards"] = paged_forwards
-    summary["launches"] = launches
+    summary["slotted_windows"] = slotted_windows
+    summary["launches"] = {eng: {k: n for k, n in c.items() if n}
+                           for eng, c in by_engine.items()}
     for r in runs:
-        say(f"[6 serve] {r['engine']}: {r['timed']['tokens']} tokens in "
-            f"{r['timed']['seconds']:.2f} s = {r['timed']['tok_s']:.1f} "
-            f"tok/s, TTFT p50 {r['timed']['ttft_p50_ms']:.0f} ms, p99 "
+        say(f"[6 serve] {label}, {r['engine']}: {r['timed']['tokens']} "
+            f"tokens in {r['timed']['seconds']:.2f} s = "
+            f"{r['timed']['tok_s']:.1f} tok/s, TTFT p50 "
+            f"{r['timed']['ttft_p50_ms']:.0f} ms, p99 "
             f"{r['timed']['ttft_p99_ms']:.0f} ms, acceptance "
             f"{r['timed']['acceptance']:.3f} (warm-up pass "
             f"{r['warm']['tok_s']:.1f} tok/s)")
-    say(f"[6 serve] paged/slotted {summary['paged_over_slotted']:.3f}; "
-        f"{same}/{len(slotted['outputs'])} requests with equal outputs, "
+    say(f"[6 serve] {label}: paged/slotted "
+        f"{summary['paged_over_slotted']:.3f}; "
+        f"{same}/{len(slotted_pass['outputs'])} requests with equal outputs, "
         f"agreeing prefixes of {min(agree)}-{max(agree)} tokens (median "
-        f"{int(np.median(agree))}); "
-        f"{paged_forwards} paged forwards, {launches['paged_stacked']} "
-        f"attention launches (= {t_cfg.num_layers} per forward); all pages "
-        "returned; preemptions " + str(runs[0]["preemptions"]))
+        f"{int(np.median(agree))}); {paged_forwards} paged forwards, "
+        f"attention launches as implied: paged engine {got_paged}, slotted "
+        f"engine {attn} x {slotted[attn] if attn else 0} "
+        f"({slotted_windows} windows); all pages returned; preemptions "
+        + str(runs[0]["preemptions"]))
     summary["profile"] = {}
     for r in runs:
+        t0 = time.perf_counter()
         busy = serving_busy(r["batcher"], device)
+        say(f"[time] {label}, {r['engine']}: profiled pass in "
+            f"{time.perf_counter() - t0:.1f} s")
         summary["profile"][r["engine"]] = busy
         if busy is None:
-            say(f"[6 profile] {r['engine']}: device time not measured (the "
-                "profiler recorded no CUDA activity)")
+            say(f"[6 profile] {label}, {r['engine']}: device time not "
+                "measured (the profiler recorded no CUDA activity)")
             continue
-        say(f"[6 profile] {r['engine']}: device {busy['device_ms']:.0f} ms "
-            f"of {busy['wall_ms']:.0f} ms wall (busy "
-            f"{busy['busy_share']:.1%}); top: " + "; ".join(
-                f"{k[:40]} {t:.0f} ms" for k, t in busy["top"][:4]))
-    return summary, launches
+        say(f"[6 profile] {label}, {r['engine']}: device "
+            f"{busy['device_ms']:.0f} ms of {busy['wall_ms']:.0f} ms wall "
+            f"(busy {busy['busy_share']:.1%}); top: " + "; ".join(
+                f"{k} {t:.0f} ms" for k, t in busy["top"][:4]))
+    return summary, total
+
+
+def with_config(pair, **cfg_kw):
+    """The pair with both configs changed (the weights do not depend on the
+    KV format or the attention kernel): what ``bench.build_pair(device,
+    kv_quant, attention_impl)`` builds, without building it again."""
+    t_cfg, d_cfg, target, drafter = pair
+    return t_cfg.replace(**cfg_kw), d_cfg.replace(**cfg_kw), target, drafter
+
+
+def kernel_entry(name, source, replaces, records, err, top, work,
+                 launches_by_path, **extra):
+    """One entry of the ``kernels`` line: launches summed over the main
+    paths, the times of the ``top`` record, every timed shape."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, **extra,
+            "launches": sum(launches_by_path.values()),
+            "launches_by_path": launches_by_path, "max_abs_err": err,
+            **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")},
+            "work": work, "shapes": [r for r in records if "ms" in r]}
 
 
 def main():
@@ -699,13 +1172,40 @@ def main():
     torch.cuda.synchronize()
     say(f"[5 main] built the INT4 LayerSkip pair in "
         f"{time.perf_counter() - t1:.1f} s")
+    def stamp(phase):
+        say(f"[time] {phase} done at {time.perf_counter() - t0:.1f} s")
+
     records, max_err = phase_kernel(pair[2], device)
     paged_records, paged_err = phase_paged_kernel(device)
+    flash_records, flash_err = phase_flash_kernel(device)
+    stamp("3-3c kernels")
     phase_oracle(device)
+    phase_oracle(device, "int8 KV, flash", **KVINT8_FLASH)
+    kv_err = phase_kv_error(pair, device)
     phase_serve_oracle(device)
-    summary, launches = phase_main(pair, device)
+    phase_serve_oracle(device, "int8 KV, flash", **KVINT8_FLASH)
+    stamp("4-4b oracles")
+    int8_pair = with_config(pair, **KVINT8_FLASH)
+    # the default single-sequence path takes fewer timed calls than
+    # bench.REPS, so that the whole run stays under 8 minutes
+    summary, launches_main = phase_main(pair, device, reps=2)
+    stamp("5 single sequence, bf16 KV")
     summary["profile"] = phase_profile(pair, summary, device)
+    int8_main, launches_int8 = phase_main(int8_pair, device, "int8 KV, flash")
+    stamp("5 single sequence, int8 KV")
+    int8_main["profile"] = phase_profile(int8_pair, int8_main, device,
+                                         "int8 KV, flash")
+    stamp("5 profiles")
+    flash_main, launches_flash = phase_main(with_config(pair, **FLASH),
+                                            device, "bf16 KV, flash", reps=1)
+    stamp("5 single sequence")
     summary["serving"], serve_launches = phase_serve(pair, device)
+    int8_serving, serve_launches_int8 = phase_serve(int8_pair, device,
+                                                    "int8 KV, flash")
+    stamp("6 serving")
+    summary["kvint8_flash"] = dict(int8_main, serving=int8_serving,
+                                   prefill_logit_rel_err=kv_err)
+    summary["flash"] = flash_main
 
     def total(key, rows):
         return sum(r[key] for r in rows)
@@ -719,13 +1219,17 @@ def main():
         timed = [r for r in mine if "ms" in r]
         step = [r for r in timed if r["M"] == 1]
         key = "2d" if is_2d else "stacked"
+        by_path = {"spec_decode": launches_main[key],
+                   "spec_decode_kvint8_flash": launches_int8[key],
+                   "spec_decode_flash": launches_flash[key],
+                   "serving": serve_launches[key],
+                   "serving_kvint8_flash": serve_launches_int8[key]}
         entries.append({
             "name": name, "route": "cuda",
             "source": "specdec_tpu_torch/ops/csrc/int4_pair_matmul.cu",
             "replaces": f"specdec_tpu/ops/quant_matmul.py:{line}",
-            "launches": launches[key] + serve_launches[key],
-            "launches_by_path": {"spec_decode": launches[key],
-                                 "serving": serve_launches[key]},
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": total("ms", step), "plain_ms": total("plain_ms", step),
             "bound_ms": total("bound_ms", step), "bound_by": "bytes",
@@ -733,28 +1237,53 @@ def main():
             "work": "M=1: " + ", ".join(f"{r['name']} {r['K']}x{r['N']}"
                                         for r in step),
             "shapes": timed})
+
+    def top(rows, name):
+        return next(r for r in rows if r["name"] == name and "ms" in r)
+
     # the paged attention kernel: one CUDA kernel for K2 (4D pool) and K8a
-    # (a layer of the stacks, the wrapper the serving path calls); the
-    # top-level times are one verify call of the serving engine
-    serve_shape = next(r for r in paged_records
-                       if r["name"] == "serve" and "ms" in r)
-    entries.append({
-        "name": "paged_decode_attention (K8a stacked layer; K2 4D pool)",
-        "route": "cuda",
-        "source": "specdec_tpu_torch/ops/csrc/paged_attention.cu",
-        "replaces": "specdec_tpu/ops/paged_attention.py:258",
-        "also_replaces": "specdec_tpu/ops/paged_attention.py:26",
-        "launches": (serve_launches["paged_stacked"]
-                     + serve_launches["paged_4d"]),
-        "max_abs_err": paged_err,
-        **{k: serve_shape[k] for k in ("ms", "plain_ms", "bound_ms",
-                                       "bound_by", "library_ms")},
-        "work": "serving verify: B=8, T=9, Hq=32, Hk=4, Dh=64, page 64, "
-                "MP=9, bf16",
-        "shapes": [r for r in paged_records if "ms" in r]})
+    # (a layer of the stacks, the wrapper the serving path calls), and its
+    # int8 instantiation for K5 and K8b; the top-level times are one verify
+    # call of the serving engine
+    paged_src = "specdec_tpu_torch/ops/csrc/paged_attention.cu"
+    entries.append(kernel_entry(
+        "paged_decode_attention (K8a stacked layer; K2 4D pool)", paged_src,
+        "specdec_tpu/ops/paged_attention.py:258", paged_records["bf16"],
+        paged_err["bf16"], top(paged_records["bf16"], "serve"),
+        "serving verify: B=8, T=9, Hq=32, Hk=4, Dh=64, page 64, MP=9, bf16",
+        {"serving": serve_launches["K8a"] + serve_launches["K2"]},
+        also_replaces="specdec_tpu/ops/paged_attention.py:26"))
+    entries.append(kernel_entry(
+        "paged_decode_attention_quant (K8b stacked layer; K5 4D pool)",
+        paged_src, "specdec_tpu/ops/paged_attention.py:377",
+        paged_records["int8"], paged_err["int8"],
+        top(paged_records["int8"], "serve"),
+        "serving verify: B=8, T=9, Hq=32, Hk=4, Dh=64, page 64, MP=9, int8 "
+        "pools, bf16 q",
+        {"serving_kvint8_flash": serve_launches_int8["K8b"]
+         + serve_launches_int8["K5"]},
+        also_replaces="specdec_tpu/ops/paged_attention.py:136"))
+    # the flash-decode kernel: K3 (K/V of q's type) and K4 (int8 K/V); the
+    # top-level times are one single-sequence decode step's call
+    flash_src = "specdec_tpu_torch/ops/csrc/decode_attention.cu"
+    work = "single-sequence decode: B=1, S=334, T=1, Hq=32, Hk=4, Dh=64, "
+    entries.append(kernel_entry(
+        "flash_decode_attention (K3)", flash_src,
+        "specdec_tpu/ops/decode_attention.py:38", flash_records["K3"],
+        flash_err["K3"], top(flash_records["K3"], "decode"), work + "bf16",
+        {"spec_decode_flash": launches_flash["K3"]}))
+    entries.append(kernel_entry(
+        "flash_decode_attention_quant (K4)", flash_src,
+        "specdec_tpu/ops/decode_attention.py:159", flash_records["K4"],
+        flash_err["K4"], top(flash_records["K4"], "decode"),
+        work + "int8 K/V, bf16 q",
+        {"spec_decode_kvint8_flash": launches_int8["K4"],
+         "serving_kvint8_flash": serve_launches_int8["K4"]}))
     say(f"[7 done] all phases passed in {time.perf_counter() - t0:.1f} s; "
         f"largest kernel-vs-plain abs error {max_err:.3g} (INT4), "
-        f"{paged_err:.3g} (paged attention)")
+        f"{paged_err['bf16']:.3g} / {paged_err['int8']:.3g} (paged "
+        f"attention, bf16/f32 / int8 pools), {flash_err['K3']:.3g} / "
+        f"{flash_err['K4']:.3g} (flash-decode K3 / K4)")
     say(card)
     say(json.dumps(summary))
     say(json.dumps({"kernels": entries}))

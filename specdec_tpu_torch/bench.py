@@ -29,9 +29,18 @@ request is preempted) and the slotted ``ContinuousBatcher``, both with 8
 slots, gamma 8 and 8 windows per host sync. Each engine runs one warm-up
 pass and one timed pass; it prints one JSON line with aggregate tok/s, TTFT
 p50/p99, mean acceptance and preemptions per engine.
+
+``--kv-quant int8`` gives both models int8 KV caches (``QuantKVCache``,
+``QuantPagedKVCache``), ``--attn flash`` sends their slotted-cache
+attention through the flash-decode kernel; both go into ``target_config``
+and so into the drafter's config too. With either flag the JSON line's
+metric names the configuration (``spec_decode_int4_kvint8_flash_tokens_
+per_sec``, ``serve_int4_kvint8_flash_tokens_per_sec``) and the line gains
+``"kv_quant"`` and ``"attention_impl"`` keys; without them it is unchanged.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -72,12 +81,14 @@ def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
-def target_config(num_layers: int = 22,
-                  dtype: torch.dtype = torch.bfloat16) -> ModelConfig:
+def target_config(num_layers: int = 22, dtype: torch.dtype = torch.bfloat16,
+                  kv_quant: str = "none",
+                  attention_impl: str = "xla") -> ModelConfig:
     return ModelConfig(
         vocab_size=V, hidden_size=2048, intermediate_size=5632,
         num_layers=num_layers, num_heads=32, num_kv_heads=4, head_dim=64,
-        max_position_embeddings=2048, rope_theta=10000.0, dtype=dtype)
+        max_position_embeddings=2048, rope_theta=10000.0, dtype=dtype,
+        kv_quant=kv_quant, attention_impl=attention_impl)
 
 
 def layer_views(layers: dict, n: int) -> dict:
@@ -87,10 +98,13 @@ def layer_views(layers: dict, n: int) -> dict:
             for k, v in layers.items()}
 
 
-def build_pair(device=None):
-    """The LayerSkip INT4 pair. Returns (t_cfg, d_cfg, target, drafter)."""
+def build_pair(device=None, kv_quant: str = "none",
+               attention_impl: str = "xla"):
+    """The LayerSkip INT4 pair. Returns (t_cfg, d_cfg, target, drafter);
+    the drafter's config is the target's with 4 layers, so it inherits the
+    KV format and the attention."""
     device = resolve_device(device)
-    t_cfg = target_config()
+    t_cfg = target_config(kv_quant=kv_quant, attention_impl=attention_impl)
     d_cfg = t_cfg.replace(num_layers=DRAFT_LAYERS)
     gen = torch.Generator(device=device).manual_seed(0)
     base = init_params(t_cfg, scale=0.02, device=device, generator=gen)
@@ -152,27 +166,28 @@ def run_spec(d_cfg: ModelConfig, drafter, t_cfg: ModelConfig, target,
 
 
 def measure_ar(t_cfg: ModelConfig, target, prompt: List[int], gen: int,
-               proc: LogitsProcessor, device=None) -> dict:
-    """One warm-up and REPS timed AR calls. Returns {"runs": [{tokens,
+               proc: LogitsProcessor, device=None, reps: int = REPS) -> dict:
+    """One warm-up and ``reps`` timed AR calls. Returns {"runs": [{tokens,
     ids, seconds}], "tok_s"}; runs[0] is the warm-up."""
     device = resolve_device(device)
     runs = [_timed(lambda s=1 + i: run_ar(t_cfg, target, prompt, gen, proc,
                                           s, device))
-            for i in range(REPS + 1)]
+            for i in range(reps + 1)]
     return _summary(runs)
 
 
 def measure_spec(d_cfg: ModelConfig, drafter, t_cfg: ModelConfig, target,
                  prompt: List[int], gen: int, gamma: int,
-                 proc: LogitsProcessor, device=None) -> dict:
-    """One warm-up and REPS timed speculative calls. Returns {"runs":
+                 proc: LogitsProcessor, device=None,
+                 reps: int = REPS) -> dict:
+    """One warm-up and ``reps`` timed speculative calls. Returns {"runs":
     [{tokens, ids, windows, acceptance, seconds}], "tok_s",
     "acceptance"}; runs[0] is the warm-up."""
     device = resolve_device(device)
     runs = [_timed(lambda s=100 + i: run_spec(d_cfg, drafter, t_cfg, target,
                                               prompt, gen, gamma, proc, s,
                                               device))
-            for i in range(REPS + 1)]
+            for i in range(reps + 1)]
     out = _summary(runs)
     out["acceptance"] = float(np.mean([r["acceptance"] for r in runs[1:]]))
     return out
@@ -238,10 +253,24 @@ def measure_serving(paged: bool, pair, device=None) -> dict:
             "batcher": b}
 
 
-def main_serve() -> Dict[str, float]:
+def _metric(stem: str, kv_quant: str, attention_impl: str) -> dict:
+    """The JSON line's leading keys: the metric named for the configuration
+    (e.g. ``spec_decode_int4_kvint8_flash_tokens_per_sec``) and, off the
+    default configuration, the two keys naming it; the default's line stays
+    as it was."""
+    if kv_quant == "none" and attention_impl == "xla":
+        return {"metric": f"{stem}_tokens_per_sec"}
+    tags = ("_kv" + kv_quant if kv_quant != "none" else "") + (
+        "_" + attention_impl if attention_impl != "xla" else "")
+    return {"metric": f"{stem}{tags}_tokens_per_sec", "kv_quant": kv_quant,
+            "attention_impl": attention_impl}
+
+
+def main_serve(kv_quant: str = "none",
+               attention_impl: str = "xla") -> Dict[str, float]:
     device = resolve_device(None)
     log(f"device: {torch.cuda.get_device_name(device)}")
-    pair = build_pair(device)
+    pair = build_pair(device, kv_quant, attention_impl)
     rows = {}
     for paged in (True, False):
         r = measure_serving(paged, pair, device)
@@ -253,7 +282,7 @@ def main_serve() -> Dict[str, float]:
         rows[r["engine"]] = {k: t[k] for k in (
             "tok_s", "ttft_p50_ms", "ttft_p99_ms", "acceptance")}
         rows[r["engine"]]["preemptions"] = r["preemptions"]
-    result = {"metric": "serve_int4_tokens_per_sec",
+    result = {**_metric("serve_int4", kv_quant, attention_impl),
               "value": round(rows["paged"]["tok_s"], 2), "unit": "tokens/s",
               "vs_slotted": round(rows["paged"]["tok_s"]
                                   / rows["slotted"]["tok_s"], 3),
@@ -262,10 +291,12 @@ def main_serve() -> Dict[str, float]:
     return result
 
 
-def main() -> Dict[str, float]:
+def main(kv_quant: str = "none",
+         attention_impl: str = "xla") -> Dict[str, float]:
     device = resolve_device(None)
     log(f"device: {torch.cuda.get_device_name(device)}")
-    t_cfg, d_cfg, target, drafter = build_pair(device)
+    t_cfg, d_cfg, target, drafter = build_pair(device, kv_quant,
+                                               attention_impl)
     proc = MultinomialProcessor(temperature=1.0)
     prompt = bench_prompt()
     ar = measure_ar(t_cfg, target, prompt, GEN, proc, device)
@@ -275,7 +306,7 @@ def main() -> Dict[str, float]:
     log(f"AR {ar['tok_s']:.1f} tok/s; spec(gamma={GAMMA}) "
         f"{spec['tok_s']:.1f} tok/s, acceptance {spec['acceptance']:.3f}; "
         f"speedup {speedup:.3f}x")
-    result = {"metric": "spec_decode_int4_tokens_per_sec",
+    result = {**_metric("spec_decode_int4", kv_quant, attention_impl),
               "value": round(spec["tok_s"], 2), "unit": "tokens/s",
               "vs_baseline": round(speedup, 3)}
     print(json.dumps(result))
@@ -283,7 +314,16 @@ def main() -> Dict[str, float]:
 
 
 if __name__ == "__main__":
-    if "--serve" in sys.argv[1:]:
-        main_serve()
-    else:
-        main()
+    parser = argparse.ArgumentParser(
+        prog="python -m specdec_tpu_torch.bench",
+        description="Speculative against AR decoding of the INT4 LayerSkip "
+                    "pair on the card, or serving with --serve.")
+    parser.add_argument("--serve", action="store_true",
+                        help="measure both serving engines instead")
+    parser.add_argument("--kv-quant", choices=("none", "int8"),
+                        default="none", help="KV cache format of both models")
+    parser.add_argument("--attn", choices=("xla", "flash"), default="xla",
+                        help="slotted-cache attention: plain or the "
+                             "flash-decode kernel")
+    args = parser.parse_args()
+    (main_serve if args.serve else main)(args.kv_quant, args.attn)

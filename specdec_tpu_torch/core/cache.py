@@ -6,12 +6,20 @@ The cache is a fixed ``[L, B, S, Hk, Dh]`` buffer; "pruning n tokens" is
 (``key_pos <= q_pos``) and later overwritten, so speculative rollback moves
 no data.
 
-Unlike the JAX version, which returns new arrays, ``write_block`` writes the
-new block IN PLACE. ``with_length`` and ``rolled_back`` return a new
-``KVCache`` that shares the ``k``/``v`` storage with the old one: after a
-forward, the old cache object sees the new entries too, and only its
-``length`` differs. ``install_slot`` and ``zero_slot`` likewise edit the
-storage in place and return a cache with a new length tensor.
+Two storage formats share one interface (length arithmetic, slot install
+and zeroing): ``KVCache`` at cfg.dtype, and ``QuantKVCache`` holding int8
+K/V with a per-(position, head) f32 absmax scale (``cfg.kv_quant =
+"int8"``). Attention applies the k-scales after the q·k product and folds
+the v-scales into the probabilities (``core/model.py::masked_attention``),
+so the int8 values are used exactly as stored.
+
+Unlike the JAX version, which returns new arrays, ``write_block`` (with
+its ``scales``, JAX's ``write_block_quant``) writes the new block IN
+PLACE. ``with_length`` and ``rolled_back`` return a new cache that shares
+the storage with the old one: after a forward, the old cache object sees
+the new entries too, and only its ``length`` differs. ``install_slot``
+and ``zero_slot`` likewise edit the storage in place and return a cache
+with a new length tensor.
 """
 from __future__ import annotations
 
@@ -39,35 +47,100 @@ class KVCache:
         return self.with_length(torch.clamp_min(self.length - n, 0))
 
 
+@dataclasses.dataclass
+class QuantKVCache:
+    """INT8 K/V with per-(position, head) scales: k/v int8
+    [L, B, S, Hk, Dh]; k_scale/v_scale f32 [L, B, S, Hk] (dequantized value
+    = q * scale); length int32 [B]. Same length semantics as KVCache."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+    length: torch.Tensor
+
+    def with_length(self, length: torch.Tensor) -> "QuantKVCache":
+        return dataclasses.replace(self, length=length)
+
+    def rolled_back(self, n) -> "QuantKVCache":
+        return self.with_length(torch.clamp_min(self.length - n, 0))
+
+
 def init_cache(cfg, batch_size: int, max_seq_len: int, dtype=None,
-               device=None) -> KVCache:
-    """A zeroed cache on ``device`` (``None``: the card)."""
+               device=None):
+    """A zeroed cache on ``device`` (``None``: the card), in the format
+    ``cfg.kv_quant`` selects: every decode loop and scheduler allocates
+    through here."""
     device = resolve_device(device)
     shape = (cfg.num_layers, batch_size, max_seq_len, cfg.num_kv_heads,
              cfg.head_dim)
+    length = torch.zeros((batch_size,), dtype=torch.int32, device=device)
+    if cfg.kv_quant == "int8":
+        return QuantKVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(shape[:-1], dtype=torch.float32,
+                                device=device),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.float32,
+                                device=device),
+            length=length)
     dtype = dtype or cfg.dtype
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
-        length=torch.zeros((batch_size,), dtype=torch.int32, device=device),
+        length=length,
     )
+
+
+def quantize_kv_block(blk: torch.Tensor):
+    """[B, T, Hk, Dh] float block -> (int8 values, f32 [B, T, Hk] scales):
+    scale = max(absmax over Dh, 1e-8) / 127, values round(x / scale)
+    (half to even) clipped to +-127. The same f32 operations as the JAX
+    quantizer run eagerly, so the stored values are bit-identical to it."""
+    x = blk.to(torch.float32)
+    scale = torch.clamp_min(x.abs().amax(dim=-1), 1e-8) / 127.0
+    q = torch.clamp(torch.round(x / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _write_rows(layers, blocks, offsets: torch.Tensor):
+    """Write each [B, T, ...] block into its [B, S, ...] layer array at
+    per-sequence ``offsets``, in place. As ``lax.dynamic_update_slice``
+    does, an offset is clamped to ``S - T`` so the block always fits. The
+    offsets stay on the device: no host read."""
+    B, T = blocks[0].shape[:2]
+    S = layers[0].shape[1]
+    start = torch.clamp(offsets.to(torch.int64), 0, S - T)
+    rows = torch.arange(B, device=start.device)[:, None].expand(B, T)
+    cols = start[:, None] + torch.arange(T, device=start.device)[None, :]
+    for layer, blk in zip(layers, blocks):
+        layer.index_put_((rows, cols), blk.to(layer.dtype))
 
 
 def write_block(layer_k: torch.Tensor, layer_v: torch.Tensor,
                 new_k: torch.Tensor, new_v: torch.Tensor,
-                offsets: torch.Tensor):
+                offsets: torch.Tensor, scales=()):
     """Write a [B, T, Hk, Dh] block into one layer's [B, S, Hk, Dh] cache at
-    per-sequence ``offsets``, in place. As ``lax.dynamic_update_slice``
-    does, an offset is clamped to ``S - T`` so the block always fits. The
-    offsets stay on the device: no host read."""
-    B, T = new_k.shape[:2]
-    S = layer_k.shape[1]
-    start = torch.clamp(offsets.to(torch.int64), 0, S - T)
-    rows = torch.arange(B, device=new_k.device)[:, None].expand(B, T)
-    cols = start[:, None] + torch.arange(T, device=new_k.device)[None, :]
-    layer_k.index_put_((rows, cols), new_k.to(layer_k.dtype))
-    layer_v.index_put_((rows, cols), new_v.to(layer_v.dtype))
-    return layer_k, layer_v
+    per-sequence ``offsets``, in place (offsets clamped to S - T).
+
+    ``scales``, the layer's (k_scale, v_scale) [B, S, Hk] of an int8 cache,
+    makes this the JAX ``write_block_quant``: the blocks are quantized
+    (``quantize_kv_block``) and their scales written beside the values."""
+    if not scales:
+        _write_rows((layer_k, layer_v), (new_k, new_v), offsets)
+        return
+    kq, ks = quantize_kv_block(new_k)
+    vq, vs = quantize_kv_block(new_v)
+    _write_rows((layer_k, layer_v) + tuple(scales), (kq, vq, ks, vs),
+                offsets)
+
+
+def storage_fields(cache):
+    """Names of a cache's storage arrays (values, and scales where the
+    format has them): every tensor field but the int32 bookkeeping, the
+    lengths and, for a paged cache, the page table."""
+    return [f.name for f in dataclasses.fields(cache)
+            if getattr(cache, f.name).dtype != torch.int32]
 
 
 def with_row_length(cache, slot: int, new_len):
@@ -78,19 +151,21 @@ def with_row_length(cache, slot: int, new_len):
     return cache.with_length(length)
 
 
-def install_slot(dst: KVCache, src: KVCache, slot: int, new_len) -> KVCache:
+def install_slot(dst, src, slot: int, new_len):
     """Copy the batch-of-one cache ``src`` into ``dst``'s batch row ``slot``
-    (the scheduler's admission primitive) and set that row's length. The
+    across every storage field (the scheduler's admission primitive; values
+    and scales alike keep batch at axis 1) and set that row's length. The
     rows are copied IN PLACE into ``dst``'s storage, so ``dst`` never aliases
     ``src``; returns ``dst`` with the new length."""
-    dst.k[:, slot].copy_(src.k[:, 0])
-    dst.v[:, slot].copy_(src.v[:, 0])
+    for name in storage_fields(dst):
+        getattr(dst, name)[:, slot].copy_(getattr(src, name)[:, 0])
     return with_row_length(dst, slot, new_len)
 
 
-def zero_slot(cache: KVCache, slot: int, new_len) -> KVCache:
-    """Zero batch row ``slot`` in place and set its length (slot-recycling
-    hygiene for caches whose stale rows would otherwise be attended)."""
-    cache.k[:, slot].zero_()
-    cache.v[:, slot].zero_()
+def zero_slot(cache, slot: int, new_len):
+    """Zero batch row ``slot`` of every storage field in place and set its
+    length (slot-recycling hygiene for caches whose stale rows would
+    otherwise be attended)."""
+    for name in storage_fields(cache):
+        getattr(cache, name)[:, slot].zero_()
     return with_row_length(cache, slot, new_len)

@@ -1,8 +1,8 @@
 """Model configuration (counterpart of ``specdec_tpu/core/config.py``).
 
 Same fields and defaults as the JAX ``ModelConfig``; ``dtype`` is a
-``torch.dtype``. Options whose kernels are not ported yet raise at
-construction instead of running some other path.
+``torch.dtype``. Unknown values of the string options raise at
+construction.
 """
 from __future__ import annotations
 
@@ -42,23 +42,18 @@ class ModelConfig:
     dtype: torch.dtype = torch.float32
     # logit soft-capping (gemma2-style); 0 disables
     logit_softcap: float = 0.0
-    # "xla" is the plain PyTorch attention; "flash" waits for its kernel
+    # slotted-cache attention: "xla" is the plain PyTorch attention, "flash"
+    # the flash-decode kernel (ops/decode_attention.py) unless the model
+    # soft-caps its logits; the paged forward always takes its own kernel
     attention_impl: str = "xla"
-    # "none" | "int8" (int8 K/V waits for its kernels)
+    # "none" | "int8": int8 K/V with a per-(position, head) f32 scale
+    # (QuantKVCache, QuantPagedKVCache), in every cache the model allocates
     kv_quant: str = "none"
 
     def __post_init__(self):
-        if self.attention_impl == "flash":
-            raise NotImplementedError(
-                "attention_impl='flash' needs the flash-decode kernel, which "
-                "is not ported yet")
-        if self.attention_impl != "xla":
+        if self.attention_impl not in ("xla", "flash"):
             raise ValueError(f"unknown attention_impl {self.attention_impl!r}")
-        if self.kv_quant == "int8":
-            raise NotImplementedError(
-                "kv_quant='int8' needs the int8 attention kernels, which are "
-                "not ported yet")
-        if self.kv_quant != "none":
+        if self.kv_quant not in ("none", "int8"):
             raise ValueError(f"unknown kv_quant {self.kv_quant!r}")
 
     @property

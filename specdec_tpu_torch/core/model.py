@@ -6,10 +6,12 @@ RoPE, SwiGLU, GQA, optional qk-norm and qkv bias), gpt-neox (LayerNorm,
 parallel residual, partial rotary, biases) and gemma (embedding scale, tied
 head), with an optional logit softcap. ``forward_step`` processes a [B, T]
 block against the slotted cache at per-sequence offsets: prefill, one-token
-decode and the (gamma+1)-token verify are the same function with another T.
-``forward_step_paged`` is the same forward over the paged pool
-(``core/paged_cache.py``), attending through the paged decode-attention
-kernel.
+decode and the (gamma+1)-token verify are the same function with another T;
+it attends through the flash-decode kernel under ``attention_impl="flash"``
+(``attention``). ``forward_step_paged`` is the same forward over the paged
+pool (``core/paged_cache.py``), attending through the paged
+decode-attention kernel. Both take the int8 cache formats of
+``kv_quant="int8"`` as well.
 
 Params are a dict of tensors whose layer leaves are STACKED with a leading
 L axis. The layer loop is a Python loop over ``range(L)``: dense leaves are
@@ -26,10 +28,13 @@ import torch
 import torch.nn.functional as F
 
 from specdec_tpu_torch import resolve_device
-from specdec_tpu_torch.core.cache import KVCache, init_cache, write_block
+from specdec_tpu_torch.core.cache import (
+    QuantKVCache, init_cache, write_block,
+)
 from specdec_tpu_torch.core.config import ModelConfig
 from specdec_tpu_torch.core.paged_cache import (
-    PagedKVCache, gather_pages, write_block_paged_stacked,
+    QuantPagedKVCache, gather_page_scales, gather_pages,
+    write_block_paged_stacked,
 )
 from specdec_tpu_torch.core.rope import apply_rope, rope_cos_sin
 from specdec_tpu_torch.quant.core import Int4Weight, StackedSlice, qmatmul
@@ -73,14 +78,22 @@ def _act(cfg: ModelConfig, x):
 
 
 def masked_attention(q, k_all, v_all, q_pos, num_kv_heads: int,
-                     logit_softcap: float = 0.0):
+                     logit_softcap: float = 0.0,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None):
     """q: [B, T, Hq, Dh]; k_all/v_all: [B, S, Hk, Dh]; q_pos: [B, T].
-    Returns [B, T, Hq * Dh] in v's dtype.
+    Returns [B, T, Hq * Dh] in v's dtype, or in q's for int8 K/V.
 
     The mask admits key position s iff s <= q_pos[b, t]; it covers
     causality, cache validity and staleness after rollback. Scores and
     softmax are f32; grouped-query heads are a reshape of q, so K/V are
-    never repeated."""
+    never repeated.
+
+    Int8 K/V come with f32 scales ``k_scale``/``v_scale`` [B, S, Hk]: the
+    k-scale multiplies the scores after (q·k) * scale, the v-scale the
+    normalized probabilities, which are then cast to q's dtype for the
+    value product, as the JAX package's XLA path does. The int8 values are
+    used as stored: no dequantized [B, S, Hk, Dh] tensor is formed."""
     B, T, Hq, Dh = q.shape
     S = k_all.shape[1]
     Hk = num_kv_heads
@@ -89,14 +102,45 @@ def masked_attention(q, k_all, v_all, q_pos, num_kv_heads: int,
     scale = float(np.float32(1.0) / np.sqrt(np.float32(Dh)))
     scores = torch.einsum("bthgd,bshd->bhgts", qg.to(torch.float32),
                           k_all.to(torch.float32)) * scale
+    if k_scale is not None:
+        # one scale per (position, kv head): [B, S, Hk] -> [B, Hk, 1, 1, S]
+        scores = scores * k_scale.permute(0, 2, 1)[:, :, None, None, :]
     k_pos = torch.arange(S, device=q.device)
     mask = k_pos[None, None, :] <= q_pos[:, :, None]           # [B, T, S]
     scores = scores.masked_fill(~mask[:, None, None], _NEG_INF)
     if logit_softcap > 0.0:
         scores = torch.tanh(scores / logit_softcap) * logit_softcap
-    probs = torch.softmax(scores, dim=-1).to(v_all.dtype)
-    out = torch.einsum("bhgts,bshd->bthgd", probs, v_all)
+    probs = torch.softmax(scores, dim=-1)
+    if v_scale is not None:
+        probs = probs * v_scale.permute(0, 2, 1)[:, :, None, None, :]
+        out = torch.einsum("bhgts,bshd->bthgd", probs.to(q.dtype),
+                           v_all.to(q.dtype))
+    else:
+        out = torch.einsum("bhgts,bshd->bthgd", probs.to(v_all.dtype), v_all)
     return out.reshape(B, T, Hq * Dh)
+
+
+def attention(cfg: ModelConfig, q, k_all, v_all, q_pos,
+              k_scale: Optional[torch.Tensor] = None,
+              v_scale: Optional[torch.Tensor] = None):
+    """Cached attention over dense [B, S, Hk, Dh] K/V (the counterpart of
+    the JAX ``_attention``): the flash-decode kernel (K3, or K4 for int8
+    K/V; ``ops/decode_attention.py``) when ``cfg.attention_impl == "flash"``
+    and the model does not soft-cap, else ``masked_attention``. The kernel
+    tiles query rows over blocks, so any T takes it, dense prefills
+    included. Returns [B, T, Hq * Dh]."""
+    B, T = q.shape[:2]
+    if cfg.attention_impl == "flash" and cfg.logit_softcap == 0.0:
+        from specdec_tpu_torch.ops import decode_attention as da
+
+        if k_scale is not None:
+            out = da.flash_decode_attention_quant(q, k_all, k_scale, v_all,
+                                                  v_scale, q_pos[:, 0])
+        else:
+            out = da.flash_decode_attention(q, k_all, v_all, q_pos[:, 0])
+        return out.reshape(B, T, -1)
+    return masked_attention(q, k_all, v_all, q_pos, cfg.num_kv_heads,
+                            cfg.logit_softcap, k_scale, v_scale)
 
 
 def _qkv(cfg: ModelConfig, lp: Params, h):
@@ -219,42 +263,44 @@ def _positions(cache, T: int) -> torch.Tensor:
 
 
 def forward_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                 cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
-    """Process a [B, T] token block against the cache at per-sequence
-    offsets: writes the block's K/V at ``cache.length`` (in place), attends
-    over everything written so far, and returns (logits [B, T, V] f32, the
-    cache advanced by T)."""
+                 cache) -> Tuple[torch.Tensor, Any]:
+    """Process a [B, T] token block against the slotted cache (``KVCache``
+    or ``QuantKVCache``) at per-sequence offsets: writes the block's K/V
+    (quantized, for the int8 cache) at ``cache.length`` in place, attends
+    over everything written so far through ``attention`` (layer ``i`` of
+    the cache, read in place), and returns (logits [B, T, V] f32, the cache
+    advanced by T)."""
     T = tokens.shape[1]
     q_pos = _positions(cache, T)
+    quant = isinstance(cache, QuantKVCache)
 
     def attend(i, q, k, v):
-        write_block(cache.k[i], cache.v[i], k, v, cache.length)
-        return masked_attention(q, cache.k[i], cache.v[i], q_pos,
-                                cfg.num_kv_heads, cfg.logit_softcap)
+        scales = (cache.k_scale[i], cache.v_scale[i]) if quant else ()
+        write_block(cache.k[i], cache.v[i], k, v, cache.length, scales)
+        return attention(cfg, q, cache.k[i], cache.v[i], q_pos, *scales)
 
     logits = _forward_common(cfg, params, tokens, q_pos, attend)
     return logits, cache.with_length(cache.length + T)
 
 
 def forward_step_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                       cache: PagedKVCache, use_kernel: Optional[bool] = None,
-                       ) -> Tuple[torch.Tensor, PagedKVCache]:
-    """``forward_step`` over a ``PagedKVCache``: the same math, with K/V in
-    a page pool addressed through per-sequence page tables. Each layer
-    writes its block through the page table into the stacked pools in
-    place, then attends through the paged decode-attention kernel on layer
-    ``i`` of the stacks (``ops/paged_attention.py``; on a CPU tensor its
-    wrapper computes the plain version).
+                       cache, use_kernel: Optional[bool] = None,
+                       ) -> Tuple[torch.Tensor, Any]:
+    """``forward_step`` over a ``PagedKVCache`` or ``QuantPagedKVCache``:
+    the same math, with K/V (and, for int8 pools, their scales) in a page
+    pool addressed through per-sequence page tables. Each layer writes its
+    block through the page table into the stacked pools in place, then
+    attends through the paged decode-attention kernel on layer ``i`` of the
+    stacks (``ops/paged_attention.py``: K8a, or K8b for int8 pools; on a
+    CPU tensor the wrapper computes the plain version).
 
     ``use_kernel=None`` takes the kernel unless the model soft-caps its
     attention logits, which the kernel does not do; such models gather the
-    pages and run ``masked_attention``, as the JAX dispatch does. ``True``
-    forces the kernel (and raises for a softcap model), ``False`` the
-    gather path. The CUDA kernel tiles query rows over blocks, so any T
+    pages (and scales) and run ``attention``, as the JAX dispatch does.
+    ``True`` forces the kernel (and raises for a softcap model), ``False``
+    the gather path. The CUDA kernel tiles query rows over blocks, so any T
     takes it."""
-    from specdec_tpu_torch.ops.paged_attention import (
-        paged_decode_attention_stacked,
-    )
+    from specdec_tpu_torch.ops import paged_attention as pa
 
     if use_kernel is None:
         use_kernel = cfg.logit_softcap == 0.0
@@ -264,17 +310,25 @@ def forward_step_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     B, T = tokens.shape
     q_pos = _positions(cache, T)
     table, offsets = cache.page_table, cache.length
+    # an int8 pool's scale stacks, written and read beside the values
+    scales = ((cache.k_scale, cache.v_scale)
+              if isinstance(cache, QuantPagedKVCache) else ())
 
     def attend(i, q, k, v):
         write_block_paged_stacked(cache.k, cache.v, i, k, v, table, offsets,
-                                  cache.page_size)
-        if use_kernel:
-            out = paged_decode_attention_stacked(q, cache.k, cache.v, i,
-                                                 table, offsets)
-            return out.reshape(B, T, -1)
-        return masked_attention(q, gather_pages(cache.k[i], table),
-                                gather_pages(cache.v[i], table), q_pos,
-                                cfg.num_kv_heads, cfg.logit_softcap)
+                                  cache.page_size, scales)
+        if not use_kernel:
+            return attention(cfg, q, gather_pages(cache.k[i], table),
+                             gather_pages(cache.v[i], table), q_pos,
+                             *(gather_page_scales(s[i], table)
+                               for s in scales))
+        if scales:
+            out = pa.paged_decode_attention_quant_stacked(
+                q, cache.k, scales[0], cache.v, scales[1], i, table, offsets)
+        else:
+            out = pa.paged_decode_attention_stacked(q, cache.k, cache.v, i,
+                                                    table, offsets)
+        return out.reshape(B, T, -1)
 
     logits = _forward_common(cfg, params, tokens, q_pos, attend)
     forward_step_paged.calls += 1

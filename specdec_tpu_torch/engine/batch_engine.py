@@ -9,8 +9,9 @@ make divergent accept counts free: rollback is length arithmetic. Finished
 rows still run through the forwards (their results are discarded) and
 commit nothing.
 
-The caches may be slotted (``KVCache``) or paged (``PagedKVCache``):
-``forward_step`` dispatches on the type.
+The caches may be slotted (``KVCache``, ``QuantKVCache``) or paged
+(``PagedKVCache``, ``QuantPagedKVCache``): ``forward_step`` dispatches on
+the type.
 
 In place: where the JAX version donates ``state`` and returns a new one,
 the window and AR steps here write the caches and each unfinished row's
@@ -34,7 +35,9 @@ from specdec_tpu_torch.core.cache import init_cache
 from specdec_tpu_torch.core.config import ModelConfig
 from specdec_tpu_torch.core.model import forward_step as _slotted_forward_step
 from specdec_tpu_torch.core.model import forward_step_paged
-from specdec_tpu_torch.core.paged_cache import PagedKVCache
+from specdec_tpu_torch.core.paged_cache import (
+    PagedKVCache, QuantPagedKVCache,
+)
 from specdec_tpu_torch.sampling.processors import (
     GreedyProcessor, LogitsProcessor,
 )
@@ -43,9 +46,9 @@ from specdec_tpu_torch.sampling.utils import eos_mask, normalize_eos
 
 
 def forward_step(cfg, params, tokens, cache):
-    """Dispatch on the cache type: slotted ``KVCache`` or paged
-    ``PagedKVCache``."""
-    if isinstance(cache, PagedKVCache):
+    """Dispatch on the cache type: paged (``PagedKVCache``,
+    ``QuantPagedKVCache``) or slotted (``KVCache``, ``QuantKVCache``)."""
+    if isinstance(cache, (PagedKVCache, QuantPagedKVCache)):
         return forward_step_paged(cfg, params, tokens, cache)
     return _slotted_forward_step(cfg, params, tokens, cache)
 
@@ -59,8 +62,8 @@ class BatchState:
     prompt_len: torch.Tensor  # [B] int32
     total_len: torch.Tensor   # [B] int32 per-sequence generation cap
     finished: torch.Tensor    # [B] bool
-    d_cache: Optional[object]  # KVCache | PagedKVCache | None
-    t_cache: object            # KVCache | PagedKVCache
+    d_cache: Optional[object]  # a slotted or paged cache, or None
+    t_cache: object            # a slotted or paged cache
     accepted: torch.Tensor    # [B] int32
     speculated: torch.Tensor  # [B] int32
     # optional per-slot (temperature, top_k, top_p) [B, 3] f32, consumed by

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/*.cu`` file has a plain C interface. At first use, ``nvcc``
-compiles it for ``sm_90a`` into a shared library under ``build/kernels/`` at
-the root of the checkout (git-ignored), named by a hash of the source and
-flags so an edited source is rebuilt, and it is loaded with ``ctypes``.
+Each ``csrc/*.cu`` file has a plain C interface (``csrc/*.cuh`` are headers
+they share). At first use, ``nvcc`` compiles it for ``sm_90a`` into a
+shared library under ``build/kernels/`` at the root of the checkout
+(git-ignored), named by a hash of the source, the headers and the flags so
+an edited source is rebuilt, and it is loaded with ``ctypes``.
 Sources are compiled in parallel, one ``nvcc`` process each. A failed build
 raises with nvcc's output. Nothing here runs at import time.
 """
@@ -30,8 +31,10 @@ SIGNATURES = {
     "int4_pair_matmul": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
                          _c_int, _c_int, _c_int, _c_ll, _c_ll, _c_ll,
                          _c_void_p],
-    "paged_attention": [_c_void_p] * 6 + [_c_int] * 8
+    "paged_attention": [_c_void_p] * 8 + [_c_int] * 9
                        + [_c_ll, _c_ll, _c_float, _c_void_p],
+    "decode_attention": [_c_void_p] * 7 + [_c_int] * 8
+                        + [_c_float, _c_void_p],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -48,7 +51,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the source and every shared header it may include
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu"]
+                   + sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
 

@@ -1,0 +1,77 @@
+"""What the attention kernels take: the argument checks that the wrappers of
+``ops/paged_attention.py`` and ``ops/decode_attention.py`` share, and the
+constants of their common kernel body, ``csrc/attention_tile.cuh``.
+
+A wrapper raises on anything the kernel does not take; there is no
+fallback to the plain version for a CUDA tensor.
+"""
+from __future__ import annotations
+
+import torch
+
+MAX_HEAD_DIM = 128
+MAX_SHARED_BYTES = 232448   # an H100 block's dynamic shared memory
+ROWS = 16                   # query rows per block (attn::kRows)
+WARPS = 4                   # warps per block (attn::kWarps)
+# q's type as the CUDA entry points take it
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def shared_bytes(tile: int, head_dim: int, quant: bool = False) -> int:
+    """Dynamic shared memory of one block (``attn::shared_bytes``): the
+    query tile, K (rows padded by one float against bank conflicts), V,
+    each warp's probabilities and, for int8 K/V, the two scale rows, all
+    f32."""
+    return 4 * (ROWS * head_dim + tile * (head_dim + 1) + tile * head_dim
+                + WARPS * tile + (2 * tile if quant else 0))
+
+
+def check_kv_args(name: str, q, k, v, k_scale, v_scale, tile: int):
+    """The checks every attention kernel's wrapper shares: q float32 or
+    bf16 on a CUDA device; K/V of q's type, or int8 with f32 scales shaped
+    like the values without Dh; one head_dim the kernel takes; a block's
+    shared memory within the card's; every array contiguous, K/V 16-byte
+    aligned (the kernel stages them with 16-byte loads)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: q on {q.device}, not CUDA")
+    quant = k_scale is not None
+    arrays = dict(k=k, v=v)
+    if quant:
+        arrays.update(k_scale=k_scale, v_scale=v_scale)
+    for label, a in arrays.items():
+        if a.device != q.device:
+            raise ValueError(f"{name}: q on {q.device}, {label} on "
+                             f"{a.device}")
+    if q.dtype not in DTYPE_CODE:
+        raise ValueError(f"{name}: q {q.dtype}; expected one of "
+                         f"{sorted(map(str, DTYPE_CODE))}")
+    kv_dtype = torch.int8 if quant else q.dtype
+    if k.dtype != kv_dtype or v.dtype != kv_dtype:
+        raise ValueError(f"{name}: K/V {k.dtype}/{v.dtype}, expected "
+                         f"{kv_dtype} with q {q.dtype}")
+    if k.shape != v.shape:
+        raise ValueError(f"{name}: k {tuple(k.shape)} != v {tuple(v.shape)}")
+    if quant:
+        for label in ("k_scale", "v_scale"):
+            s = arrays[label]
+            if s.dtype != torch.float32 or s.shape != k.shape[:-1]:
+                raise ValueError(f"{name}: {label} {s.dtype} "
+                                 f"{tuple(s.shape)}, expected float32 "
+                                 f"{tuple(k.shape[:-1])}")
+    Dh = q.shape[-1]
+    if k.shape[-1] != Dh:
+        raise ValueError(f"{name}: q head_dim {Dh}, K/V head_dim "
+                         f"{k.shape[-1]}")
+    vec = 16 if quant else 8
+    if Dh > MAX_HEAD_DIM or Dh % vec != 0:
+        raise ValueError(f"{name}: head_dim {Dh} (takes multiples of {vec} "
+                         f"up to {MAX_HEAD_DIM})")
+    if shared_bytes(tile, Dh, quant) > MAX_SHARED_BYTES:
+        raise ValueError(f"{name}: tile {tile} x head_dim {Dh} needs "
+                         f"{shared_bytes(tile, Dh, quant)} bytes of shared "
+                         f"memory (at most {MAX_SHARED_BYTES})")
+    if not (q.is_contiguous()
+            and all(a.is_contiguous() for a in arrays.values())):
+        raise ValueError(f"{name}: q, K/V and scales must be contiguous")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"{name}: K/V must be 16-byte aligned")

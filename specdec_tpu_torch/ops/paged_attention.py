@@ -1,107 +1,87 @@
 """Paged decode attention: the CUDA kernel's wrappers and its plain PyTorch
 version (counterpart of ``specdec_tpu/ops/paged_attention.py``).
 
-``paged_decode_attention`` (a 4D pool [NP, Hk, page, Dh]) and
-``paged_decode_attention_stacked`` (layer ``layer`` of [L, NP, Hk, page, Dh]
-stacks, the serving path's call) replace the TPU kernels ``_kernel`` and
-``_kernel_stacked``. One CUDA kernel, ``csrc/paged_attention.cu``, serves
-both: the layer is a base-pointer offset.
+Four wrappers replace the four TPU kernels of that module:
 
-Both compute flash-decode over K/V reached through the page table: query
+- ``paged_decode_attention`` (K2, ``_kernel``): a 4D pool [NP, Hk, page, Dh];
+- ``paged_decode_attention_stacked`` (K8a, ``_kernel_stacked``): layer
+  ``layer`` of [L, NP, Hk, page, Dh] stacks, the serving path's call;
+- ``paged_decode_attention_quant`` (K5, ``_kernel_quant``): int8 pools with
+  f32 scales [NP, Hk, page];
+- ``paged_decode_attention_quant_stacked`` (K8b, ``_kernel_quant_stacked``):
+  layer ``layer`` of the int8 stacks and [L, NP, Hk, page] scales, the
+  serving path's call under ``kv_quant="int8"``.
+
+One CUDA kernel, ``csrc/paged_attention.cu``, serves all four: the layer is
+a base-pointer offset (stride 0 for a 4D pool), and int8 pools are its int8
+instantiation, which stages each page's scales with the page.
+
+All compute flash-decode over K/V reached through the page table: query
 position ``offsets[b] + t`` attends every key position ``<=`` it, scores in
 f32 scaled by the f32 number 1/sqrt(Dh), grouped-query heads folded as T*G
-rows per KV head. On a CPU tensor a wrapper computes the plain version,
-``paged_attention_reference`` (``gather_pages`` and the dense masked
-attention of ``core/model.py``); on a CUDA tensor it launches the kernel or
-raises.
+rows per KV head; for int8 pools the k-scale multiplies the score after the
+dot and the v-scale the probability before P.V. On a CPU tensor a wrapper
+computes the plain version, ``paged_attention_reference`` (``gather_pages``,
+``gather_page_scales`` and the dense ``masked_attention`` of
+``core/model.py``); on a CUDA tensor it launches the kernel or raises.
 
 Each wrapper counts its kernel launches in a plain integer attribute,
-``paged_decode_attention.launches`` and
-``paged_decode_attention_stacked.launches``.
+``<wrapper>.launches``.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 
 from specdec_tpu_torch.core.model import masked_attention
-from specdec_tpu_torch.core.paged_cache import gather_pages
-
-# what the kernel takes (the wrapper raises on anything else)
-MAX_HEAD_DIM = 128
-MAX_SHARED_BYTES = 232448   # an H100 block's dynamic shared memory
-_ROWS = 16                  # query rows per block (csrc/paged_attention.cu)
-_WARPS = 4
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+from specdec_tpu_torch.core.paged_cache import gather_page_scales, gather_pages
+from specdec_tpu_torch.ops.attention_args import DTYPE_CODE, check_kv_args
 
 
 def paged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
                               v_pool: torch.Tensor, page_table: torch.Tensor,
-                              offsets: torch.Tensor) -> torch.Tensor:
-    """Plain version. q: [B, T, Hq, Dh]; pools: [NP, Hk, page, Dh];
-    page_table: [B, MP]; offsets: [B]. Returns [B, T, Hq, Dh] in v's
-    dtype."""
+                              offsets: torch.Tensor,
+                              k_scale: Optional[torch.Tensor] = None,
+                              v_scale: Optional[torch.Tensor] = None,
+                              ) -> torch.Tensor:
+    """Plain version. q: [B, T, Hq, Dh]; pools: [NP, Hk, page, Dh] (int8
+    with scales [NP, Hk, page], or neither); page_table: [B, MP]; offsets:
+    [B]. Returns [B, T, Hq, Dh] in v's dtype (q's for int8 pools)."""
     B, T, Hq, Dh = q.shape
     q_pos = offsets.to(torch.int32)[:, None] + torch.arange(
         T, dtype=torch.int32, device=q.device)[None, :]
+    scales = {}
+    if k_scale is not None:
+        scales = dict(k_scale=gather_page_scales(k_scale, page_table),
+                      v_scale=gather_page_scales(v_scale, page_table))
     out = masked_attention(q, gather_pages(k_pool, page_table),
                            gather_pages(v_pool, page_table), q_pos,
-                           k_pool.shape[1])
+                           k_pool.shape[1], **scales)
     return out.reshape(B, T, Hq, Dh)
 
 
-def shared_bytes(page: int, head_dim: int) -> int:
-    """Dynamic shared memory of one block: the query tile, K (rows padded by
-    one float against bank conflicts), V and each warp's probabilities, all
-    f32."""
-    return 4 * (_ROWS * head_dim + page * (head_dim + 1) + page * head_dim
-                + _WARPS * page)
-
-
-def _check_kernel_args(q, k_pool, v_pool, page_table, offsets):
-    if q.device.type != "cuda":
-        raise ValueError(f"paged attention kernel: q on {q.device}, not CUDA")
-    for name, t in (("k", k_pool), ("v", v_pool), ("page_table", page_table),
-                    ("offsets", offsets)):
-        if t.device != q.device:
-            raise ValueError(f"paged attention kernel: q on {q.device}, "
-                             f"{name} on {t.device}")
-    if q.dtype not in _DTYPE_CODE or k_pool.dtype != q.dtype or (
-            v_pool.dtype != q.dtype):
-        raise ValueError(f"paged attention kernel: q {q.dtype}, pools "
-                         f"{k_pool.dtype}/{v_pool.dtype}; expected one of "
-                         f"{sorted(map(str, _DTYPE_CODE))} for all three")
-    if k_pool.shape != v_pool.shape:
-        raise ValueError(f"paged attention kernel: k pool {tuple(k_pool.shape)}"
-                         f" != v pool {tuple(v_pool.shape)}")
+def _check_paged_args(name, q, k_pool, v_pool, k_scale, v_scale, page_table,
+                      offsets):
+    page = k_pool.shape[-2]
+    check_kv_args(name, q, k_pool, v_pool, k_scale, v_scale, page)
+    for label, a in (("page_table", page_table), ("offsets", offsets)):
+        if a.device != q.device:
+            raise ValueError(f"{name}: q on {q.device}, {label} on "
+                             f"{a.device}")
     B, T, Hq, Dh = q.shape
-    Hk, page, pool_dh = k_pool.shape[-3:]
-    if pool_dh != Dh or Hq % Hk != 0:
-        raise ValueError(f"paged attention kernel: q heads {Hq} x {Dh}, pool "
-                         f"heads {Hk} x {pool_dh}")
-    if Dh > MAX_HEAD_DIM or Dh % 8 != 0:
-        raise ValueError(f"paged attention kernel: head_dim {Dh} (takes "
-                         f"multiples of 8 up to {MAX_HEAD_DIM})")
-    if shared_bytes(page, Dh) > MAX_SHARED_BYTES:
-        raise ValueError(f"paged attention kernel: page {page} x head_dim "
-                         f"{Dh} needs {shared_bytes(page, Dh)} bytes of "
-                         f"shared memory (at most {MAX_SHARED_BYTES})")
+    Hk = k_pool.shape[-3]
+    if Hq % Hk != 0:
+        raise ValueError(f"{name}: {Hq} query heads over {Hk} KV heads")
     if page_table.dim() != 2 or page_table.shape[0] != B or (
             offsets.shape != (B,)):
-        raise ValueError(f"paged attention kernel: table "
-                         f"{tuple(page_table.shape)}, offsets "
+        raise ValueError(f"{name}: table {tuple(page_table.shape)}, offsets "
                          f"{tuple(offsets.shape)} for batch {B}")
-    if not (q.is_contiguous() and k_pool.is_contiguous()
-            and v_pool.is_contiguous()):
-        raise ValueError("paged attention kernel: q and the pools must be "
-                         "contiguous")
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("paged attention kernel: the pools must be 16-byte "
-                         "aligned (the kernel stages pages with 16-byte "
-                         "loads)")
 
 
-def _launch(q, k_pool, v_pool, page_table, offsets, layer: int):
+def _launch(q, k_pool, v_pool, k_scale, v_scale, page_table, offsets,
+            layer: int):
     """Launch the kernel on layer ``layer`` of the pools (leading layer
     axis, or none for a 4D pool) on the current stream."""
     from specdec_tpu_torch.ops._build import load
@@ -113,15 +93,25 @@ def _launch(q, k_pool, v_pool, page_table, offsets, layer: int):
     out = torch.empty_like(q)
     stride = k_pool.stride(0) if k_pool.dim() == 5 else 0
     scale = float(np.float32(1.0) / np.sqrt(np.float32(Dh)))
+    quant = k_scale is not None
     fn = load("paged_attention").paged_attention
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             k_scale.data_ptr() if quant else None,
+             v_scale.data_ptr() if quant else None,
              table.data_ptr(), off.data_ptr(), out.data_ptr(),
-             _DTYPE_CODE[q.dtype], B, T, Hq, Hk, Dh, page, table.shape[1],
-             layer, stride, scale,
+             DTYPE_CODE[q.dtype], int(quant), B, T, Hq, Hk, Dh, page,
+             table.shape[1], layer, stride, scale,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention launch failed: CUDA error {err}")
     return out
+
+
+def _layer_index(layer, stack: torch.Tensor) -> int:
+    layer = int(layer)
+    if not 0 <= layer < stack.shape[0]:
+        raise IndexError(f"layer {layer} of a {stack.shape[0]}-layer stack")
+    return layer
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -132,8 +122,9 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pool, v_pool, page_table,
                                          offsets).to(q.dtype)
-    _check_kernel_args(q, k_pool, v_pool, page_table, offsets)
-    out = _launch(q, k_pool, v_pool, page_table, offsets, 0)
+    _check_paged_args("paged attention kernel", q, k_pool, v_pool, None,
+                      None, page_table, offsets)
+    out = _launch(q, k_pool, v_pool, None, None, page_table, offsets, 0)
     paged_decode_attention.launches += 1
     return out
 
@@ -144,17 +135,59 @@ def paged_decode_attention_stacked(q: torch.Tensor, k_stack: torch.Tensor,
                                    offsets: torch.Tensor) -> torch.Tensor:
     """``paged_decode_attention`` reading layer ``layer`` of stacked
     [L, NP, Hk, page, Dh] pools in place; nothing is copied."""
-    layer = int(layer)
-    if not 0 <= layer < k_stack.shape[0]:
-        raise IndexError(f"layer {layer} of a {k_stack.shape[0]}-layer stack")
+    layer = _layer_index(layer, k_stack)
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_stack[layer], v_stack[layer],
                                          page_table, offsets).to(q.dtype)
-    _check_kernel_args(q, k_stack, v_stack, page_table, offsets)
-    out = _launch(q, k_stack, v_stack, page_table, offsets, layer)
+    _check_paged_args("paged attention kernel", q, k_stack, v_stack, None,
+                      None, page_table, offsets)
+    out = _launch(q, k_stack, v_stack, None, None, page_table, offsets,
+                  layer)
     paged_decode_attention_stacked.launches += 1
+    return out
+
+
+def paged_decode_attention_quant(q: torch.Tensor, k_pool: torch.Tensor,
+                                 k_scale: torch.Tensor, v_pool: torch.Tensor,
+                                 v_scale: torch.Tensor,
+                                 page_table: torch.Tensor,
+                                 offsets: torch.Tensor) -> torch.Tensor:
+    """``paged_decode_attention`` over int8 pools [NP, Hk, page, Dh] with
+    f32 scales [NP, Hk, page]; q float32 or bf16. Returns [B, T, Hq, Dh] in
+    q's dtype."""
+    if q.device.type == "cpu":
+        return paged_attention_reference(q, k_pool, v_pool, page_table,
+                                         offsets, k_scale, v_scale
+                                         ).to(q.dtype)
+    _check_paged_args("int8 paged attention kernel", q, k_pool, v_pool,
+                      k_scale, v_scale, page_table, offsets)
+    out = _launch(q, k_pool, v_pool, k_scale, v_scale, page_table, offsets,
+                  0)
+    paged_decode_attention_quant.launches += 1
+    return out
+
+
+def paged_decode_attention_quant_stacked(
+        q: torch.Tensor, k_stack: torch.Tensor, k_scale: torch.Tensor,
+        v_stack: torch.Tensor, v_scale: torch.Tensor, layer: int,
+        page_table: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """``paged_decode_attention_quant`` reading layer ``layer`` of int8
+    stacks [L, NP, Hk, page, Dh] and their scales [L, NP, Hk, page] in
+    place; nothing is copied."""
+    layer = _layer_index(layer, k_stack)
+    if q.device.type == "cpu":
+        return paged_attention_reference(
+            q, k_stack[layer], v_stack[layer], page_table, offsets,
+            k_scale[layer], v_scale[layer]).to(q.dtype)
+    _check_paged_args("int8 paged attention kernel", q, k_stack, v_stack,
+                      k_scale, v_scale, page_table, offsets)
+    out = _launch(q, k_stack, v_stack, k_scale, v_scale, page_table, offsets,
+                  layer)
+    paged_decode_attention_quant_stacked.launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
 paged_decode_attention_stacked.launches = 0
+paged_decode_attention_quant.launches = 0
+paged_decode_attention_quant_stacked.launches = 0
