@@ -8,11 +8,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    for float32 matmuls and convolutions;
 2. build: nvcc builds the port's kernels from ``specdec_tpu_torch/ops/csrc``
    into ``build/kernels/`` (git-ignored), all sources at once;
-3. kernel vs plain, INT4: the pair4 dequant-matmul kernel against its plain
-   PyTorch version at every shape the main paths give it (M = 1, 2, 13, 64
-   for single-sequence decoding; 8, 72, 256 for the serving engine's draft
-   step, verify and admission prefill), on the main path's own weights;
-   its time beside the plain version's, a bf16 ``torch.matmul`` on
+3. kernel vs plain, INT4: the pair4 dequant-matmul kernel (K1) against its
+   plain PyTorch version at every shape the main paths give it (M = 1, 2,
+   13, 64 for single-sequence decoding; 8, 72, 256 for the serving engine's
+   draft step, verify and admission prefill), on the main path's own
+   weights; its time beside the plain version's, a bf16 ``torch.matmul`` on
    pre-dequantized weights (a yardstick the port never calls) and the
    bound; and a check that a row's result does not depend on how many rows
    share the call;
@@ -30,36 +30,48 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    the serving drafter B=8, T = 1, 2 over the batcher's S; the admission
    prefill T=256), offsets up to S; a row's result must not depend on T;
    times beside the plain version's, SDPA over the live K/V and the bound;
+3d. kernel vs plain, INT8/NF4/FP4: as phase 3, for the INT8 kernel (K7)
+   and the NF4/FP4 half-plane kernel (K6, both codecs), on the 22-layer
+   pair's own weights in each format, with the share of output elements
+   that are bit-equal to the plain version's;
 4. greedy oracle: greedy self-draft speculative decoding equals greedy AR
-   on the card (full widths, 2 layers, float32 activations, kernel on every
-   projection), with the plain attention and with int8 KV under the
-   flash-decode kernel; int8-KV prefill logits stay within 8% (relative
-   max error) of bf16-KV logits;
+   on the card (full widths, 2 layers, float32 activations, a kernel on
+   every projection): INT4 weights with the plain attention and with int8
+   KV under the flash-decode kernel, and INT8, NF4 and FP4 weights (the
+   kernels' bf16 outputs round the logits, so the two may part where the
+   top two logits are tied within two bf16 ulps);
+   int8-KV prefill logits stay within 8% (relative max error) of bf16-KV
+   logits;
 4b. serving oracle: the default serving engine (``PagedContinuousBatcher``,
    self-draft, greedy, more requests than slots) gives every request
    greedy AR's tokens with acceptance 1.0 (full widths, 2 layers, float32),
    also with prefix caching and chunked prefill on prompts that share a
-   prefix; with bf16 KV and with int8 KV under the flash-decode kernel;
+   prefix; dense weights with bf16 KV and with int8 KV under the
+   flash-decode kernel, and INT8 weights (K7 on every projection);
 5. main path, single sequence: ``specdec_tpu_torch.bench``'s 22-layer INT4
    LayerSkip pair, AR and speculative decoding (gamma 12, 256 tokens), with
    the kernels' launch counts checked against what the configuration
    implies, and a profile of the card's busy share; again with
    ``--kv-quant int8 --attn flash`` (every attention on the int8
-   flash-decode kernel) and, with fewer timed calls, ``--attn flash``
-   (the flash-decode kernel over bf16 KV);
+   flash-decode kernel) and ``--attn flash`` (the flash-decode kernel over
+   bf16 KV); then the same pair under ``--quant int8``, ``nf4`` and
+   ``fp4``, every projection and the ``lm_head`` on K7 or K6 and none on
+   K1; one timed call each;
 6. main path, serving: ``bench.measure_serving`` on the same pair, the
    paged engine and the slotted one (16 requests x 128 tokens, 8 slots,
    gamma 8), with every page back in the pool, launch counts checked (the
    paged attention kernel once per target layer per paged forward, the
    int8 flash-decode kernel on every slotted forward) and a profile of the
-   card's busy share; with bf16 KV and with ``--kv-quant int8 --attn
-   flash``.
+   card's busy share under the paged engine; with bf16 KV and with
+   ``--kv-quant int8 --attn flash``; and the paged engine under ``--quant
+   int8`` (K7 on every projection).
 
 Any failed phase exits 1 (without a CUDA device, or outside a checkout,
 too, before any result is printed). Standard output ends with the card's
 name and power limit, a JSON line of the main paths' numbers, a JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
 """
+import dataclasses
 import json
 import math
 import os
@@ -76,7 +88,7 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
 
-# main-path shapes of the INT4 kernel: (name, K, N) of each layer projection
+# main-path shapes of the weight kernels: (name, K, N) of each layer projection
 # of the 22-layer target (the drafter reads layers 0..3 of the same stacks),
 # the 2D lm_head, and the row counts M the decode loops give it
 STACKED = [("wqkv", 2048, 2560), ("wo", 2048, 2048),
@@ -87,10 +99,14 @@ LM_HEAD = ("lm_head", 2048, 32000)
 ROWS = (1, 2, 8, 13, 64, 72, 256)
 # kernel vs plain: relative Frobenius error and elementwise tolerance (the
 # JAX package's kernel-vs-oracle tolerance, tests/test_quant.py); both
-# sides round x and y to bf16 and differ only in f32 summation order
+# sides round x and y to bf16 (and NF4/FP4 each weight, identically) and
+# differ only in f32 summation order
 REL_FRO_TOL = 1e-2
 RTOL, ATOL = 2e-2, 2e-1
 TIMED_RUNS = 25
+# timed calls of each single-sequence main path, after one warm-up
+# (bench.REPS takes three): one, so that the whole run stays near 8 minutes
+MAIN_REPS = 1
 SLEEP_CYCLES = 50_000_000   # keeps the card busy while the runs enqueue
 
 # paged attention shapes (Hq=32, Hk=4, Dh=64, page 64, the pair's heads):
@@ -170,12 +186,17 @@ def gpu_ms(fn, flush):
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
-def bound_ms(M, K, N):
-    """Least time for one call: words K/8*N*4 + absmax K/64*N*2 + x M*K*2
-    + y M*N*2 bytes at HBM_BYTES_PER_S, or 2*M*K*N operations at the bf16
-    rate, whichever is longer. Returns (ms, "bytes" | "operations")."""
-    t_bytes = (K // 8 * N * 4 + K // 64 * N * 2 + M * K * 2 + M * N * 2
-               ) / HBM_BYTES_PER_S
+def bytes_per_weight(fmt, K):
+    """Bytes per stored weight: the 4-bit code and a bf16 scale per 64 (K1,
+    K6), or the int8 byte and an f32 scale per column of K (K7)."""
+    return 1 + 4 / K if fmt == "int8" else 0.5 + 1 / 32
+
+
+def bound_ms(M, K, N, bpw):
+    """Least time for one call: the weights K*N*bpw + x M*K*2 + y M*N*2
+    bytes at HBM_BYTES_PER_S, or 2*M*K*N operations at the bf16 rate,
+    whichever is longer. Returns (ms, "bytes" | "operations")."""
+    t_bytes = (K * N * bpw + M * K * 2 + M * N * 2) / HBM_BYTES_PER_S
     t_ops = 2 * M * K * N / BF16_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -210,12 +231,37 @@ def phase_build():
                 say(f"  {name}: {line.strip()}")
 
 
-def phase_kernel(target, device):
-    """Kernel vs plain at every main-path shape. Returns the per-shape
-    records and the largest absolute error."""
+def weight_format(w):
+    """A quantized container's format: (label, the plain version of its
+    kernel on one layer's two tensors)."""
     from specdec_tpu_torch.ops import quant_matmul as qm
-    from specdec_tpu_torch.quant.core import Int4Weight, dequantize
+    from specdec_tpu_torch.quant.core import Int4Weight, Int8Weight, NF4Weight
 
+    if isinstance(w, Int8Weight):
+        return "int8", qm.int8_matmul_reference
+    if isinstance(w, Int4Weight):
+        return "int4", qm.int4_matmul_reference
+    codec = "nf4" if isinstance(w, NF4Weight) else "fp4"
+    return codec, lambda x, a, b: qm.q4_halfplane_matmul_reference(x, a, b,
+                                                                   codec)
+
+
+def layer_of(w, layer):
+    """Layer ``layer`` of a stacked container (None: the 2D container)."""
+    if layer is None:
+        return w
+    return type(w)(**{f.name: getattr(w, f.name)[layer]
+                      for f in dataclasses.fields(w)})
+
+
+def phase_kernel(target, device, phase="3 kernel"):
+    """Kernel vs plain at every main-path shape, for the weight format of
+    ``target`` (the 22-layer pair's target). Returns the per-shape records
+    and the largest absolute error."""
+    from specdec_tpu_torch.ops import quant_matmul as qm
+    from specdec_tpu_torch.quant.core import dequantize
+
+    fmt, plain_fn = weight_format(target["lm_head"])
     gen = torch.Generator(device=device).manual_seed(1234)
     flush = torch.zeros(256 * 2 ** 20, dtype=torch.uint8, device=device)
     records, max_err = [], 0.0
@@ -224,19 +270,19 @@ def phase_kernel(target, device):
     for name, K, N, layer in cases:
         if layer is None:
             w = target["lm_head"]
-            packed, absmax = w.packed, w.absmax
 
             def kern(x, w=w):
                 return qm.quant_matmul(x, w)
         else:
             w = target["layers"][name]
-            packed, absmax = w.packed[layer], w.absmax[layer]
 
             def kern(x, w=w, layer=layer):
                 return qm.quant_matmul_stacked(x, w, layer)
-        if tuple(packed.shape) != (K // 8, N):
-            fail(f"{name}: words {tuple(packed.shape)}, expected "
-                 f"{(K // 8, N)}")
+        lw = layer_of(w, layer)
+        a, b = (lw.q, lw.scale) if fmt == "int8" else (lw.packed, lw.absmax)
+        want = (K, N) if fmt == "int8" else (K // 8, N)
+        if tuple(a.shape) != want:
+            fail(f"{fmt} {name}: weight {tuple(a.shape)}, expected {want}")
         x_all = torch.randn((max(ROWS), K), generator=gen, device=device
                             ).to(torch.bfloat16)
         ys = {M: kern(x_all[:M]) for M in ROWS}
@@ -244,41 +290,41 @@ def phase_kernel(target, device):
         for M in ROWS:
             # a row's result must not depend on how many rows share the call
             if not torch.equal(ys[M], ys[max(ROWS)][:M]):
-                fail(f"{name} layer {layer}: rows of the M={M} call differ "
-                     f"from the same rows of the M={max(ROWS)} call")
-        w_bf16 = dequantize(Int4Weight(packed=packed, absmax=absmax),
-                            torch.bfloat16)
+                fail(f"{fmt} {name} layer {layer}: rows of the M={M} call "
+                     f"differ from the same rows of the M={max(ROWS)} call")
+        w_bf16 = dequantize(lw, torch.bfloat16)
         for M in ROWS:
             x = x_all[:M]
-            plain = qm.int4_matmul_reference(x, packed, absmax).float()
+            plain = plain_fn(x, a, b).float()
             got = ys[M].float()
             err = (got - plain).abs().max().item()
             rel = ((got - plain).norm() / plain.norm()).item()
             if not (rel <= REL_FRO_TOL and torch.allclose(
                     got, plain, rtol=RTOL, atol=ATOL)):
-                fail(f"{name} layer {layer} M={M}: kernel vs plain max abs "
-                     f"err {err:.3g}, relative Frobenius {rel:.3g}")
+                fail(f"{fmt} {name} layer {layer} M={M}: kernel vs plain max "
+                     f"abs err {err:.3g}, relative Frobenius {rel:.3g}")
             max_err = max(max_err, err)
-            rec = {"name": name, "layer": layer, "M": M, "K": K, "N": N,
-                   "max_abs_err": err, "rel_fro_err": rel}
+            rec = {"name": name, "format": fmt, "layer": layer, "M": M,
+                   "K": K, "N": N, "max_abs_err": err, "rel_fro_err": rel,
+                   "bit_equal": (got == plain).float().mean().item()}
             if layer in (0, None):
-                b, by = bound_ms(M, K, N)
+                b_ms, by = bound_ms(M, K, N, bytes_per_weight(fmt, K))
                 rec.update(
                     ms=gpu_ms(lambda: kern(x), flush),
-                    plain_ms=gpu_ms(
-                        lambda: qm.int4_matmul_reference(x, packed, absmax),
-                        flush),
+                    plain_ms=gpu_ms(lambda: plain_fn(x, a, b), flush),
                     library_ms=gpu_ms(lambda: torch.matmul(x, w_bf16), flush),
-                    bound_ms=b, bound_by=by)
-                say(f"[3 kernel] {name:8s} M={M:2d} K={K} N={N}: kernel "
+                    bound_ms=b_ms, bound_by=by)
+                say(f"[{phase}] {fmt} {name:8s} M={M:3d} K={K} N={N}: kernel "
                     f"{rec['ms'] * 1e3:8.1f} us, plain "
                     f"{rec['plain_ms'] * 1e3:8.1f} us, torch.matmul bf16 "
                     f"{rec['library_ms'] * 1e3:7.1f} us, bound "
-                    f"{b * 1e3:6.1f} us ({by}); max abs err {err:.3g}, "
-                    f"rel {rel:.2g}")
+                    f"{b_ms * 1e3:6.1f} us ({by}); max abs err {err:.3g}, "
+                    f"rel {rel:.2g}, bit-equal {rec['bit_equal']:.3%}")
             records.append(rec)
-    say(f"[3 kernel] all {len(records)} comparisons within relative "
-        f"Frobenius {REL_FRO_TOL} and rtol {RTOL}, atol {ATOL}; "
+    say(f"[{phase}] {fmt}: all {len(records)} comparisons within relative "
+        f"Frobenius {REL_FRO_TOL} and rtol {RTOL}, atol {ATOL} "
+        f"({min(r['bit_equal'] for r in records):.3%}-"
+        f"{max(r['bit_equal'] for r in records):.3%} of elements bit-equal); "
         f"row-independent at M in {ROWS}")
     return records, max_err
 
@@ -289,11 +335,35 @@ KVINT8_FLASH = dict(kv_quant="int8", attention_impl="flash")
 FLASH = dict(attention_impl="flash")
 
 
-def phase_oracle(device, label="bf16 KV", **cfg_kw):
-    """Greedy self-draft speculative == greedy AR, on the kernels, in the
-    configuration ``cfg_kw`` (ModelConfig fields)."""
+def greedy_tie(what, cfg, params, prompt, ar, got, device):
+    """Where ``got`` parts from greedy AR's tokens ``ar``: the position, if
+    the target's top two logits there are tied within two bf16 ulps, else
+    a failure. The weight kernels round every output to bf16, the
+    lm_head's too, so each logit is the bf16 rounding of an f32 sum that AR
+    (one row, cached attention) and the engine (blocks of rows, another
+    attention) reach in another order: each of the top two can land one ulp
+    apart, and their gap can move by two. Such ties are common (exact ones
+    too, among 32000 bf16 logits), so they may fall at any token."""
+    from specdec_tpu_torch.core.model import forward_full
+
+    i = next(j for j, (a, b) in enumerate(zip(ar, got)) if a != b)
+    toks = torch.tensor([prompt + ar[:i]], device=device)
+    top2 = forward_full(cfg, params, toks)[0, -1].topk(2).values.tolist()
+    gap = top2[0] - top2[1]
+    ulp = 2.0 ** (math.floor(math.log2(abs(top2[0]))) - 7)
+    if gap > 2 * ulp:
+        fail(f"{what}: diverges from greedy AR at token {i} where the "
+             f"target's top-2 logit gap {gap:.3g} exceeds two bf16 ulps "
+             f"({2 * ulp:.3g})")
+    return i, gap, ulp
+
+
+def phase_oracle(device, label="bf16 KV", kind="int4", **cfg_kw):
+    """Greedy self-draft speculative == greedy AR, on the kernels, with
+    weights in format ``kind`` and the configuration ``cfg_kw``
+    (ModelConfig fields)."""
     from specdec_tpu_torch import bench
-    from specdec_tpu_torch.core.model import forward_full, init_params
+    from specdec_tpu_torch.core.model import init_params
     from specdec_tpu_torch.quant.core import quantize_params
     from specdec_tpu_torch.sampling.base_decoding import (
         autoregressive_generate,
@@ -304,34 +374,27 @@ def phase_oracle(device, label="bf16 KV", **cfg_kw):
     gen = torch.Generator(device=device).manual_seed(1)
     params = quantize_params(
         init_params(cfg, scale=0.02, device=device, generator=gen),
-        kind="int4", fuse=True)
+        kind=kind, fuse=True)
     prompt = bench.bench_prompt(seed=1)
     ar = autoregressive_generate(prompt, cfg, params, max_gen_len=64,
                                  eos_tokens_id=(), device=device)
     spec, rate = speculative_generate(prompt, cfg, params, cfg, params,
                                       gamma=bench.GAMMA, max_gen_len=64,
                                       eos_tokens_id=(), device=device)
+    what = f"oracle ({kind} weights, {label})"
     if len(ar) != 64 or len(spec) != 64:
-        fail(f"oracle ({label}): {len(ar)} AR and {len(spec)} spec tokens, "
-             "not 64")
+        fail(f"{what}: {len(ar)} AR and {len(spec)} spec tokens, not 64")
     if spec == ar:
         if rate != 1.0:
-            fail(f"oracle ({label}): tokens equal but acceptance {rate}")
-        say(f"[4 oracle] {label}: greedy self-draft spec == greedy AR over "
-            f"64 tokens (2 layers, float32 activations), acceptance {rate}")
+            fail(f"{what}: tokens equal but acceptance {rate}")
+        say(f"[4 oracle] {kind} weights, {label}: greedy self-draft spec == "
+            f"greedy AR over 64 tokens (2 layers, float32 activations), "
+            f"acceptance {rate}")
         return
-    i = next(j for j, (a, b) in enumerate(zip(ar, spec)) if a != b)
-    toks = torch.tensor([prompt + ar[:i]], device=device)
-    top2 = forward_full(cfg, params, toks)[0, -1].topk(2).values.tolist()
-    gap = top2[0] - top2[1]
-    ulp = 2.0 ** (math.floor(math.log2(abs(top2[0]))) - 7)
-    if i < 16 or gap > ulp:
-        fail(f"oracle ({label}): spec diverges from AR at token {i} where "
-             f"the target's top-2 logit gap {gap:.3g} exceeds one bf16 ulp "
-             f"({ulp:.3g}), or before token 16")
-    say(f"[4 oracle] {label}: spec == AR for the first {i} tokens; token {i} "
-        f"is a tie within one bf16 ulp (top-2 gap {gap:.3g} <= {ulp:.3g}); "
-        f"acceptance {rate:.4f}")
+    i, gap, ulp = greedy_tie(what, cfg, params, prompt, ar, spec, device)
+    say(f"[4 oracle] {kind} weights, {label}: spec == AR for the first {i} "
+        f"tokens; token {i} is a tie within two bf16 ulps (top-2 gap "
+        f"{gap:.3g}, ulp {ulp:.3g}); acceptance {rate:.4f}")
 
 
 def phase_kv_error(pair, device):
@@ -713,21 +776,23 @@ def phase_flash_kernel(device):
     return records, max_err
 
 
-def phase_serve_oracle(device, label="bf16 KV", **cfg_kw):
+def phase_serve_oracle(device, label="bf16 KV", kind=None, **cfg_kw):
     """The default serving engine, self-draft greedy on a float32 model in
     the configuration ``cfg_kw``, equals greedy AR per request with
     acceptance 1.0; then again with prefix caching and chunked prefill
     (chunks of 64, so partial admissions attend through the paged kernel
     at T=64). Under int8 KV both sides read the same quantized state
     (quantized from K/V that agree to f32 summation order). Dense float32
-    weights
-    keep every product in float32: the engine and AR then differ only in
-    summation order (the kernel against dense attention, batched against
-    single-row matmuls), ~1e-6 of a logit, far below the gap between the
-    top two logits; INT4's bf16 outputs would round logits to bf16, where
-    ties between the top two are common (phase 4 allows them)."""
+    weights (``kind`` None) keep every product in float32: the engine and
+    AR then differ only in summation order (the kernel against dense
+    attention, batched against single-row matmuls), ~1e-6 of a logit, far
+    below the gap between the top two logits. Quantized weights (``kind``)
+    put every projection on its kernel, whose bf16 outputs round the logits
+    to bf16: a request may then part from AR at a tie of the top two
+    within two bf16 ulps, as phase 4 allows (``greedy_tie``)."""
     from specdec_tpu_torch import bench
     from specdec_tpu_torch.core.model import init_params
+    from specdec_tpu_torch.quant.core import quantize_params
     from specdec_tpu_torch.sampling.base_decoding import (
         autoregressive_generate,
     )
@@ -736,6 +801,9 @@ def phase_serve_oracle(device, label="bf16 KV", **cfg_kw):
     cfg = bench.target_config(num_layers=2, dtype=torch.float32, **cfg_kw)
     gen = torch.Generator(device=device).manual_seed(2)
     params = init_params(cfg, scale=0.02, device=device, generator=gen)
+    if kind is not None:
+        params = quantize_params(params, kind=kind, fuse=True)
+        label = f"{kind} weights, {label}"
     rng = np.random.default_rng(3)
 
     def tokens(n):
@@ -755,33 +823,48 @@ def phase_serve_oracle(device, label="bf16 KV", **cfg_kw):
                            **kw)
         ids = [b.submit(p) for p in prompts]
         done = b.run()
+        ties = []
         for i, (rid, p) in enumerate(zip(ids, prompts)):
             ar = autoregressive_generate(p, cfg, params, max_gen_len=new,
                                          eos_tokens_id=(), device=device)
             got = done[rid]
-            if got.output_ids != ar or len(ar) != new:
-                fail(f"serve oracle ({label}, {case}): request {i} gave "
-                     f"{got.output_ids} where greedy AR gives {ar}")
-            if got.metrics.acceptance_rate != 1.0:
-                fail(f"serve oracle ({label}, {case}): request {i} "
-                     f"acceptance {got.metrics.acceptance_rate}, not 1.0")
+            what = f"serve oracle ({label}, {case}), request {i}"
+            if len(ar) != new or len(got.output_ids) != new:
+                fail(f"{what}: {len(got.output_ids)} tokens, AR {len(ar)}; "
+                     f"expected {new}")
+            if got.output_ids != ar:
+                if kind is None:
+                    fail(f"{what}: gave {got.output_ids} where greedy AR "
+                         f"gives {ar}")
+                ties.append(greedy_tie(what, cfg, params, p, ar,
+                                       got.output_ids, device)[0])
+            elif got.metrics.acceptance_rate != 1.0:
+                fail(f"{what}: acceptance {got.metrics.acceptance_rate}, "
+                     "not 1.0")
         if len(b._alloc_t.free) + len(b.prefix_cache) != b.num_pages - 1:
             fail(f"serve oracle ({label}, {case}): pages not returned")
         if kw and b.prefix_cache.hit_tokens == 0:
             fail(f"serve oracle ({label}, {case}): no prefix-cache hit")
         say(f"[4b serve oracle] {label}, {case}: {len(prompts)} requests on "
-            f"4 slots == greedy AR ({new} tokens each), acceptance 1.0; "
-            f"prefix hit tokens {b.prefix_cache.hit_tokens}")
+            f"4 slots == greedy AR ({new} tokens each), acceptance 1.0"
+            + (f", except {len(ties)} parting at a bf16 tie (tokens {ties})"
+               if ties else "")
+            + f"; prefix hit tokens {b.prefix_cache.hit_tokens}")
 
 
 def kernel_wrappers():
     """Every kernel wrapper of the port, by the short name of the TPU
-    kernel it replaces (K1 split into its two wrappers)."""
+    kernel it replaces. The weight kernels have a 2D wrapper (a: the
+    lm_head) and a stacked one (b: layer i of a stack); for K7, whose TPU
+    kernel is one, they are K7a and K7b here."""
     from specdec_tpu_torch.ops import decode_attention as da
     from specdec_tpu_torch.ops import paged_attention as pa
     from specdec_tpu_torch.ops import quant_matmul as qm
 
-    return {"stacked": qm.quant_matmul_stacked, "2d": qm.quant_matmul,
+    return {"K1b": qm.int4_matmul_stacked, "K1a": qm.int4_matmul,
+            "K6b": qm.q4_halfplane_matmul_stacked,
+            "K6a": qm.q4_halfplane_matmul,
+            "K7b": qm.int8_matmul_stacked, "K7a": qm.int8_matmul,
             "K2": pa.paged_decode_attention,
             "K8a": pa.paged_decode_attention_stacked,
             "K5": pa.paged_decode_attention_quant,
@@ -799,6 +882,18 @@ def launches():
     return {k: w.launches for k, w in kernel_wrappers().items()}
 
 
+# the weight formats besides INT4, with kernels K7 (int8) and K6 (nf4, fp4)
+QUANTS = ("int8", "nf4", "fp4")
+WEIGHT_KERNELS = {"int4": ("K1b", "K1a"), "nf4": ("K6b", "K6a"),
+                  "fp4": ("K6b", "K6a"), "int8": ("K7b", "K7a")}
+
+
+def weight_kernels(params):
+    """(stacked, 2D) kernel of a model's weight format: the one every layer
+    projection launches and the one its lm_head launches."""
+    return WEIGHT_KERNELS[weight_format(params["lm_head"])[0]]
+
+
 def slotted_attention_kernel(cfg):
     """The kernel a slotted forward of ``cfg`` attends through (None: the
     plain attention)."""
@@ -807,20 +902,23 @@ def slotted_attention_kernel(cfg):
     return "K4" if cfg.kv_quant == "int8" else "K3"
 
 
-def phase_main(pair, device, label="bf16 KV", reps=None):
-    """The main path with launch counts: every INT4 projection on K1 and,
-    under ``attention_impl="flash"``, every attention on K3 (bf16 KV) or K4
-    (int8 KV); no other kernel launches. Returns its summary and the
-    launch counts of this run."""
+def phase_main(pair, device, label="bf16 KV"):
+    """The main path with launch counts: every projection on the stacked
+    kernel of the weight format (K1b for INT4, K6b for NF4/FP4, K7b for
+    INT8) and the lm_head on its 2D kernel, and, under
+    ``attention_impl="flash"``, every attention on K3 (bf16 KV) or K4 (int8
+    KV); no other kernel launches. Returns its summary and the launch
+    counts of this run."""
     from specdec_tpu_torch import bench
     from specdec_tpu_torch.sampling.processors import MultinomialProcessor
 
     t_cfg, d_cfg, target, drafter = pair
-    reps = bench.REPS if reps is None else reps
+    reps = MAIN_REPS
     proc = MultinomialProcessor(temperature=1.0)
     prompt = bench.bench_prompt()
-    per_fwd = {"stacked": 4 * t_cfg.num_layers, "2d": 1}
-    per_draft = {"stacked": 4 * d_cfg.num_layers, "2d": 1}
+    stacked, two_d = weight_kernels(target)
+    per_fwd = {stacked: 4 * t_cfg.num_layers, two_d: 1}
+    per_draft = {stacked: 4 * d_cfg.num_layers, two_d: 1}
     attn = slotted_attention_kernel(t_cfg)
     if attn is not None:
         per_fwd[attn] = t_cfg.num_layers
@@ -865,8 +963,8 @@ def phase_main(pair, device, label="bf16 KV", reps=None):
     best_ar = min(ar["runs"][1:], key=lambda r: r["seconds"])
     best_spec = min(spec["runs"][1:], key=lambda r: r["seconds"])
     summary = {
-        "config": label, "kv_quant": t_cfg.kv_quant,
-        "attention_impl": t_cfg.attention_impl,
+        "config": label, "quant": weight_format(target["lm_head"])[0],
+        "kv_quant": t_cfg.kv_quant, "attention_impl": t_cfg.attention_impl,
         "ar_tok_s": ar["tok_s"], "spec_tok_s": spec["tok_s"],
         "speedup": spec["tok_s"] / ar["tok_s"],
         "acceptance": spec["acceptance"],
@@ -946,8 +1044,9 @@ def kernel_label(key):
     """A profiler key, shortened: the port's kernels by what they are (the
     attention body's instantiations by key layout and K/V type), others to
     their first 48 characters."""
-    if "int4_pair_matmul" in key:
-        return "int4_pair_matmul"
+    for name in ("int4_pair_matmul", "q4_halfplane_matmul", "int8_matmul"):
+        if name in key:
+            return name
     if "attention_kernel" in key:
         layout = "paged" if "PagedKeys" in key else "slotted"
         kv = "int8" if "signed char" in key else (
@@ -991,14 +1090,16 @@ def serving_busy(batcher, device):
             "busy_share": device_ms / wall_ms, "top": totals[:6]}
 
 
-def phase_serve(pair, device, label="bf16 KV"):
-    """The serving main path: both engines, each with the launch counts of
-    its own passes. The paged engine's target attends through K8a (bf16
-    KV) or K8b (int8 KV), 22 launches per paged forward; under
+def phase_serve(pair, device, label="bf16 KV", engines=("paged", "slotted")):
+    """The serving main path: the paged engine and (unless ``engines``
+    leaves it out) the slotted one, each with the launch counts of its own
+    passes. The paged engine's target attends through K8a (bf16 KV) or K8b
+    (int8 KV), 22 launches per paged forward; under
     ``attention_impl="flash"`` every slotted forward (the hybrid drafter's
     steps, the dense admissions, all of the slotted engine's forwards)
-    attends through K3 or K4. Returns (summary, launches summed over both
-    engines)."""
+    attends through K3 or K4. Every forward runs its projections on the
+    weight format's stacked kernel and its lm_head on the 2D one. Returns
+    (summary, launches summed over the engines)."""
     from specdec_tpu_torch import bench
     from specdec_tpu_torch.core import model as tmodel
 
@@ -1006,17 +1107,18 @@ def phase_serve(pair, device, label="bf16 KV"):
     L, Ld, gamma = t_cfg.num_layers, d_cfg.num_layers, bench.SERVE_GAMMA
     paged_kernel = "K8b" if t_cfg.kv_quant == "int8" else "K8a"
     attn = slotted_attention_kernel(t_cfg)
+    w_stacked, w_2d = weight_kernels(pair[2])
     runs, by_engine = [], {}
-    for paged in (True, False):
+    for engine in engines:
         reset_launches()
         tmodel.forward_step_paged.calls = 0
         t0 = time.perf_counter()
-        runs.append(bench.measure_serving(paged, pair, device))
-        by_engine[runs[-1]["engine"]] = dict(
+        runs.append(bench.measure_serving(engine == "paged", pair, device))
+        by_engine[engine] = dict(
             launches(), paged_forwards=tmodel.forward_step_paged.calls)
-        say(f"[time] {label}, {runs[-1]['engine']}: two passes in "
+        say(f"[time] {label}, {engine}: two passes in "
             f"{time.perf_counter() - t0:.1f} s")
-    total = {k: by_engine["paged"][k] + by_engine["slotted"][k]
+    total = {k: sum(c[k] for c in by_engine.values())
              for k in kernel_wrappers()}
     paged_forwards = by_engine["paged"]["paged_forwards"]
 
@@ -1047,50 +1149,46 @@ def phase_serve(pair, device, label="bf16 KV"):
     # 22-layer verify per window
     admissions = 2 * bench.SERVE_REQUESTS + runs[0]["preemptions"]
     per_admission = L + Ld
-    want_paged = {k: 0 for k in ("K2", "K8a", "K5", "K8b", "K3", "K4")}
+    want_paged = {k: 0 for k in kernel_wrappers()}
     want_paged[paged_kernel] = L * paged_forwards
     if attn is not None:
         want_paged[attn] = (Ld * gamma * paged_forwards
                             + per_admission * admissions)
+    # the same forwards, each with 4 projections per layer and one lm_head
+    want_paged[w_stacked] = 4 * (L * paged_forwards
+                                 + Ld * gamma * paged_forwards
+                                 + per_admission * admissions)
+    want_paged[w_2d] = (1 + gamma) * paged_forwards + 2 * admissions
     got_paged = {k: by_engine["paged"][k] for k in want_paged}
     if paged_forwards == 0 or got_paged != want_paged:
-        fail(f"serve ({label}, paged): attention launches {got_paged} over "
+        fail(f"serve ({label}, paged): launches {got_paged} over "
              f"{paged_forwards} paged forwards and {admissions} admissions; "
              f"expected {want_paged}")
-    slotted = by_engine["slotted"]
-    if any(slotted[k] for k in ("K2", "K8a", "K5", "K8b")):
-        fail(f"serve ({label}, slotted): paged attention launches {slotted}")
+    slotted = by_engine.get("slotted")
     slotted_windows = None
-    if attn is not None:
-        n = slotted[attn] - per_admission * 2 * bench.SERVE_REQUESTS
-        per_window = Ld * gamma + L
-        if n <= 0 or n % per_window:
-            fail(f"serve ({label}, slotted): {slotted[attn]} {attn} "
-                 f"launches are not {per_admission} per admission plus "
-                 f"{per_window} per window")
-        slotted_windows = n // per_window
-    for eng, counts in by_engine.items():
-        if counts["stacked"] == 0 or counts["2d"] == 0:
-            fail(f"serve ({label}, {eng}): INT4 launches {counts}")
+    if slotted is not None:
+        if any(slotted[k] for k in ("K2", "K8a", "K5", "K8b")):
+            fail(f"serve ({label}, slotted): paged attention launches "
+                 f"{slotted}")
+        if slotted[w_stacked] == 0 or slotted[w_2d] == 0 or any(
+                slotted[k] for k in sum(WEIGHT_KERNELS.values(), ())
+                if k not in (w_stacked, w_2d)):
+            fail(f"serve ({label}, slotted): weight kernel launches "
+                 f"{slotted}")
+        if attn is not None:
+            n = slotted[attn] - per_admission * 2 * bench.SERVE_REQUESTS
+            per_window = Ld * gamma + L
+            if n <= 0 or n % per_window:
+                fail(f"serve ({label}, slotted): {slotted[attn]} {attn} "
+                     f"launches are not {per_admission} per admission plus "
+                     f"{per_window} per window")
+            slotted_windows = n // per_window
 
-    paged, slotted_pass = (r["timed"] for r in runs)
-    # where the engines' greedy outputs first differ: the two attention
-    # paths round differently in bf16, and a one-ulp difference flips a
-    # near-tie of the bf16 logits, after which the continuations part
-    agree = [next((i for i, (x, y) in enumerate(zip(a, c)) if x != y),
-                  len(a))
-             for a, c in zip(paged["outputs"], slotted_pass["outputs"])]
-    same = sum(n == bench.SERVE_GEN for n in agree)
-    summary = {
-        eng: {k: r["timed"][k] for k in ("tok_s", "ttft_p50_ms",
-                                         "ttft_p99_ms", "acceptance",
-                                         "seconds", "tokens")}
-        for eng, r in (("paged", runs[0]), ("slotted", runs[1]))}
+    summary = {r["engine"]: {k: r["timed"][k] for k in (
+        "tok_s", "ttft_p50_ms", "ttft_p99_ms", "acceptance", "seconds",
+        "tokens")} for r in runs}
     summary["config"] = label
     summary["paged"]["preemptions"] = runs[0]["preemptions"]
-    summary["paged_over_slotted"] = paged["tok_s"] / slotted_pass["tok_s"]
-    summary["same_outputs"] = same
-    summary["agreeing_prefix_tokens"] = agree
     summary["paged_forwards"] = paged_forwards
     summary["slotted_windows"] = slotted_windows
     summary["launches"] = {eng: {k: n for k, n in c.items() if n}
@@ -1103,17 +1201,33 @@ def phase_serve(pair, device, label="bf16 KV"):
             f"{r['timed']['ttft_p99_ms']:.0f} ms, acceptance "
             f"{r['timed']['acceptance']:.3f} (warm-up pass "
             f"{r['warm']['tok_s']:.1f} tok/s)")
-    say(f"[6 serve] {label}: paged/slotted "
-        f"{summary['paged_over_slotted']:.3f}; "
-        f"{same}/{len(slotted_pass['outputs'])} requests with equal outputs, "
-        f"agreeing prefixes of {min(agree)}-{max(agree)} tokens (median "
-        f"{int(np.median(agree))}); {paged_forwards} paged forwards, "
-        f"attention launches as implied: paged engine {got_paged}, slotted "
-        f"engine {attn} x {slotted[attn] if attn else 0} "
-        f"({slotted_windows} windows); all pages returned; preemptions "
-        + str(runs[0]["preemptions"]))
+    compared = ""
+    if slotted is not None:
+        paged, slotted_pass = (r["timed"] for r in runs)
+        # where the engines' greedy outputs first differ: the two attention
+        # paths round differently in bf16, and a one-ulp difference flips a
+        # near-tie of the bf16 logits, after which the continuations part
+        agree = [next((i for i, (x, y) in enumerate(zip(a, c)) if x != y),
+                      len(a))
+                 for a, c in zip(paged["outputs"], slotted_pass["outputs"])]
+        same = sum(n == bench.SERVE_GEN for n in agree)
+        summary["paged_over_slotted"] = paged["tok_s"] / slotted_pass["tok_s"]
+        summary["same_outputs"] = same
+        summary["agreeing_prefix_tokens"] = agree
+        compared = (
+            f"paged/slotted {summary['paged_over_slotted']:.3f}; "
+            f"{same}/{len(slotted_pass['outputs'])} requests with equal "
+            f"outputs, agreeing prefixes of {min(agree)}-{max(agree)} tokens "
+            f"(median {int(np.median(agree))}); slotted engine {attn} x "
+            f"{slotted[attn] if attn else 0} ({slotted_windows} windows); ")
+    say(f"[6 serve] {label}: {compared}{paged_forwards} paged forwards, "
+        f"launches as implied: paged engine "
+        f"{ {k: n for k, n in got_paged.items() if n} }; all pages returned; "
+        f"preemptions {runs[0]['preemptions']}")
+    # a profiled pass of the paged engine (the default) only, to keep the
+    # run's time near 8 minutes
     summary["profile"] = {}
-    for r in runs:
+    for r in runs[:1]:
         t0 = time.perf_counter()
         busy = serving_busy(r["batcher"], device)
         say(f"[time] {label}, {r['engine']}: profiled pass in "
@@ -1151,6 +1265,36 @@ def kernel_entry(name, source, replaces, records, err, top, work,
             "work": work, "shapes": [r for r in records if "ms" in r]}
 
 
+def step_times(records):
+    """Times of one decode step's calls of a weight kernel: the timed M=1
+    records summed (a layer's four projections, or the lm_head), with the
+    work they stand for."""
+    step = [r for r in records if r["M"] == 1 and "ms" in r]
+    out = {k: sum(r[k] for r in step)
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    out["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes" for r in step)
+                       else "operations")
+    out["work"] = "M=1: " + ", ".join(f"{r['name']} {r['K']}x{r['N']}"
+                                      for r in step)
+    return out
+
+
+def weight_entry(name, source, line, records, top, by_path, **extra):
+    """One entry of the ``kernels`` line for a weight kernel: the top-level
+    times are ``step_times(top)``; ``records`` are all its comparisons."""
+    return {"name": name, "route": "cuda",
+            "source": f"specdec_tpu_torch/ops/csrc/{source}",
+            "replaces": f"specdec_tpu/ops/quant_matmul.py:{line}",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in records),
+            **step_times(top), **extra,
+            "shapes": [r for r in records if "ms" in r]}
+
+
+def stacked_records(records, stacked=True):
+    return [r for r in records if (r["layer"] is not None) == stacked]
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
@@ -1167,28 +1311,38 @@ def main():
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     phase_build()
-    t1 = time.perf_counter()
-    pair = bench.build_pair(device)
-    torch.cuda.synchronize()
-    say(f"[5 main] built the INT4 LayerSkip pair in "
-        f"{time.perf_counter() - t1:.1f} s")
+
     def stamp(phase):
         say(f"[time] {phase} done at {time.perf_counter() - t0:.1f} s")
+
+    # the 22-layer pair in each weight format: INT4 (the default) and the
+    # formats of kernels K7 (int8) and K6 (nf4, fp4)
+    pairs = {}
+    for quant in ("int4",) + QUANTS:
+        t1 = time.perf_counter()
+        pairs[quant] = bench.build_pair(device, quant=quant)
+        torch.cuda.synchronize()
+        say(f"[5 main] built the {quant} LayerSkip pair in "
+            f"{time.perf_counter() - t1:.1f} s")
+    pair = pairs["int4"]
 
     records, max_err = phase_kernel(pair[2], device)
     paged_records, paged_err = phase_paged_kernel(device)
     flash_records, flash_err = phase_flash_kernel(device)
-    stamp("3-3c kernels")
+    fmt_records = {q: phase_kernel(pairs[q][2], device, "3d kernel")
+                   for q in QUANTS}
+    stamp("3-3d kernels")
     phase_oracle(device)
     phase_oracle(device, "int8 KV, flash", **KVINT8_FLASH)
+    for quant in QUANTS:
+        phase_oracle(device, kind=quant)
     kv_err = phase_kv_error(pair, device)
     phase_serve_oracle(device)
     phase_serve_oracle(device, "int8 KV, flash", **KVINT8_FLASH)
+    phase_serve_oracle(device, kind="int8")
     stamp("4-4b oracles")
     int8_pair = with_config(pair, **KVINT8_FLASH)
-    # the default single-sequence path takes fewer timed calls than
-    # bench.REPS, so that the whole run stays under 8 minutes
-    summary, launches_main = phase_main(pair, device, reps=2)
+    summary, launches_main = phase_main(pair, device)
     stamp("5 single sequence, bf16 KV")
     summary["profile"] = phase_profile(pair, summary, device)
     int8_main, launches_int8 = phase_main(int8_pair, device, "int8 KV, flash")
@@ -1197,46 +1351,59 @@ def main():
                                          "int8 KV, flash")
     stamp("5 profiles")
     flash_main, launches_flash = phase_main(with_config(pair, **FLASH),
-                                            device, "bf16 KV, flash", reps=1)
+                                            device, "bf16 KV, flash")
+    fmt_main, fmt_launches = {}, {}
+    for quant in QUANTS:
+        fmt_main[quant], fmt_launches[quant] = phase_main(
+            pairs[quant], device, f"{quant} weights")
     stamp("5 single sequence")
     summary["serving"], serve_launches = phase_serve(pair, device)
     int8_serving, serve_launches_int8 = phase_serve(int8_pair, device,
                                                     "int8 KV, flash")
+    fmt_main["int8"]["serving"], serve_launches_w8 = phase_serve(
+        pairs["int8"], device, "int8 weights", engines=("paged",))
     stamp("6 serving")
     summary["kvint8_flash"] = dict(int8_main, serving=int8_serving,
                                    prefill_logit_rel_err=kv_err)
     summary["flash"] = flash_main
-
-    def total(key, rows):
-        return sum(r[key] for r in rows)
+    summary["weights"] = fmt_main
 
     # one entry per replaced TPU kernel; the top-level times are the work
     # of one decode step (M=1): a layer's four projections, or the lm_head
     entries = []
-    for is_2d, name, line in ((False, "int4_pair_matmul (stacked layer)", 219),
-                              (True, "int4_pair_matmul (2D lm_head)", 196)):
-        mine = [r for r in records if (r["layer"] is None) == is_2d]
-        timed = [r for r in mine if "ms" in r]
-        step = [r for r in timed if r["M"] == 1]
-        key = "2d" if is_2d else "stacked"
-        by_path = {"spec_decode": launches_main[key],
-                   "spec_decode_kvint8_flash": launches_int8[key],
-                   "spec_decode_flash": launches_flash[key],
-                   "serving": serve_launches[key],
-                   "serving_kvint8_flash": serve_launches_int8[key]}
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": "specdec_tpu_torch/ops/csrc/int4_pair_matmul.cu",
-            "replaces": f"specdec_tpu/ops/quant_matmul.py:{line}",
-            "launches": sum(by_path.values()),
-            "launches_by_path": by_path,
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": total("ms", step), "plain_ms": total("plain_ms", step),
-            "bound_ms": total("bound_ms", step), "bound_by": "bytes",
-            "library_ms": total("library_ms", step),
-            "work": "M=1: " + ", ".join(f"{r['name']} {r['K']}x{r['N']}"
-                                        for r in step),
-            "shapes": timed})
+    for key, name, line in (("K1b", "int4_pair_matmul (stacked layer)", 219),
+                            ("K1a", "int4_pair_matmul (2D lm_head)", 196)):
+        mine = stacked_records(records, key == "K1b")
+        entries.append(weight_entry(
+            name, "int4_pair_matmul.cu", line, mine, mine,
+            {"spec_decode": launches_main[key],
+             "spec_decode_kvint8_flash": launches_int8[key],
+             "spec_decode_flash": launches_flash[key],
+             "serving": serve_launches[key],
+             "serving_kvint8_flash": serve_launches_int8[key]}))
+    # K6: one kernel for both codecs; the top-level times are NF4's (the
+    # JAX package's default codec), FP4's beside them
+    for key, name, line in (("K6b", "q4_halfplane_matmul (stacked layer)",
+                             263),
+                            ("K6a", "q4_halfplane_matmul (2D lm_head)", 241)):
+        nf4, fp4 = (stacked_records(fmt_records[q][0], key == "K6b")
+                    for q in ("nf4", "fp4"))
+        entries.append(weight_entry(
+            name, "q4_halfplane_matmul.cu", line, nf4 + fp4, nf4,
+            {f"spec_decode_{q}": fmt_launches[q][key]
+             for q in ("nf4", "fp4")},
+            codecs="nf4 (top-level times), fp4", fp4=step_times(fp4)))
+    # K7: the stacked layer's and the lm_head's calls are one TPU kernel;
+    # the top-level times are a layer's four projections, the lm_head's
+    # beside them
+    w8 = fmt_records["int8"][0]
+    entries.append(weight_entry(
+        "int8_matmul (stacked layer; 2D lm_head)", "int8_matmul.cu", 91, w8,
+        stacked_records(w8),
+        {"spec_decode_int8": fmt_launches["int8"]["K7b"]
+         + fmt_launches["int8"]["K7a"],
+         "serving_int8": serve_launches_w8["K7b"] + serve_launches_w8["K7a"]},
+        lm_head=step_times(stacked_records(w8, False))))
 
     def top(rows, name):
         return next(r for r in rows if r["name"] == name and "ms" in r)
@@ -1251,7 +1418,8 @@ def main():
         "specdec_tpu/ops/paged_attention.py:258", paged_records["bf16"],
         paged_err["bf16"], top(paged_records["bf16"], "serve"),
         "serving verify: B=8, T=9, Hq=32, Hk=4, Dh=64, page 64, MP=9, bf16",
-        {"serving": serve_launches["K8a"] + serve_launches["K2"]},
+        {"serving": serve_launches["K8a"] + serve_launches["K2"],
+         "serving_int8": serve_launches_w8["K8a"] + serve_launches_w8["K2"]},
         also_replaces="specdec_tpu/ops/paged_attention.py:26"))
     entries.append(kernel_entry(
         "paged_decode_attention_quant (K8b stacked layer; K5 4D pool)",
@@ -1281,6 +1449,7 @@ def main():
          "serving_kvint8_flash": serve_launches_int8["K4"]}))
     say(f"[7 done] all phases passed in {time.perf_counter() - t0:.1f} s; "
         f"largest kernel-vs-plain abs error {max_err:.3g} (INT4), "
+        + ", ".join(f"{fmt_records[q][1]:.3g} ({q})" for q in QUANTS) + ", "
         f"{paged_err['bf16']:.3g} / {paged_err['int8']:.3g} (paged "
         f"attention, bf16/f32 / int8 pools), {flash_err['K3']:.3g} / "
         f"{flash_err['K4']:.3g} (flash-decode K3 / K4)")

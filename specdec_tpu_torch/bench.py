@@ -1,16 +1,19 @@
 """Headline benchmark of the port: speculative against autoregressive
-decoding of an INT4 LayerSkip pair on the card (counterpart of the root
-``bench.py``, which measures the JAX package).
+decoding of a weight-quantized LayerSkip pair on the card (counterpart of
+the root ``bench.py``, which measures the JAX package).
 
 The pair is synthetic but shaped like a real one: a TinyLlama-1.1B-shaped
 bf16 target (22 layers, D=2048, F=5632, 32 query heads, 4 KV heads of 64,
 V=32000) whose layers 4..21 have ``wo`` and ``w_down`` damped by 0.08 (a
 residual refinement on top of the first 4 layers), and a drafter made of
-the target's first 4 layers. Both are weight-only INT4
-(``quantize_params(kind="int4", fuse=True)``, quantized ``lm_head``). The
-drafter's layers are views of the target's stacked containers and it shares
-the embedding, final norm and ``lm_head``, so no weight exists twice.
-Weights are random, drawn on the device from a ``torch.Generator`` seeded 0.
+the target's first 4 layers. Both are weight-only quantized
+(``quantize_params(kind=quant, fuse=True)``, quantized ``lm_head``);
+``--quant`` picks the format: int4 (the default; kernel K1), int8 (K7), nf4
+or fp4 (K6), or none (dense bf16, ``torch.matmul``), the counterpart of the
+root bench's ``BENCH_QUANT``. The drafter's layers are views of the
+target's stacked containers and it shares the embedding, final norm and
+``lm_head``, so no weight exists twice. Weights are random, drawn on the
+device from a ``torch.Generator`` seeded 0.
 
 Run: ``python -m specdec_tpu_torch.bench``. It decodes 256 tokens after a
 60-token prompt with MultinomialProcessor(1.0), speculating gamma=12, and
@@ -18,7 +21,10 @@ prints one JSON line to stdout,
 ``{"metric": "spec_decode_int4_tokens_per_sec", "value": spec tok/s,
 "unit": "tokens/s", "vs_baseline": spec/AR speedup}``; everything else goes
 to stderr. Each measurement is one warm-up call and REPS timed calls,
-timed with CUDA events; tokens/s is the best of the timed calls.
+timed with CUDA events; tokens/s is the best of the timed calls. The
+metric names the weight format as the root bench does
+(``spec_decode_{quant}_tokens_per_sec``, ``spec_decode_tokens_per_sec``
+for none).
 
 ``python -m specdec_tpu_torch.bench --serve`` measures serving instead (the
 counterpart of ``tools/bench_paged.py::bench_serving``): 16 requests with
@@ -28,7 +34,8 @@ tokens each, no EOS, greedy, through the default engine
 request is preempted) and the slotted ``ContinuousBatcher``, both with 8
 slots, gamma 8 and 8 windows per host sync. Each engine runs one warm-up
 pass and one timed pass; it prints one JSON line with aggregate tok/s, TTFT
-p50/p99, mean acceptance and preemptions per engine.
+p50/p99, mean acceptance and preemptions per engine, under the metric
+``serve_{quant}_tokens_per_sec`` (``serve_tokens_per_sec`` for none).
 
 ``--kv-quant int8`` gives both models int8 KV caches (``QuantKVCache``,
 ``QuantPagedKVCache``), ``--attn flash`` sends their slotted-cache
@@ -41,6 +48,7 @@ per_sec``, ``serve_int4_kvint8_flash_tokens_per_sec``) and the line gains
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -52,7 +60,7 @@ import torch
 from specdec_tpu_torch import resolve_device
 from specdec_tpu_torch.core.config import ModelConfig
 from specdec_tpu_torch.core.model import init_params
-from specdec_tpu_torch.quant.core import Int4Weight, quantize_params
+from specdec_tpu_torch.quant.core import QUANTIZED, quantize_params
 from specdec_tpu_torch.sampling.base_decoding import autoregressive_generate
 from specdec_tpu_torch.sampling.processors import (
     LogitsProcessor, MultinomialProcessor,
@@ -67,6 +75,7 @@ PROMPT_LEN = 60
 GAMMA = 12
 GEN = 256
 REPS = 3
+QUANT_KINDS = ("int4", "int8", "nf4", "fp4", "none")
 # serving measurement
 SERVE_REQUESTS = 16
 SERVE_SLOTS = 8
@@ -92,17 +101,20 @@ def target_config(num_layers: int = 22, dtype: torch.dtype = torch.bfloat16,
 
 
 def layer_views(layers: dict, n: int) -> dict:
-    """The first ``n`` layers of a stacked layer dict, as views."""
-    return {k: Int4Weight(packed=v.packed[:n], absmax=v.absmax[:n])
-            if isinstance(v, Int4Weight) else v[:n]
+    """The first ``n`` layers of a stacked layer dict, as views (each field
+    of a quantized container sliced)."""
+    return {k: type(v)(**{f.name: getattr(v, f.name)[:n]
+                          for f in dataclasses.fields(v)})
+            if isinstance(v, QUANTIZED) else v[:n]
             for k, v in layers.items()}
 
 
 def build_pair(device=None, kv_quant: str = "none",
-               attention_impl: str = "xla"):
-    """The LayerSkip INT4 pair. Returns (t_cfg, d_cfg, target, drafter);
-    the drafter's config is the target's with 4 layers, so it inherits the
-    KV format and the attention."""
+               attention_impl: str = "xla", quant: str = "int4"):
+    """The LayerSkip pair, weights in format ``quant`` (QUANT_KINDS).
+    Returns (t_cfg, d_cfg, target, drafter); the drafter's config is the
+    target's with 4 layers, so it inherits the KV format and the
+    attention."""
     device = resolve_device(device)
     t_cfg = target_config(kv_quant=kv_quant, attention_impl=attention_impl)
     d_cfg = t_cfg.replace(num_layers=DRAFT_LAYERS)
@@ -114,8 +126,9 @@ def build_pair(device=None, kv_quant: str = "none",
     for name in ("wo", "w_down"):
         layers[name] = (layers[name].to(torch.float32)
                         * layer_scale[:, None, None]).to(t_cfg.dtype)
-    target = quantize_params(dict(base, layers=layers), kind="int4",
-                             fuse=True)
+    target = dict(base, layers=layers)
+    if quant != "none":
+        target = quantize_params(target, kind=quant, fuse=True)
     drafter = dict(target, layers=layer_views(target["layers"],
                                               d_cfg.num_layers))
     return t_cfg, d_cfg, target, drafter
@@ -253,11 +266,14 @@ def measure_serving(paged: bool, pair, device=None) -> dict:
             "batcher": b}
 
 
-def _metric(stem: str, kv_quant: str, attention_impl: str) -> dict:
+def _metric(stem: str, quant: str, kv_quant: str,
+            attention_impl: str) -> dict:
     """The JSON line's leading keys: the metric named for the configuration
-    (e.g. ``spec_decode_int4_kvint8_flash_tokens_per_sec``) and, off the
-    default configuration, the two keys naming it; the default's line stays
-    as it was."""
+    (e.g. ``spec_decode_int4_kvint8_flash_tokens_per_sec``; the weight
+    format is left out for dense weights, as the root bench does) and, off
+    the default KV format and attention, the two keys naming them; the
+    default's line stays as it was."""
+    stem = stem if quant == "none" else f"{stem}_{quant}"
     if kv_quant == "none" and attention_impl == "xla":
         return {"metric": f"{stem}_tokens_per_sec"}
     tags = ("_kv" + kv_quant if kv_quant != "none" else "") + (
@@ -266,11 +282,11 @@ def _metric(stem: str, kv_quant: str, attention_impl: str) -> dict:
             "attention_impl": attention_impl}
 
 
-def main_serve(kv_quant: str = "none",
-               attention_impl: str = "xla") -> Dict[str, float]:
+def main_serve(kv_quant: str = "none", attention_impl: str = "xla",
+               quant: str = "int4") -> Dict[str, float]:
     device = resolve_device(None)
     log(f"device: {torch.cuda.get_device_name(device)}")
-    pair = build_pair(device, kv_quant, attention_impl)
+    pair = build_pair(device, kv_quant, attention_impl, quant)
     rows = {}
     for paged in (True, False):
         r = measure_serving(paged, pair, device)
@@ -282,7 +298,7 @@ def main_serve(kv_quant: str = "none",
         rows[r["engine"]] = {k: t[k] for k in (
             "tok_s", "ttft_p50_ms", "ttft_p99_ms", "acceptance")}
         rows[r["engine"]]["preemptions"] = r["preemptions"]
-    result = {**_metric("serve_int4", kv_quant, attention_impl),
+    result = {**_metric("serve", quant, kv_quant, attention_impl),
               "value": round(rows["paged"]["tok_s"], 2), "unit": "tokens/s",
               "vs_slotted": round(rows["paged"]["tok_s"]
                                   / rows["slotted"]["tok_s"], 3),
@@ -291,12 +307,12 @@ def main_serve(kv_quant: str = "none",
     return result
 
 
-def main(kv_quant: str = "none",
-         attention_impl: str = "xla") -> Dict[str, float]:
+def main(kv_quant: str = "none", attention_impl: str = "xla",
+         quant: str = "int4") -> Dict[str, float]:
     device = resolve_device(None)
     log(f"device: {torch.cuda.get_device_name(device)}")
     t_cfg, d_cfg, target, drafter = build_pair(device, kv_quant,
-                                               attention_impl)
+                                               attention_impl, quant)
     proc = MultinomialProcessor(temperature=1.0)
     prompt = bench_prompt()
     ar = measure_ar(t_cfg, target, prompt, GEN, proc, device)
@@ -306,7 +322,7 @@ def main(kv_quant: str = "none",
     log(f"AR {ar['tok_s']:.1f} tok/s; spec(gamma={GAMMA}) "
         f"{spec['tok_s']:.1f} tok/s, acceptance {spec['acceptance']:.3f}; "
         f"speedup {speedup:.3f}x")
-    result = {**_metric("spec_decode_int4", kv_quant, attention_impl),
+    result = {**_metric("spec_decode", quant, kv_quant, attention_impl),
               "value": round(spec["tok_s"], 2), "unit": "tokens/s",
               "vs_baseline": round(speedup, 3)}
     print(json.dumps(result))
@@ -316,8 +332,8 @@ def main(kv_quant: str = "none",
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(
         prog="python -m specdec_tpu_torch.bench",
-        description="Speculative against AR decoding of the INT4 LayerSkip "
-                    "pair on the card, or serving with --serve.")
+        description="Speculative against AR decoding of the weight-quantized "
+                    "LayerSkip pair on the card, or serving with --serve.")
     parser.add_argument("--serve", action="store_true",
                         help="measure both serving engines instead")
     parser.add_argument("--kv-quant", choices=("none", "int8"),
@@ -325,5 +341,8 @@ if __name__ == "__main__":
     parser.add_argument("--attn", choices=("xla", "flash"), default="xla",
                         help="slotted-cache attention: plain or the "
                              "flash-decode kernel")
+    parser.add_argument("--quant", choices=QUANT_KINDS, default="int4",
+                        help="weight format of both models")
     args = parser.parse_args()
-    (main_serve if args.serve else main)(args.kv_quant, args.attn)
+    (main_serve if args.serve else main)(args.kv_quant, args.attn,
+                                         args.quant)

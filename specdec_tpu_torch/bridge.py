@@ -2,10 +2,12 @@
 
 The JAX side converts its params with ``np.asarray`` (for example
 ``jax.tree.map(np.asarray, params)``): a nested dict whose leaves are numpy
-arrays, with 4-bit containers whose ``packed`` (int32 pair4 words) and
-``absmax`` (bf16) fields are numpy arrays. ``params_from_numpy`` turns that
-into the port's params on ``device``. Storage layouts are identical in the
-two packages, so nothing is repacked: int32 words pass through unchanged.
+arrays, with quantized containers whose fields are numpy arrays
+(``Int8Weight``: int8 ``q`` and f32 ``scale``; ``NF4Weight``, ``FP4Weight``
+and ``Int4Weight``: int32 pair4 ``packed`` words and bf16 ``absmax``).
+``params_from_numpy`` turns that into the port's params on ``device``.
+Storage layouts are identical in the two packages, so nothing is repacked:
+int32 words and bf16 scales pass through unchanged.
 
 bf16 leaves arrive as numpy arrays whose dtype is named ``"bfloat16"``,
 which ``torch.from_numpy`` refuses. The port does not import the package
@@ -14,13 +16,17 @@ reinterpreted as ``torch.bfloat16``, bit for bit.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
 import torch
 
 from specdec_tpu_torch import resolve_device
-from specdec_tpu_torch.quant.core import Int4Weight
+from specdec_tpu_torch.quant.core import QUANTIZED
+
+# the port's container of each JAX container, by type name
+_CONTAINERS = {cls.__name__: cls for cls in QUANTIZED}
 
 
 def tensor_from_numpy(a: Any, device=None) -> torch.Tensor:
@@ -34,17 +40,15 @@ def tensor_from_numpy(a: Any, device=None) -> torch.Tensor:
 
 
 def params_from_numpy(tree: Any, device=None) -> Any:
-    """Nested dict of numpy leaves and INT4 containers -> the port's params
-    on ``device`` (``None``: the card). The JAX package's ``Int4Weight``
-    becomes the port's; its other 4-bit containers (NF4, FP4) raise."""
+    """Nested dict of numpy leaves and quantized containers -> the port's
+    params on ``device`` (``None``: the card). Each JAX container
+    (``Int8Weight``, ``NF4Weight``, ``FP4Weight``, ``Int4Weight``) becomes
+    the port's container of the same name, field by field."""
     device = resolve_device(device)
-    if hasattr(tree, "packed") and hasattr(tree, "absmax"):
-        kind = type(tree).__name__
-        if kind != "Int4Weight":
-            raise NotImplementedError(f"params_from_numpy: {kind} is not "
-                                      "ported (only Int4Weight)")
-        return Int4Weight(packed=tensor_from_numpy(tree.packed, device),
-                          absmax=tensor_from_numpy(tree.absmax, device))
+    cls = _CONTAINERS.get(type(tree).__name__)
+    if cls is not None:
+        return cls(**{f.name: tensor_from_numpy(getattr(tree, f.name), device)
+                      for f in dataclasses.fields(cls)})
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)

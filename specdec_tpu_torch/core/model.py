@@ -15,8 +15,9 @@ decode-attention kernel. Both take the int8 cache formats of
 
 Params are a dict of tensors whose layer leaves are STACKED with a leading
 L axis. The layer loop is a Python loop over ``range(L)``: dense leaves are
-indexed (a view), and 4-bit containers are handed to ``qmatmul`` as
-``StackedSlice(container, i)`` so that the kernel reads layer ``i`` in place.
+indexed (a view), and quantized containers (INT8, NF4, FP4, INT4) are
+handed to ``qmatmul`` as ``StackedSlice(container, i)`` so that the kernel
+reads layer ``i`` in place.
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ from specdec_tpu_torch.core.paged_cache import (
     write_block_paged_stacked,
 )
 from specdec_tpu_torch.core.rope import apply_rope, rope_cos_sin
-from specdec_tpu_torch.quant.core import Int4Weight, StackedSlice, qmatmul
+from specdec_tpu_torch.quant.core import QUANTIZED, StackedSlice, qmatmul
 
 Params = Dict[str, Any]
 
@@ -222,8 +223,8 @@ def _block(cfg: ModelConfig, lp: Params, x, cos, sin, attend):
 
 def _layer_params(layers: Params, i: int) -> Params:
     """Layer ``i``'s params: views of the dense stacks, ``StackedSlice``s of
-    the 4-bit containers."""
-    return {name: StackedSlice(v, i) if isinstance(v, Int4Weight) else v[i]
+    the quantized containers."""
+    return {name: StackedSlice(v, i) if isinstance(v, QUANTIZED) else v[i]
             for name, v in layers.items()}
 
 

@@ -31,6 +31,10 @@ SIGNATURES = {
     "int4_pair_matmul": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
                          _c_int, _c_int, _c_int, _c_ll, _c_ll, _c_ll,
                          _c_void_p],
+    "q4_halfplane_matmul": [_c_void_p] * 4 + [_c_int] * 3 + [_c_ll] * 3
+                           + [_c_int, _c_void_p],
+    "int8_matmul": [_c_void_p] * 4 + [_c_int] * 3 + [_c_ll] * 3
+                   + [_c_void_p],
     "paged_attention": [_c_void_p] * 8 + [_c_int] * 9
                        + [_c_ll, _c_ll, _c_float, _c_void_p],
     "decode_attention": [_c_void_p] * 7 + [_c_int] * 8

@@ -38,7 +38,8 @@ def test_import_leaves_jax_unloaded():
             "specdec_tpu_torch.engine.batch_engine, "
             "specdec_tpu_torch.core.paged_cache, "
             "specdec_tpu_torch.ops.paged_attention, "
-            "specdec_tpu_torch.ops.decode_attention; "
+            "specdec_tpu_torch.ops.decode_attention, "
+            "specdec_tpu_torch.ops.quant_matmul; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; "
             "assert not bad, bad; print('ok')")

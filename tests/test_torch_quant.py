@@ -131,13 +131,6 @@ def test_stacked_slice_reads_layer_in_place():
             tq.qmatmul(x, layer).numpy())
 
 
-def test_other_kinds_raise():
-    with pytest.raises(NotImplementedError, match="int8"):
-        tq.quantize_params({"layers": {}}, kind="int8")
-    with pytest.raises(NotImplementedError, match="nf4"):
-        tq.quantize_params({"layers": {}}, kind="nf4")
-
-
 def test_cuda_less_default_device_raises():
     """device=None means the card; with no card the entry points raise
     instead of carrying on on the CPU."""
@@ -167,5 +160,5 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
                             absmax=meta_w.absmax[None])
     with pytest.raises(ValueError, match="not CUDA"):
         tq_ops.quant_matmul_stacked(x, stacked, 0)
-    assert tq_ops.quant_matmul.launches == 0
-    assert tq_ops.quant_matmul_stacked.launches == 0
+    assert tq_ops.int4_matmul.launches == 0
+    assert tq_ops.int4_matmul_stacked.launches == 0
