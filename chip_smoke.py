@@ -33,7 +33,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 3d. kernel vs plain, INT8/NF4/FP4: as phase 3, for the INT8 kernel (K7)
    and the NF4/FP4 half-plane kernel (K6, both codecs), on the 22-layer
    pair's own weights in each format, with the share of output elements
-   that are bit-equal to the plain version's;
+   that are bit-equal to the plain version's (for K6 at least
+   K6_MIN_BIT_EQUAL); K6 also at two ragged shapes (K = 768, so K % 512 =
+   256; N = 1000, not a multiple of its column tiles, and N = 1001, odd)
+   on random weights quantized on the card. Phase 2 rebuilds K6 and fails
+   if ptxas reports a register spill in any of its instances. With
+   ``--against NAME=SRC`` (NAME a weight kernel's library in
+   ``_build.SIGNATURES``, SRC another source of it, such as an earlier
+   commit's from ``git show``), phases 3 and 3d also time that source,
+   built the same way and launched through the same wrappers, in turns
+   with the checkout's (this, other, other, this);
 4. greedy oracle: greedy self-draft speculative decoding equals greedy AR
    on the card (full widths, 2 layers, float32 activations, a kernel on
    every projection): INT4 weights with the plain attention and with int8
@@ -64,17 +73,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    int8 flash-decode kernel on every slotted forward) and a profile of the
    card's busy share under the paged engine; with bf16 KV and with
    ``--kv-quant int8 --attn flash``; and the paged engine under ``--quant
-   int8`` (K7 on every projection).
+   int8`` and ``--quant nf4`` (K7 or K6 on every projection, at the
+   serving row counts M = 8, 72, 256).
 
 Any failed phase exits 1 (without a CUDA device, or outside a checkout,
 too, before any result is printed). Standard output ends with the card's
 name and power limit, a JSON line of the main paths' numbers, a JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
 """
+import argparse
+import contextlib
 import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -94,6 +107,13 @@ BF16_OPS_PER_S = 989e12
 STACKED = [("wqkv", 2048, 2560), ("wo", 2048, 2048),
            ("w_gateup", 2048, 11264), ("w_down", 5632, 2048)]
 LM_HEAD = ("lm_head", 2048, 32000)
+# K6's ragged shapes: K % 512 = 256 and N not a multiple of its column
+# tiles; an odd N also takes the scalar loads and stores
+RAGGED = [("ragged", 768, 1000), ("ragged_odd", 768, 1001)]
+RAGGED_NAMES = {name for name, _, _ in RAGGED}
+# the library of each format's weight kernel (``--against`` names one)
+WEIGHT_LIBS = {"int4": "int4_pair_matmul", "int8": "int8_matmul",
+               "nf4": "q4_halfplane_matmul", "fp4": "q4_halfplane_matmul"}
 # single sequence: AR/draft step, drafter catch-up, verify (gamma 12),
 # prefill; serving (8 slots, gamma 8): draft step, verify, admission prefill
 ROWS = (1, 2, 8, 13, 64, 72, 256)
@@ -103,6 +123,12 @@ ROWS = (1, 2, 8, 13, 64, 72, 256)
 # differ only in f32 summation order
 REL_FRO_TOL = 1e-2
 RTOL, ATOL = 2e-2, 2e-1
+# K6 and its plain version form the same bf16 weights, so an output differs
+# only where the f32 sums' order moves its bf16 rounding: at least this share
+# must be bit-equal (99.85-100% on an H100). Weights rounded otherwise than
+# the plain version's (truncated, or kept in f32) shift every output by a
+# fraction of a bf16 ulp and would change a large share of them.
+K6_MIN_BIT_EQUAL = 0.99
 TIMED_RUNS = 25
 # timed calls of each single-sequence main path, after one warm-up
 # (bench.REPS takes three): one, so that the whole run stays near 8 minutes
@@ -220,8 +246,12 @@ def phase_device():
 
 
 def phase_build():
+    """Build every kernel; fail if ptxas reports a register spill in any
+    instance of the NF4/FP4 kernel (K6), which is always rebuilt so that its
+    report is there to check."""
     from specdec_tpu_torch.ops import _build
     t0 = time.perf_counter()
+    _build._target("q4_halfplane_matmul").unlink(missing_ok=True)
     log = _build.build()
     say(f"[2 build] nvcc built {sorted(log)} in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -229,6 +259,54 @@ def phase_build():
         for line in rec["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 say(f"  {name}: {line.strip()}")
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                         log["q4_halfplane_matmul"]["ptxas"])]
+    if not spills or any(spills):
+        fail("q4_halfplane_matmul: ptxas reports register spills (or no "
+             "spill report)")
+    say(f"  q4_halfplane_matmul: {len(spills) // 2} instances, no spill")
+
+
+def build_against(spec):
+    """``--against NAME=SRC``: SRC, another source of weight kernel NAME
+    (such as an earlier commit's), built with the same flags. Returns (NAME,
+    its library, loaded with NAME's C signature)."""
+    import ctypes
+
+    from specdec_tpu_torch.ops import _build
+
+    name, _, src = spec.partition("=")
+    if name not in WEIGHT_LIBS.values() or not os.path.isfile(src):
+        fail(f"--against {spec}: expected NAME=SRC, NAME one of "
+             f"{sorted(set(WEIGHT_LIBS.values()))} and SRC a file")
+    out = _build.BUILD_DIR / f"lib{name}_against.so"
+    built = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                            str(_build.CSRC), "-o", str(out), src],
+                           capture_output=True, text=True, timeout=600)
+    if built.returncode:
+        fail(f"--against: nvcc failed on {src}:\n{built.stdout}"
+             f"{built.stderr}")
+    lib = ctypes.CDLL(str(out))
+    fn = getattr(lib, name)
+    fn.argtypes = _build.SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    say(f"[2 build] --against: built {src} as {name}")
+    return name, lib
+
+
+@contextlib.contextmanager
+def launching(name, lib):
+    """Inside, the wrappers of kernel ``name`` launch ``lib``'s kernel (the
+    wrappers look their library up in ``_build`` at every call)."""
+    from specdec_tpu_torch.ops import _build
+
+    _build.load(name)
+    mine = _build._libs[name]
+    _build._libs[name] = lib
+    try:
+        yield
+    finally:
+        _build._libs[name] = mine
 
 
 def weight_format(w):
@@ -254,21 +332,43 @@ def layer_of(w, layer):
                       for f in dataclasses.fields(w)})
 
 
-def phase_kernel(target, device, phase="3 kernel"):
+def kernel_vs_plain(got, plain):
+    """(max abs error, relative Frobenius error, within the tolerance)."""
+    err = (got - plain).abs().max().item()
+    rel = ((got - plain).norm() / plain.norm()).item()
+    return err, rel, rel <= REL_FRO_TOL and torch.allclose(
+        got, plain, rtol=RTOL, atol=ATOL)
+
+
+def phase_kernel(target, device, phase="3 kernel", against=None):
     """Kernel vs plain at every main-path shape, for the weight format of
-    ``target`` (the 22-layer pair's target). Returns the per-shape records
-    and the largest absolute error."""
+    ``target`` (the 22-layer pair's target). ``against``: build_against's
+    (NAME, library); where NAME is this format's kernel, that library is
+    held to the same tolerance and timed in turns with the checkout's.
+    Returns the per-shape records and the largest absolute error."""
     from specdec_tpu_torch.ops import quant_matmul as qm
+    from specdec_tpu_torch.quant import core as qc
     from specdec_tpu_torch.quant.core import dequantize
 
     fmt, plain_fn = weight_format(target["lm_head"])
+    other = (against[1] if against and against[0] == WEIGHT_LIBS[fmt]
+             else None)
     gen = torch.Generator(device=device).manual_seed(1234)
     flush = torch.zeros(256 * 2 ** 20, dtype=torch.uint8, device=device)
     records, max_err = [], 0.0
     cases = [(name, K, N, layer) for name, K, N in STACKED
              for layer in (0, 21)] + [LM_HEAD + (None,)]
+    if fmt in ("nf4", "fp4"):
+        cases += [shape + (None,) for shape in RAGGED]
     for name, K, N, layer in cases:
-        if layer is None:
+        if name in RAGGED_NAMES:
+            # random weights quantized on the card, through the 2D wrapper
+            w = getattr(qc, f"quantize_{fmt}")(
+                torch.randn((K, N), generator=gen, device=device) * 0.02)
+
+            def kern(x, w=w):
+                return qm.quant_matmul(x, w)
+        elif layer is None:
             w = target["lm_head"]
 
             def kern(x, w=w):
@@ -297,16 +397,18 @@ def phase_kernel(target, device, phase="3 kernel"):
             x = x_all[:M]
             plain = plain_fn(x, a, b).float()
             got = ys[M].float()
-            err = (got - plain).abs().max().item()
-            rel = ((got - plain).norm() / plain.norm()).item()
-            if not (rel <= REL_FRO_TOL and torch.allclose(
-                    got, plain, rtol=RTOL, atol=ATOL)):
+            err, rel, ok = kernel_vs_plain(got, plain)
+            if not ok:
                 fail(f"{fmt} {name} layer {layer} M={M}: kernel vs plain max "
                      f"abs err {err:.3g}, relative Frobenius {rel:.3g}")
             max_err = max(max_err, err)
             rec = {"name": name, "format": fmt, "layer": layer, "M": M,
                    "K": K, "N": N, "max_abs_err": err, "rel_fro_err": rel,
                    "bit_equal": (got == plain).float().mean().item()}
+            if fmt in ("nf4", "fp4") and rec["bit_equal"] < K6_MIN_BIT_EQUAL:
+                fail(f"{fmt} {name} layer {layer} M={M}: only "
+                     f"{rec['bit_equal']:.3%} of K6's outputs bit-equal to "
+                     f"the plain version's (at least {K6_MIN_BIT_EQUAL:.0%})")
             if layer in (0, None):
                 b_ms, by = bound_ms(M, K, N, bytes_per_weight(fmt, K))
                 rec.update(
@@ -314,6 +416,16 @@ def phase_kernel(target, device, phase="3 kernel"):
                     plain_ms=gpu_ms(lambda: plain_fn(x, a, b), flush),
                     library_ms=gpu_ms(lambda: torch.matmul(x, w_bf16), flush),
                     bound_ms=b_ms, bound_by=by)
+                if other is not None:
+                    with launching(WEIGHT_LIBS[fmt], other):
+                        o_err, _, ok = kernel_vs_plain(kern(x).float(), plain)
+                        t = [gpu_ms(lambda: kern(x), flush) for _ in (0, 1)]
+                    if not ok:
+                        fail(f"--against {fmt} {name} M={M}: the other "
+                             f"source's kernel vs plain max abs err "
+                             f"{o_err:.3g}")
+                    rec["against_ms"] = min(t)
+                    rec["ms"] = min(rec["ms"], gpu_ms(lambda: kern(x), flush))
                 say(f"[{phase}] {fmt} {name:8s} M={M:3d} K={K} N={N}: kernel "
                     f"{rec['ms'] * 1e3:8.1f} us, plain "
                     f"{rec['plain_ms'] * 1e3:8.1f} us, torch.matmul bf16 "
@@ -326,6 +438,18 @@ def phase_kernel(target, device, phase="3 kernel"):
         f"({min(r['bit_equal'] for r in records):.3%}-"
         f"{max(r['bit_equal'] for r in records):.3%} of elements bit-equal); "
         f"row-independent at M in {ROWS}")
+    for M in ROWS if other is not None else ():
+        # a layer's four projections (layer 0) and the lm_head, us per call
+        # of this checkout's kernel against the other source's
+        rows = [r for r in records if r["M"] == M and "against_ms" in r]
+        layer = [sum(r[k] for r in rows if r["layer"] == 0) * 1e3
+                 for k in ("ms", "against_ms")]
+        head = [next(r[k] for r in rows if r["name"] == LM_HEAD[0]) * 1e3
+                for k in ("ms", "against_ms")]
+        say(f"[{phase} against] {fmt} M={M:3d}: a layer {layer[0]:8.1f} us "
+            f"against {layer[1]:8.1f} ({layer[1] / layer[0]:.2f}x); lm_head "
+            f"{head[0]:8.1f} against {head[1]:8.1f} "
+            f"({head[1] / head[0]:.2f}x)")
     return records, max_err
 
 
@@ -1292,10 +1416,20 @@ def weight_entry(name, source, line, records, top, by_path, **extra):
 
 
 def stacked_records(records, stacked=True):
-    return [r for r in records if (r["layer"] is not None) == stacked]
+    """The records of the stacked layers (or of the lm_head), without K6's
+    ragged shapes."""
+    return [r for r in records if (r["layer"] is not None) == stacked
+            and r["name"] not in RAGGED_NAMES]
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", metavar="NAME=SRC",
+                    help="also time weight kernel NAME (int4_pair_matmul, "
+                    "int8_matmul or q4_halfplane_matmul) built from SRC, "
+                    "another source of it, in turns with the checkout's "
+                    "(phases 3 and 3d)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
              "CUDA device")
@@ -1326,10 +1460,11 @@ def main():
             f"{time.perf_counter() - t1:.1f} s")
     pair = pairs["int4"]
 
-    records, max_err = phase_kernel(pair[2], device)
+    against = build_against(args.against) if args.against else None
+    records, max_err = phase_kernel(pair[2], device, against=against)
     paged_records, paged_err = phase_paged_kernel(device)
     flash_records, flash_err = phase_flash_kernel(device)
-    fmt_records = {q: phase_kernel(pairs[q][2], device, "3d kernel")
+    fmt_records = {q: phase_kernel(pairs[q][2], device, "3d kernel", against)
                    for q in QUANTS}
     stamp("3-3d kernels")
     phase_oracle(device)
@@ -1362,6 +1497,8 @@ def main():
                                                     "int8 KV, flash")
     fmt_main["int8"]["serving"], serve_launches_w8 = phase_serve(
         pairs["int8"], device, "int8 weights", engines=("paged",))
+    fmt_main["nf4"]["serving"], serve_launches_nf4 = phase_serve(
+        pairs["nf4"], device, "nf4 weights", engines=("paged",))
     stamp("6 serving")
     summary["kvint8_flash"] = dict(int8_main, serving=int8_serving,
                                    prefill_logit_rel_err=kv_err)
@@ -1388,10 +1525,14 @@ def main():
                             ("K6a", "q4_halfplane_matmul (2D lm_head)", 241)):
         nf4, fp4 = (stacked_records(fmt_records[q][0], key == "K6b")
                     for q in ("nf4", "fp4"))
+        # the ragged shapes go through the 2D wrapper
+        ragged = [r for q in ("nf4", "fp4") for r in fmt_records[q][0]
+                  if r["name"] in RAGGED_NAMES and key == "K6a"]
         entries.append(weight_entry(
-            name, "q4_halfplane_matmul.cu", line, nf4 + fp4, nf4,
-            {f"spec_decode_{q}": fmt_launches[q][key]
-             for q in ("nf4", "fp4")},
+            name, "q4_halfplane_matmul.cu", line, nf4 + fp4 + ragged, nf4,
+            {**{f"spec_decode_{q}": fmt_launches[q][key]
+                for q in ("nf4", "fp4")},
+             "serving_nf4": serve_launches_nf4[key]},
             codecs="nf4 (top-level times), fp4", fp4=step_times(fp4)))
     # K7: the stacked layer's and the lm_head's calls are one TPU kernel;
     # the top-level times are a layer's four projections, the lm_head's
@@ -1419,7 +1560,8 @@ def main():
         paged_err["bf16"], top(paged_records["bf16"], "serve"),
         "serving verify: B=8, T=9, Hq=32, Hk=4, Dh=64, page 64, MP=9, bf16",
         {"serving": serve_launches["K8a"] + serve_launches["K2"],
-         "serving_int8": serve_launches_w8["K8a"] + serve_launches_w8["K2"]},
+         "serving_int8": serve_launches_w8["K8a"] + serve_launches_w8["K2"],
+         "serving_nf4": serve_launches_nf4["K8a"] + serve_launches_nf4["K2"]},
         also_replaces="specdec_tpu/ops/paged_attention.py:26"))
     entries.append(kernel_entry(
         "paged_decode_attention_quant (K8b stacked layer; K5 4D pool)",

@@ -103,14 +103,24 @@ def test_decoders_match_jax_on_all_codes(fn):
                                   ref.view(np.uint32))
 
 
-def test_kernel_nf4_table_is_the_bf16_codebook():
-    """The CUDA kernel's NF4 table (bf16 bit patterns written into the
-    source) equals the halves of ``_NF4_WORDS``."""
+@pytest.mark.parametrize("codec", ["nf4", "fp4"])
+def test_kernel_nf4_table_is_the_bf16_codebook(codec):
+    """The CUDA kernel's decode tables (bf16 bit patterns written into the
+    source): NF4's equals the halves of ``_NF4_WORDS``; FP4's equals
+    ``_fp4_decode_bits`` of codes 0..15 rounded to bf16 (exact: every e2m1
+    value is a bf16)."""
     src = (Path(tq_ops.__file__).parent / "csrc" /
            "q4_halfplane_matmul.cu").read_text()
-    table = re.search(r"kNF4Bits\[16\] = \{([^}]*)\}", src).group(1)
+    name = {"nf4": "kNF4Bits", "fp4": "kFP4Bits"}[codec]
+    table = re.search(name + r"\[16\] = \{([^}]*)\}", src).group(1)
     got = [int(v, 16) for v in re.findall(r"0x[0-9A-Fa-f]+", table)]
-    want = [h for w in tq._NF4_WORDS for h in (w & 0xFFFF, w >> 16)]
+    if codec == "nf4":
+        want = [h for w in tq._NF4_WORDS for h in (w & 0xFFFF, w >> 16)]
+    else:
+        vals = tq._fp4_decode_bits(torch.arange(16, dtype=torch.int32))
+        assert torch.equal(vals.to(torch.bfloat16).float(), vals)
+        want = (vals.to(torch.bfloat16).view(torch.int16).to(torch.int32)
+                & 0xFFFF).tolist()
     assert got == want
 
 
@@ -130,6 +140,51 @@ def test_plain_halfplane_matches_pallas_interpret(codec):
     got = tq_ops.q4_halfplane_matmul(tensor_from_numpy(np.asarray(xb), "cpu"),
                                      tw)
     assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref, np.float32), **KERNEL_TOL)
+
+
+@pytest.mark.parametrize("K", [512, 768])
+@pytest.mark.parametrize("codec", ["nf4", "fp4"])
+def test_plain_halfplane_ragged_shape(codec, K):
+    """The plain K6 at N = 1000 (not a multiple of the kernel's column
+    tiles) and K = 768 (K % 512 = 256), a ragged shape the card checks.
+    The Pallas ``_nf4_matmul_2d`` takes only K % 512 == 0, so at K = 512 it
+    is the reference (in interpret mode; it pads N to its tile), and at
+    K = 768 the reference is its tile's arithmetic in JAX: each weight the
+    decode (``_nf4_decode_bits`` / ``_fp4_decode_bits``, as
+    ``_halfplane_kernel`` takes it) times its scale, rounded to bf16, and
+    an f32 dot with bf16 x."""
+    _check_plain_halfplane_ragged(codec, K, 1000)
+
+
+@pytest.mark.parametrize("K", [512, 768])
+@pytest.mark.parametrize("codec", ["nf4", "fp4"])
+def test_plain_halfplane_ragged_odd_n(codec, K):
+    """As ``test_plain_halfplane_ragged_shape`` at N = 1001, the odd N on
+    which the card's kernel takes its scalar loads and stores."""
+    _check_plain_halfplane_ragged(codec, K, 1001)
+
+
+def _check_plain_halfplane_ragged(codec, K, N):
+    w = _weights((K, N), seed=K, scale=0.05, spread=True)
+    x = np.random.default_rng(28).standard_normal((5, K)).astype(np.float32)
+    ref_w = getattr(jq, f"quantize_{codec}")(jnp.asarray(w))
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    if K % 512 == 0:
+        with pltpu.force_tpu_interpret_mode():
+            ref = _nf4_matmul_2d(xb, ref_w.packed, ref_w.absmax, tile_n=128,
+                                 tile_k=512, codec=codec)
+    else:
+        decode = {"nf4": jq._nf4_decode_bits, "fp4": jq._fp4_decode_bits}
+        wq = jq._dequant4(ref_w, decode[codec], jnp.bfloat16).astype(
+            jnp.float32)
+        ref = jnp.dot(xb.astype(jnp.float32), wq,
+                      precision=jax.lax.Precision.HIGHEST).astype(jnp.bfloat16)
+    tw = params_from_numpy(jax.tree.map(np.asarray, ref_w), device="cpu")
+    got = tq_ops.q4_halfplane_matmul(tensor_from_numpy(np.asarray(xb), "cpu"),
+                                     tw)
+    assert got.shape == (5, N) and got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(ref, np.float32), **KERNEL_TOL)
 
