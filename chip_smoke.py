@@ -33,11 +33,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 3d. kernel vs plain, INT8/NF4/FP4: as phase 3, for the INT8 kernel (K7)
    and the NF4/FP4 half-plane kernel (K6, both codecs), on the 22-layer
    pair's own weights in each format, with the share of output elements
-   that are bit-equal to the plain version's (for K6 at least
-   K6_MIN_BIT_EQUAL); K6 also at two ragged shapes (K = 768, so K % 512 =
-   256; N = 1000, not a multiple of its column tiles, and N = 1001, odd)
-   on random weights quantized on the card. Phase 2 rebuilds K6 and fails
-   if ptxas reports a register spill in any of its instances. With
+   that are bit-equal to the plain version's (for K6 and K7 at least
+   MIN_BIT_EQUAL); each also at two ragged shapes on random weights
+   quantized on the card: K6 at K = 768, so K % 512 = 256, and N = 1000,
+   not a multiple of its column tiles, or N = 1001, odd; K7 at K = 1000, N
+   = 1000 (K % 256 != 0, N % 32 = 8) and K = 1001, N = 1004 (odd K: x's
+   rows are unaligned and take the scalar staging). Phase 2 rebuilds K6
+   and K7 and fails if ptxas reports a register spill in any of their
+   instances. With
    ``--against NAME=SRC`` (NAME a weight kernel's library in
    ``_build.SIGNATURES``, SRC another source of it, such as an earlier
    commit's from ``git show``), phases 3 and 3d also time that source,
@@ -107,10 +110,15 @@ BF16_OPS_PER_S = 989e12
 STACKED = [("wqkv", 2048, 2560), ("wo", 2048, 2048),
            ("w_gateup", 2048, 11264), ("w_down", 5632, 2048)]
 LM_HEAD = ("lm_head", 2048, 32000)
-# K6's ragged shapes: K % 512 = 256 and N not a multiple of its column
-# tiles; an odd N also takes the scalar loads and stores
-RAGGED = [("ragged", 768, 1000), ("ragged_odd", 768, 1001)]
-RAGGED_NAMES = {name for name, _, _ in RAGGED}
+# ragged shapes, by weight format, through the 2D wrapper. K6: K % 512 =
+# 256 and N not a multiple of its column tiles; an odd N also takes the
+# scalar loads and stores. K7: K % 256 != 0 (a partial last chunk), N % 32
+# = 8 (a partial column group); an odd K leaves x's rows unaligned, which
+# takes the scalar staging of x
+RAGGED = {"nf4": [("ragged", 768, 1000), ("ragged_odd", 768, 1001)],
+          "int8": [("ragged", 1000, 1000), ("ragged_odd", 1001, 1004)]}
+RAGGED["fp4"] = RAGGED["nf4"]
+RAGGED_NAMES = {name for shapes in RAGGED.values() for name, _, _ in shapes}
 # the library of each format's weight kernel (``--against`` names one)
 WEIGHT_LIBS = {"int4": "int4_pair_matmul", "int8": "int8_matmul",
                "nf4": "q4_halfplane_matmul", "fp4": "q4_halfplane_matmul"}
@@ -123,12 +131,14 @@ ROWS = (1, 2, 8, 13, 64, 72, 256)
 # differ only in f32 summation order
 REL_FRO_TOL = 1e-2
 RTOL, ATOL = 2e-2, 2e-1
-# K6 and its plain version form the same bf16 weights, so an output differs
-# only where the f32 sums' order moves its bf16 rounding: at least this share
-# must be bit-equal (99.85-100% on an H100). Weights rounded otherwise than
-# the plain version's (truncated, or kept in f32) shift every output by a
-# fraction of a bf16 ulp and would change a large share of them.
-K6_MIN_BIT_EQUAL = 0.99
+# K6 and K7 form the same bf16 weights as their plain versions, so an output
+# differs only where the f32 sums' order moves its bf16 rounding: at least
+# this share must be bit-equal (K6 99.85-100%, K7 99.98-100% on an H100).
+# Weights rounded otherwise than the plain version's (truncated, or kept in
+# f32) shift every output by a fraction of a bf16 ulp and would change a
+# large share of them. K1, which scales each 64-row block sum, is not held
+# to it.
+MIN_BIT_EQUAL = 0.99
 TIMED_RUNS = 25
 # timed calls of each single-sequence main path, after one warm-up
 # (bench.REPS takes three): one, so that the whole run stays near 8 minutes
@@ -245,13 +255,19 @@ def phase_device():
     return card
 
 
+# kernels rebuilt on every run and failed on any ptxas register spill: the
+# NF4/FP4 kernel (K6) and the INT8 kernel (K7)
+SPILL_CHECKED = ("q4_halfplane_matmul", "int8_matmul")
+
+
 def phase_build():
-    """Build every kernel; fail if ptxas reports a register spill in any
-    instance of the NF4/FP4 kernel (K6), which is always rebuilt so that its
-    report is there to check."""
+    """Build every kernel; fail if ptxas reports a register spill, or no
+    spill report, in any instance of a kernel of SPILL_CHECKED, each rebuilt
+    first so that its report is there to check."""
     from specdec_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    _build._target("q4_halfplane_matmul").unlink(missing_ok=True)
+    for name in SPILL_CHECKED:
+        _build._target(name).unlink(missing_ok=True)
     log = _build.build()
     say(f"[2 build] nvcc built {sorted(log)} in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -259,12 +275,13 @@ def phase_build():
         for line in rec["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 say(f"  {name}: {line.strip()}")
-    spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)",
-                                         log["q4_halfplane_matmul"]["ptxas"])]
-    if not spills or any(spills):
-        fail("q4_halfplane_matmul: ptxas reports register spills (or no "
-             "spill report)")
-    say(f"  q4_halfplane_matmul: {len(spills) // 2} instances, no spill")
+    for name in SPILL_CHECKED:
+        spills = [int(n) for n in re.findall(
+            r"(\d+) bytes spill (?:stores|loads)", log[name]["ptxas"])]
+        if not spills or any(spills):
+            fail(f"{name}: ptxas reports register spills (or no spill "
+                 "report)")
+        say(f"  {name}: {len(spills) // 2} instances, no spill")
 
 
 def build_against(spec):
@@ -358,8 +375,7 @@ def phase_kernel(target, device, phase="3 kernel", against=None):
     records, max_err = [], 0.0
     cases = [(name, K, N, layer) for name, K, N in STACKED
              for layer in (0, 21)] + [LM_HEAD + (None,)]
-    if fmt in ("nf4", "fp4"):
-        cases += [shape + (None,) for shape in RAGGED]
+    cases += [shape + (None,) for shape in RAGGED.get(fmt, ())]
     for name, K, N, layer in cases:
         if name in RAGGED_NAMES:
             # random weights quantized on the card, through the 2D wrapper
@@ -405,10 +421,11 @@ def phase_kernel(target, device, phase="3 kernel", against=None):
             rec = {"name": name, "format": fmt, "layer": layer, "M": M,
                    "K": K, "N": N, "max_abs_err": err, "rel_fro_err": rel,
                    "bit_equal": (got == plain).float().mean().item()}
-            if fmt in ("nf4", "fp4") and rec["bit_equal"] < K6_MIN_BIT_EQUAL:
+            if fmt in QUANTS and rec["bit_equal"] < MIN_BIT_EQUAL:
                 fail(f"{fmt} {name} layer {layer} M={M}: only "
-                     f"{rec['bit_equal']:.3%} of K6's outputs bit-equal to "
-                     f"the plain version's (at least {K6_MIN_BIT_EQUAL:.0%})")
+                     f"{rec['bit_equal']:.3%} of the kernel's outputs "
+                     f"bit-equal to the plain version's (at least "
+                     f"{MIN_BIT_EQUAL:.0%})")
             if layer in (0, None):
                 b_ms, by = bound_ms(M, K, N, bytes_per_weight(fmt, K))
                 rec.update(
@@ -1416,7 +1433,7 @@ def weight_entry(name, source, line, records, top, by_path, **extra):
 
 
 def stacked_records(records, stacked=True):
-    """The records of the stacked layers (or of the lm_head), without K6's
+    """The records of the stacked layers (or of the lm_head), without the
     ragged shapes."""
     return [r for r in records if (r["layer"] is not None) == stacked
             and r["name"] not in RAGGED_NAMES]

@@ -151,7 +151,7 @@ def _launch(w: Any, x2: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     from specdec_tpu_torch.ops._build import load
 
     xb = x2.to(torch.bfloat16).contiguous()
-    if xb.data_ptr() % 16:  # K6 stages x with 16-byte copies
+    if xb.data_ptr() % 16:  # K6 and K7 stage x with 16-byte copies
         xb = xb.clone()
     M, K = xb.shape
     N = a.shape[-1]

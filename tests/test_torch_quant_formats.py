@@ -209,12 +209,14 @@ def test_plain_halfplane_stacked_matches_pallas_interpret(codec):
                                    np.asarray(ref, np.float32), **KERNEL_TOL)
 
 
+@pytest.mark.parametrize("K,N", [(160, 100), (1000, 1000), (1001, 1004)])
 @pytest.mark.parametrize("stacked", [False, True], ids=["2d", "stacked"])
-def test_plain_int8_matches_pallas_interpret(stacked):
+def test_plain_int8_matches_pallas_interpret(stacked, K, N):
     """The plain K7 against the Pallas ``_int8_kernel`` in interpret mode
-    (K and N not multiples of the tiles: the JAX side pads). The stacked
-    wrapper reads layer 1 of a stack; JAX runs its kernel on that slice."""
-    K, N = 160, 100
+    (K and N not multiples of the tiles: the JAX side pads), also at the
+    ragged shapes chip_smoke.py runs the CUDA kernel at (K % 256 != 0, N %
+    32 = 8; an odd K). The stacked wrapper reads layer 1 of a stack; JAX
+    runs its kernel on that slice."""
     w = _weights((2, K, N), seed=25)
     x = np.random.default_rng(26).standard_normal((3, K)).astype(np.float32)
     ref_w = jq.quantize_int8(jnp.asarray(w))
