@@ -14,8 +14,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    draft step, verify and admission prefill), on the main path's own
    weights; its time beside the plain version's, a bf16 ``torch.matmul`` on
    pre-dequantized weights (a yardstick the port never calls) and the
-   bound; and a check that a row's result does not depend on how many rows
-   share the call;
+   bound; the share of output elements bit-equal to the plain version's
+   (at least MIN_BIT_EQUAL); a check that a row's result does not depend on
+   how many rows share the call; and the two ragged shapes of K6 below, on
+   random weights quantized on the card;
 3b. kernel vs plain, paged attention: the paged decode-attention kernel,
    through both wrappers (a 4D pool, and a layer of stacked pools, which
    must agree bit for bit), against its plain version in float32 and bf16
@@ -33,14 +35,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 3d. kernel vs plain, INT8/NF4/FP4: as phase 3, for the INT8 kernel (K7)
    and the NF4/FP4 half-plane kernel (K6, both codecs), on the 22-layer
    pair's own weights in each format, with the share of output elements
-   that are bit-equal to the plain version's (for K6 and K7 at least
-   MIN_BIT_EQUAL); each also at two ragged shapes on random weights
-   quantized on the card: K6 at K = 768, so K % 512 = 256, and N = 1000,
-   not a multiple of its column tiles, or N = 1001, odd; K7 at K = 1000, N
-   = 1000 (K % 256 != 0, N % 32 = 8) and K = 1001, N = 1004 (odd K: x's
-   rows are unaligned and take the scalar staging). Phase 2 rebuilds K6
-   and K7 and fails if ptxas reports a register spill in any of their
-   instances. With
+   that are bit-equal to the plain version's (at least MIN_BIT_EQUAL);
+   each also at two ragged shapes on random weights quantized on the card:
+   K6 (as K1) at K = 768, so K % 512 = 256, and N = 1000, not a multiple of
+   its column tiles, or N = 1001, odd; K7 at K = 1000, N = 1000 (K % 256 !=
+   0, N % 32 = 8) and K = 1001, N = 1004 (odd K: x's rows are unaligned and
+   take the scalar staging). Phase 2 rebuilds K1, K6 and K7 and fails if
+   ptxas reports a register spill in any of their instances. With
    ``--against NAME=SRC`` (NAME a weight kernel's library in
    ``_build.SIGNATURES``, SRC another source of it, such as an earlier
    commit's from ``git show``), phases 3 and 3d also time that source,
@@ -110,14 +111,14 @@ BF16_OPS_PER_S = 989e12
 STACKED = [("wqkv", 2048, 2560), ("wo", 2048, 2048),
            ("w_gateup", 2048, 11264), ("w_down", 5632, 2048)]
 LM_HEAD = ("lm_head", 2048, 32000)
-# ragged shapes, by weight format, through the 2D wrapper. K6: K % 512 =
-# 256 and N not a multiple of its column tiles; an odd N also takes the
-# scalar loads and stores. K7: K % 256 != 0 (a partial last chunk), N % 32
-# = 8 (a partial column group); an odd K leaves x's rows unaligned, which
+# ragged shapes, by weight format, through the 2D wrapper. K1 and K6: K %
+# 512 = 256 and N not a multiple of their column tiles; an odd N also takes
+# the scalar loads and stores. K7: K % 256 != 0 (a partial last chunk), N %
+# 32 = 8 (a partial column group); an odd K leaves x's rows unaligned, which
 # takes the scalar staging of x
-RAGGED = {"nf4": [("ragged", 768, 1000), ("ragged_odd", 768, 1001)],
+RAGGED = {"int4": [("ragged", 768, 1000), ("ragged_odd", 768, 1001)],
           "int8": [("ragged", 1000, 1000), ("ragged_odd", 1001, 1004)]}
-RAGGED["fp4"] = RAGGED["nf4"]
+RAGGED["nf4"] = RAGGED["fp4"] = RAGGED["int4"]
 RAGGED_NAMES = {name for shapes in RAGGED.values() for name, _, _ in shapes}
 # the library of each format's weight kernel (``--against`` names one)
 WEIGHT_LIBS = {"int4": "int4_pair_matmul", "int8": "int8_matmul",
@@ -131,13 +132,13 @@ ROWS = (1, 2, 8, 13, 64, 72, 256)
 # differ only in f32 summation order
 REL_FRO_TOL = 1e-2
 RTOL, ATOL = 2e-2, 2e-1
-# K6 and K7 form the same bf16 weights as their plain versions, so an output
-# differs only where the f32 sums' order moves its bf16 rounding: at least
-# this share must be bit-equal (K6 99.85-100%, K7 99.98-100% on an H100).
-# Weights rounded otherwise than the plain version's (truncated, or kept in
-# f32) shift every output by a fraction of a bf16 ulp and would change a
-# large share of them. K1, which scales each 64-row block sum, is not held
-# to it.
+# K1, K6 and K7 form the same bf16 weights as their plain versions, so an
+# output differs only where the f32 sums' order moves its bf16 rounding
+# (K1 also scales each 64-k block in four 16-k pieces): at least this share
+# must be bit-equal (K1 99.95-100%, K6 99.85-100%, K7 99.95-100% on an
+# H100). Weights rounded otherwise than the plain version's (truncated, or
+# kept in f32), or a scale folded into the weights, shift every output by
+# a fraction of a bf16 ulp and would change a large share of them.
 MIN_BIT_EQUAL = 0.99
 TIMED_RUNS = 25
 # timed calls of each single-sequence main path, after one warm-up
@@ -256,8 +257,8 @@ def phase_device():
 
 
 # kernels rebuilt on every run and failed on any ptxas register spill: the
-# NF4/FP4 kernel (K6) and the INT8 kernel (K7)
-SPILL_CHECKED = ("q4_halfplane_matmul", "int8_matmul")
+# INT4 kernel (K1), the NF4/FP4 kernel (K6) and the INT8 kernel (K7)
+SPILL_CHECKED = ("int4_pair_matmul", "q4_halfplane_matmul", "int8_matmul")
 
 
 def phase_build():
@@ -421,7 +422,7 @@ def phase_kernel(target, device, phase="3 kernel", against=None):
             rec = {"name": name, "format": fmt, "layer": layer, "M": M,
                    "K": K, "N": N, "max_abs_err": err, "rel_fro_err": rel,
                    "bit_equal": (got == plain).float().mean().item()}
-            if fmt in QUANTS and rec["bit_equal"] < MIN_BIT_EQUAL:
+            if rec["bit_equal"] < MIN_BIT_EQUAL:
                 fail(f"{fmt} {name} layer {layer} M={M}: only "
                      f"{rec['bit_equal']:.3%} of the kernel's outputs "
                      f"bit-equal to the plain version's (at least "
@@ -1528,8 +1529,11 @@ def main():
     for key, name, line in (("K1b", "int4_pair_matmul (stacked layer)", 219),
                             ("K1a", "int4_pair_matmul (2D lm_head)", 196)):
         mine = stacked_records(records, key == "K1b")
+        # the ragged shapes go through the 2D wrapper
+        ragged = [r for r in records
+                  if r["name"] in RAGGED_NAMES and key == "K1a"]
         entries.append(weight_entry(
-            name, "int4_pair_matmul.cu", line, mine, mine,
+            name, "int4_pair_matmul.cu", line, mine + ragged, mine,
             {"spec_decode": launches_main[key],
              "spec_decode_kvint8_flash": launches_int8[key],
              "spec_decode_flash": launches_flash[key],

@@ -26,6 +26,10 @@ sums, a bf16 result cast to ``x.dtype``):
   times its block's bf16 scale and rounded to bf16, then one f32 sum;
 - INT8: the f32 sum times the channel's f32 scale.
 
+The kernels form the same bf16 weights and differ from their plain versions
+only in the order of the f32 sums (K1 also scales each 64-row block's sum
+in four pieces of 16 rows, one per K-split warp, and adds them).
+
 Each kernel wrapper counts its launches in a plain integer attribute
 (``int4_matmul.launches`` and so on), so a run can show which kernels its
 path went through.
@@ -151,7 +155,7 @@ def _launch(w: Any, x2: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     from specdec_tpu_torch.ops._build import load
 
     xb = x2.to(torch.bfloat16).contiguous()
-    if xb.data_ptr() % 16:  # K6 and K7 stage x with 16-byte copies
+    if xb.data_ptr() % 16:  # the kernels stage x with 16-byte copies
         xb = xb.clone()
     M, K = xb.shape
     N = a.shape[-1]

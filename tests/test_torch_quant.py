@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from specdec_tpu.ops.quant_matmul import _q4_matmul_stacked
+from specdec_tpu.ops.quant_matmul import _nf4_matmul_2d, _q4_matmul_stacked
 from specdec_tpu.ops.quant_matmul import quant_matmul as jax_quant_matmul
 from specdec_tpu.quant import core as jq
 
@@ -117,6 +117,45 @@ def test_plain_matmul_matches_jax_offtpu(K, N):
     got = got.numpy()
     np.testing.assert_allclose(got, ref, rtol=2e-2, atol=2e-1)
     assert np.linalg.norm(got - ref) <= 1e-2 * np.linalg.norm(ref)
+
+
+@pytest.mark.parametrize("N", [1000, 1001])
+@pytest.mark.parametrize("K", [512, 768])
+def test_plain_matmul_ragged_shape(K, N):
+    """The plain K1 at the ragged shapes the card checks: K = 768 (K % 512
+    = 256) and N = 1000 (not a multiple of the kernel's column tiles) or
+    the odd N = 1001 (its scalar loads and stores). The Pallas
+    ``_nf4_matmul_2d(codec="int4")`` takes only K % 512 == 0, so at K = 512
+    it is the reference (in interpret mode; it pads N to its tile), and at
+    K = 768 the reference is ``_pair_tile``'s arithmetic in JAX: each
+    64-row block's f32 dot of bf16 x with the weights code - 8, times the
+    block's bf16 scale, summed over blocks and rounded to bf16. Only the f32
+    summation order differs, so they agree to one bf16 rounding step."""
+    w = _weights((K, N), seed=K + N)
+    w *= np.exp(np.random.default_rng(9).uniform(-3, 3, size=(K, N))
+                ).astype(np.float32)
+    x = np.random.default_rng(10).standard_normal((5, K)).astype(np.float32)
+    ref_w = _jax_quantize_int4(jnp.asarray(w))
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    if K % 512 == 0:
+        with pltpu.force_tpu_interpret_mode():
+            ref = _nf4_matmul_2d(xb, ref_w.packed, ref_w.absmax, tile_n=128,
+                                 tile_k=512, codec="int4")
+    else:
+        G = K // 64
+        wq = (jq._unpack_nibbles(ref_w.packed) - 8).astype(jnp.float32)
+        am = jq._am_unpack(ref_w.absmax).astype(jnp.float32)     # [G, N]
+        part = jnp.einsum("mgk,gkn->gmn",
+                          xb.astype(jnp.float32).reshape(5, G, 64),
+                          wq.reshape(G, 64, N),
+                          precision=jax.lax.Precision.HIGHEST)
+        ref = (part * am[:, None, :]).sum(axis=0).astype(jnp.bfloat16)
+    tw = params_from_numpy(jax.tree.map(np.asarray, ref_w), device="cpu")
+    got = tq_ops.int4_matmul(tensor_from_numpy(np.asarray(xb), "cpu"), tw)
+    assert got.shape == (5, N) and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref, np.float32),
+                               rtol=2 ** -7, atol=1e-6)
 
 
 def test_stacked_slice_reads_layer_in_place():
