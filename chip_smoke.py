@@ -21,16 +21,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 3b. kernel vs plain, paged attention: the paged decode-attention kernel,
    through both wrappers (a 4D pool, and a layer of stacked pools, which
    must agree bit for bit), against its plain version in float32 and bf16
-   at the decode, verify, long-context and serving shapes, over bf16/f32
-   pools and over int8 pools with their scales; its time beside the plain
-   version's, ``scaled_dot_product_attention`` over K/V gathered (and, for
-   int8, dequantized) beforehand (a yardstick the port never calls) and
-   the bound;
+   at the decode, verify, long-context and serving shapes, and once at
+   qwen3-family heads (Hq=32, Hk=8, Dh=128), over bf16/f32 pools and over
+   int8 pools with their scales; its time beside the plain version's,
+   ``scaled_dot_product_attention`` over K/V gathered (and, for int8,
+   dequantized) beforehand (a yardstick the port never calls) and the
+   bound;
 3c. kernel vs plain, flash-decode attention: the slotted-cache kernel over
    K/V of q's type and over int8 K/V, in float32 and bf16, at the shapes
    the main paths give it (single sequence B=1, S=334, T = 1, 2, 13, 64;
    the serving drafter B=8, T = 1, 2 over the batcher's S; the admission
-   prefill T=256), offsets up to S; a row's result must not depend on T;
+   prefill T=256), at qwen3-family heads (decode and verify, Dh=128) and
+   at S=2048 (8 spans of 4 tiles), offsets up to S; a row's result must
+   not depend on T (at S=334 and 2048), nor a sequence's on the rest of its
+   batch (each alone
+   at B=1, bit for bit); over the same keys laid out in pages, K3/K4 agree
+   with the paged kernel K8a/K8b within the kernel-vs-plain tolerance;
    times beside the plain version's, SDPA over the live K/V and the bound;
 3d. kernel vs plain, INT8/NF4/FP4: as phase 3, for the INT8 kernel (K7)
    and the NF4/FP4 half-plane kernel (K6, both codecs), on the 22-layer
@@ -40,13 +46,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    K6 (as K1) at K = 768, so K % 512 = 256, and N = 1000, not a multiple of
    its column tiles, or N = 1001, odd; K7 at K = 1000, N = 1000 (K % 256 !=
    0, N % 32 = 8) and K = 1001, N = 1004 (odd K: x's rows are unaligned and
-   take the scalar staging). Phase 2 rebuilds K1, K6 and K7 and fails if
-   ptxas reports a register spill in any of their instances. With
-   ``--against NAME=SRC`` (NAME a weight kernel's library in
-   ``_build.SIGNATURES``, SRC another source of it, such as an earlier
-   commit's from ``git show``), phases 3 and 3d also time that source,
-   built the same way and launched through the same wrappers, in turns
-   with the checkout's (this, other, other, this);
+   take the scalar staging). Phase 2 rebuilds K1, K6, K7 and the
+   flash-decode kernel and fails if ptxas reports a register spill in any
+   of their instances. With ``--against NAME=SRC`` (NAME a kernel's library
+   in ``_build.SIGNATURES``: a weight kernel's or ``decode_attention``; SRC
+   another source of it, such as an earlier commit's from ``git show``),
+   phases 3 and 3d, or 3c, also time that source, built the same way and
+   launched through the same wrappers, in turns with the checkout's (this,
+   other, other, this);
 4. greedy oracle: greedy self-draft speculative decoding equals greedy AR
    on the card (full widths, 2 layers, float32 activations, a kernel on
    every projection): INT4 weights with the plain attention and with int8
@@ -146,18 +153,25 @@ TIMED_RUNS = 25
 MAIN_REPS = 1
 SLEEP_CYCLES = 50_000_000   # keeps the card busy while the runs enqueue
 
-# paged attention shapes (Hq=32, Hk=4, Dh=64, page 64, the pair's heads):
-# (label, B, T, MP, offsets). decode/verify are tools/bench_paged.py's
-# validation shapes; long reaches the config's 2048 positions; serve is the
-# serving engine's verify (8 slots, gamma 8) at its table width of 9 pages
-PAGED_HEADS = (32, 4, 64, 64)
+# attention heads (Hq, Hk, Dh): the pair's, and a qwen3-family model's
+# (Qwen3-8B: 32 query heads over 8 KV heads of 128), run once on each
+# attention kernel
+PAIR_HEADS = (32, 4, 64)
+QWEN3_HEADS = (32, 8, 128)
+# paged attention shapes (page 64): (label, B, T, MP, offsets, heads).
+# decode/verify are tools/bench_paged.py's validation shapes; long reaches
+# the config's 2048 positions; serve is the serving engine's verify (8
+# slots, gamma 8) at its table width of 9 pages
+PAGE = 64
 SERVE_TABLE_PAGES = 9
 PAGED_SHAPES = [
-    ("decode", 8, 1, 8, [40, 100, 511, 7, 250, 64, 63, 300]),
-    ("verify", 4, 9, 8, [40, 100, 350, 7]),
-    ("long", 8, 9, 32, [2000, 1500, 1023, 64, 7, 1800, 2030, 511]),
+    ("decode", 8, 1, 8, [40, 100, 511, 7, 250, 64, 63, 300], PAIR_HEADS),
+    ("verify", 4, 9, 8, [40, 100, 350, 7], PAIR_HEADS),
+    ("long", 8, 9, 32, [2000, 1500, 1023, 64, 7, 1800, 2030, 511],
+     PAIR_HEADS),
     ("serve", 8, 9, SERVE_TABLE_PAGES,
-     [60, 150, 230, 320, 90, 200, 280, 330]),
+     [60, 150, 230, 320, 90, 200, 280, 330], PAIR_HEADS),
+    ("qwen3-verify", 4, 9, 8, [40, 100, 350, 7], QWEN3_HEADS),
 ]
 # kernel vs plain, float32: the sides differ in summation order only
 # (online vs dense softmax)
@@ -171,26 +185,34 @@ F32_TOL = dict(rtol=1e-5, atol=1e-5)
 # |kernel - plain| <= ulp + 2 * BF16_U * (P.|V|) (check_attention)
 BF16_U = 2.0 ** -8
 
-# flash-decode shapes (the pair's heads Hq=32, Hk=4, Dh=64): (label, B, S, T,
-# offsets). Single sequence: the speculative loop's cache capacity S =
-# 64 + 256 + 12 + 2, T = 1 (AR and draft step), 2 (drafter catch-up), 13
-# (gamma-12 verify) and 64 (prefill); serving: the slotted drafter's draft
-# step and catch-up over the batcher's S = 256 + 128 + 8 + 2, 8 slots, and
-# the dense admission prefill of max_prompt_len = 256 rows. Offsets reach
-# S - T.
-SINGLE_S, SERVE_S = 334, 394
+# flash-decode shapes: (label, B, S, T, offsets, heads). Single sequence:
+# the speculative loop's cache capacity S = 64 + 256 + 12 + 2, T = 1 (AR and
+# draft step), 2 (drafter catch-up), 13 (gamma-12 verify) and 64 (prefill);
+# serving: the slotted drafter's draft step and catch-up over the batcher's
+# S = 256 + 128 + 8 + 2, 8 slots, and the dense admission prefill of
+# max_prompt_len = 256 rows; decode and verify at qwen3-family heads; and a
+# verify and a prefill at the config's 2048 positions, where the kernel's 8
+# spans hold 4 tiles each. Offsets reach S - T.
+SINGLE_S, SERVE_S, LONG_S = 334, 394, 2048
 FLASH_SHAPES = [
-    ("decode", 1, SINGLE_S, 1, [333]),
-    ("catch-up", 1, SINGLE_S, 2, [150]),
-    ("verify", 1, SINGLE_S, 13, [321]),
-    ("prefill", 1, SINGLE_S, 64, [0]),
-    ("serve-draft", 8, SERVE_S, 1, [0, 5, 63, 64, 200, 300, 391, 393]),
-    ("serve-catch-up", 8, SERVE_S, 2, [1, 7, 62, 130, 257, 333, 390, 392]),
-    ("admission", 1, SERVE_S, 256, [0]),
+    ("decode", 1, SINGLE_S, 1, [333], PAIR_HEADS),
+    ("catch-up", 1, SINGLE_S, 2, [150], PAIR_HEADS),
+    ("verify", 1, SINGLE_S, 13, [321], PAIR_HEADS),
+    ("prefill", 1, SINGLE_S, 64, [0], PAIR_HEADS),
+    ("serve-draft", 8, SERVE_S, 1, [0, 5, 63, 64, 200, 300, 391, 393],
+     PAIR_HEADS),
+    ("serve-catch-up", 8, SERVE_S, 2, [1, 7, 62, 130, 257, 333, 390, 392],
+     PAIR_HEADS),
+    ("admission", 1, SERVE_S, 256, [0], PAIR_HEADS),
+    ("qwen3-decode", 1, SINGLE_S, 1, [333], QWEN3_HEADS),
+    ("qwen3-verify", 1, SINGLE_S, 13, [321], QWEN3_HEADS),
+    ("long-verify", 1, LONG_S, 13, [2030], PAIR_HEADS),
+    ("long-prefill", 1, LONG_S, 64, [1900], PAIR_HEADS),
 ]
 # row independence: the rows of a T=64 call at one offset against the same
-# rows of calls at smaller T
+# rows of calls at smaller T, over a cache of each capacity (S, offset)
 ROW_CHECK_T = (1, 2, 13)
+ROW_CHECK_S = ((SINGLE_S, 200), (LONG_S, 1900))
 
 
 def say(*a):
@@ -257,8 +279,13 @@ def phase_device():
 
 
 # kernels rebuilt on every run and failed on any ptxas register spill: the
-# INT4 kernel (K1), the NF4/FP4 kernel (K6) and the INT8 kernel (K7)
-SPILL_CHECKED = ("int4_pair_matmul", "q4_halfplane_matmul", "int8_matmul")
+# INT4 kernel (K1), the NF4/FP4 kernel (K6), the INT8 kernel (K7) and the
+# flash-decode kernel (K3/K4)
+SPILL_CHECKED = ("int4_pair_matmul", "q4_halfplane_matmul", "int8_matmul",
+                 "decode_attention")
+# the kernels ``--against`` takes: the weight kernels and the flash-decode
+# kernel
+AGAINST_LIBS = sorted(set(WEIGHT_LIBS.values())) + ["decode_attention"]
 
 
 def phase_build():
@@ -286,17 +313,18 @@ def phase_build():
 
 
 def build_against(spec):
-    """``--against NAME=SRC``: SRC, another source of weight kernel NAME
-    (such as an earlier commit's), built with the same flags. Returns (NAME,
-    its library, loaded with NAME's C signature)."""
+    """``--against NAME=SRC``: SRC, another source of kernel NAME (such as
+    an earlier commit's; its headers are looked up in ``csrc``), built with
+    the same flags. Returns (NAME, its library, loaded with NAME's C
+    signature)."""
     import ctypes
 
     from specdec_tpu_torch.ops import _build
 
     name, _, src = spec.partition("=")
-    if name not in WEIGHT_LIBS.values() or not os.path.isfile(src):
+    if name not in AGAINST_LIBS or not os.path.isfile(src):
         fail(f"--against {spec}: expected NAME=SRC, NAME one of "
-             f"{sorted(set(WEIGHT_LIBS.values()))} and SRC a file")
+             f"{AGAINST_LIBS} and SRC a file")
     out = _build.BUILD_DIR / f"lib{name}_against.so"
     built = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
                             str(_build.CSRC), "-o", str(out), src],
@@ -620,25 +648,26 @@ def bf16_ulp(x):
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
 
 
-def check_attention(what, got, plain, pv_abs=None):
-    """Kernel against plain: float32 within F32_TOL; bf16 elementwise within
-    one ulp plus 2 * BF16_U * ``pv_abs`` (the plain version's attention of
-    |V|, in float32; see BF16_U). Returns the max abs error and, for bf16,
-    the worst error in ulps, the share of elements within one ulp and the
-    worst error over its allowance."""
+def check_attention(what, got, plain, pv_abs=None, against="plain"):
+    """Kernel against plain (or against another kernel, ``against``):
+    float32 within F32_TOL; bf16 elementwise within one ulp plus 2 * BF16_U
+    * ``pv_abs`` (the plain version's attention of |V|, in float32; see
+    BF16_U). Returns the max abs error and, for bf16, the worst error in
+    ulps, the share of elements within one ulp and the worst error over its
+    allowance."""
     got, plain = got.float(), plain.float()
     diff = (got - plain).abs()
     err = diff.max().item()
     if pv_abs is None:
         if not torch.allclose(got, plain, **F32_TOL):
-            fail(f"{what}: kernel vs plain max abs err {err:.3g} beyond "
+            fail(f"{what}: kernel vs {against} max abs err {err:.3g} beyond "
                  f"{F32_TOL}")
         return {"max_abs_err": err}
     ulp = bf16_ulp(torch.maximum(got.abs(), plain.abs()))
     ratio = (diff / (ulp + 2 * BF16_U * pv_abs.float())).max().item()
     if not ratio <= 1.0:
-        fail(f"{what}: kernel vs plain beyond one bf16 ulp + 2 * 2**-8 * "
-             f"P.|V| (worst error {ratio:.3g} of its allowance)")
+        fail(f"{what}: kernel vs {against} beyond one bf16 ulp + 2 * 2**-8 "
+             f"* P.|V| (worst error {ratio:.3g} of its allowance)")
     ulps = diff / ulp
     return {"max_abs_err": err, "max_ulps": ulps.max().item(),
             "within_1ulp": (ulps <= 1.0).float().mean().item(),
@@ -668,11 +697,11 @@ def phase_paged_kernel(device):
     )
     from specdec_tpu_torch.ops import paged_attention as pa
 
-    Hq, Hk, Dh, page = PAGED_HEADS
+    page = PAGE
     gen = torch.Generator(device=device).manual_seed(4321)
     flush = torch.zeros(256 * 2 ** 20, dtype=torch.uint8, device=device)
     records, max_err = {"bf16": [], "int8": []}, {"bf16": 0.0, "int8": 0.0}
-    for label, B, T, MP, offsets in PAGED_SHAPES:
+    for label, B, T, MP, offsets, (Hq, Hk, Dh) in PAGED_SHAPES:
         NP = B * MP + 1
         table = (1 + torch.randperm(NP - 1, generator=gen, device=device)
                  )[:B * MP].reshape(B, MP).to(torch.int32)
@@ -715,7 +744,7 @@ def phase_paged_kernel(device):
                          "from the 4D wrapper on that layer")
                 rec = {"name": label, "pool": fmt,
                        "dtype": str(dtype).split(".")[-1], "B": B, "T": T,
-                       "MP": MP, "offsets": offsets,
+                       "MP": MP, "offsets": offsets, "heads": [Hq, Hk, Dh],
                        **check_attention(what, k4, plain,
                                          pv_abs if dtype == torch.bfloat16
                                          else None)}
@@ -760,7 +789,8 @@ def phase_paged_kernel(device):
                                 lib[0], lib[1], lib[2], attn_mask=lib[3]),
                             flush),
                         bound_ms=b, bound_by=by)
-                    say(f"[3b paged] {label:6s} {fmt} B={B} T={T} MP={MP}: "
+                    say(f"[3b paged] {label:6s} {fmt} B={B} T={T} MP={MP} "
+                        f"Hq={Hq} Hk={Hk} Dh={Dh}: "
                         f"kernel {rec['ms'] * 1e3:7.1f} us, plain "
                         f"{rec['plain_ms'] * 1e3:7.1f} us, SDPA "
                         f"{rec['library_ms'] * 1e3:7.1f} us, bound "
@@ -785,17 +815,22 @@ def flash_bound_ms(B, S, T, Hq, Hk, Dh, offsets, int8):
     return attention_bound_ms(live, B, T, Hq, Hk, Dh, keys, int8, B * 4)
 
 
-def phase_flash_kernel(device):
+def phase_flash_kernel(device, against=None):
     """The flash-decode kernel vs its plain version at FLASH_SHAPES: over
     K/V of q's type (K3) and over int8 K/V quantized from the same random
-    K/V (K4), q in float32 and bf16; and a check that a query row's result
-    does not depend on T. Returns the per-shape records of each kernel
-    (timed in bf16) and each kernel's largest absolute error."""
+    K/V (K4), q in float32 and bf16; checks that a query row's result does
+    not depend on T, nor a sequence's on the others of its batch; and K3/K4
+    against the paged kernels K8a/K8b over the same keys laid out in pages.
+    ``against``: build_against's (NAME, library); where NAME is
+    ``decode_attention``, that library is held to the same tolerance and
+    timed in turns with the checkout's. Returns the per-shape records of each kernel (timed in
+    bf16) and each kernel's largest absolute error."""
     from specdec_tpu_torch.core.cache import quantize_kv_block
     from specdec_tpu_torch.ops import decode_attention as da
     from specdec_tpu_torch.ops import paged_attention as pa
 
-    Hq, Hk, Dh, _ = PAGED_HEADS
+    other = (against[1] if against and against[0] == "decode_attention"
+             else None)
     gen = torch.Generator(device=device).manual_seed(5678)
     flush = torch.zeros(256 * 2 ** 20, dtype=torch.uint8, device=device)
     records, max_err = {"K3": [], "K4": []}, {"K3": 0.0, "K4": 0.0}
@@ -817,7 +852,13 @@ def phase_flash_kernel(device):
         return da.decode_attention_reference(q.float(), k.float(),
                                              v.float().abs(), off)
 
-    for label, B, S, T, offsets in FLASH_SHAPES:
+    def seq(x, b):
+        """Sequence b of a batched argument (K/V with scales: a pair)."""
+        if isinstance(x, tuple):
+            return tuple(seq(a, b) for a in x)
+        return x[b:b + 1].contiguous()
+
+    for label, B, S, T, offsets, (Hq, Hk, Dh) in FLASH_SHAPES:
         off = torch.tensor(offsets, dtype=torch.int32, device=device)
         kf, vf = (torch.randn((B, S, Hk, Dh), generator=gen, device=device)
                   for _ in range(2))
@@ -830,13 +871,20 @@ def phase_flash_kernel(device):
                 got = run("kernel", q, k, v, off, quant)
                 plain = run("plain", q, k, v, off, quant)
                 torch.cuda.synchronize()
+                what = f"flash {label} {name} q {dtype}"
+                pv = (pv_abs(q, k, v, off, quant)
+                      if dtype == torch.bfloat16 else None)
                 rec = {"name": label, "kernel": name,
                        "dtype": str(dtype).split(".")[-1], "B": B, "S": S,
-                       "T": T, "offsets": offsets,
-                       **check_attention(
-                           f"flash {label} {name} q {dtype}", got, plain,
-                           pv_abs(q, k, v, off, quant)
-                           if dtype == torch.bfloat16 else None)}
+                       "T": T, "offsets": offsets, "heads": [Hq, Hk, Dh],
+                       **check_attention(what, got, plain, pv)}
+                # a sequence's rows do not depend on the rest of its batch
+                for b in range(B if B > 1 else 0):
+                    one = run("kernel", seq(q, b), seq(k, b), seq(v, b),
+                              seq(off, b), quant)
+                    if not torch.equal(one, got[b:b + 1]):
+                        fail(f"{what}: sequence {b} alone differs from the "
+                             f"same sequence in the B={B} call")
                 err = rec["max_abs_err"]
                 max_err[name] = max(max_err[name], err)
                 if dtype == torch.bfloat16:
@@ -849,9 +897,12 @@ def phase_flash_kernel(device):
                                          (k[:, :n], v[:, :n], off)))
                     b, by = flash_bound_ms(B, S, T, Hq, Hk, Dh, offsets,
                                            quant)
+
+                    def kern():
+                        return run("kernel", q, k, v, off, quant)
+
                     rec.update(
-                        ms=gpu_ms(lambda: run("kernel", q, k, v, off, quant),
-                                  flush),
+                        ms=gpu_ms(kern, flush),
                         plain_ms=gpu_ms(
                             lambda: run("plain", q, k, v, off, quant), flush),
                         library_ms=gpu_ms(
@@ -859,10 +910,22 @@ def phase_flash_kernel(device):
                                 lib[0], lib[1], lib[2], attn_mask=lib[3]),
                             flush),
                         bound_ms=b, bound_by=by)
-                    say(f"[3c flash] {label:14s} {name} B={B} S={S} "
-                        f"T={T:3d}: kernel {rec['ms'] * 1e3:7.1f} us, plain "
-                        f"{rec['plain_ms'] * 1e3:7.1f} us, SDPA "
-                        f"{rec['library_ms'] * 1e3:7.1f} us, bound "
+                    # the other source in turns with the checkout's (this,
+                    # other, other, this)
+                    against_txt = ""
+                    if other is not None:
+                        with launching("decode_attention", other):
+                            check_attention(f"other source {what}", kern(),
+                                            plain, pv)
+                            rec["against_ms"] = min(gpu_ms(kern, flush)
+                                                  for _ in (0, 1))
+                        rec["ms"] = min(rec["ms"], gpu_ms(kern, flush))
+                        against_txt = (f" (other source "
+                                       f"{rec['against_ms'] * 1e3:.1f})")
+                    say(f"[3c flash] {label:14s} {name} B={B} S={S} T={T:3d} "
+                        f"Dh={Dh}: kernel {rec['ms'] * 1e3:7.1f} us"
+                        f"{against_txt}, plain {rec['plain_ms'] * 1e3:7.1f} "
+                        f"us, SDPA {rec['library_ms'] * 1e3:7.1f} us, bound "
                         f"{b * 1e3:5.2f} us ({by}); max abs err {err:.3g} "
                         f"({rec['max_ulps']:.0f} ulps at worst, "
                         f"{rec['within_1ulp']:.1%} within one; "
@@ -870,51 +933,62 @@ def phase_flash_kernel(device):
                 records[name].append(rec)
 
     # a row's result does not depend on T: the rows of a T=64 call against
-    # the same rows (same positions) of calls at smaller T
-    o = 200
-    off = torch.tensor([o], dtype=torch.int32, device=device)
-    kf, vf = (torch.randn((1, SINGLE_S, Hk, Dh), generator=gen,
-                          device=device) for _ in range(2))
-    kq, vq = quantize_kv_block(kf), quantize_kv_block(vf)
-    page = PAGED_HEADS[3]
-    MP = -(-SINGLE_S // page)
-    table = torch.arange(1, MP + 1, dtype=torch.int32, device=device)[None]
+    # the same rows (same positions) of calls at smaller T (the kernel runs
+    # the T=64 call in one block per row tile, the others in clusters)
+    Hq, Hk, Dh = PAIR_HEADS
 
-    def as_pages(a):
+    def as_pages(a, S):
         """[1, S, Hk(, Dh)] -> a one-layer pool [1, MP + 1, Hk, page(, Dh)]
         whose page p + 1 holds positions p * page ..; page 0 and the tail
         past S are zero."""
-        pad = torch.zeros((MP * page,) + a.shape[2:], dtype=a.dtype,
+        MP = -(-S // PAGE)
+        pad = torch.zeros((MP * PAGE,) + a.shape[2:], dtype=a.dtype,
                           device=device)
-        pad[:SINGLE_S] = a[0]
-        pool = pad.reshape(MP, page, *a.shape[2:]).transpose(1, 2)
+        pad[:S] = a[0]
+        pool = pad.reshape(MP, PAGE, *a.shape[2:]).transpose(1, 2)
         return torch.cat([torch.zeros_like(pool[:1]), pool])[None].contiguous()
 
-    for name, quant in (("K3", False), ("K4", True)):
-        for dtype in (torch.float32, torch.bfloat16):
-            k, v = (kq, vq) if quant else (kf.to(dtype), vf.to(dtype))
-            q = torch.randn((1, 64, Hq, Dh), generator=gen,
-                            device=device).to(dtype)
-            full = run("kernel", q, k, v, off, quant)
-            for T in ROW_CHECK_T:
-                part = run("kernel", q[:, :T].contiguous(), k, v, off, quant)
-                if not torch.equal(part, full[:, :T]):
-                    fail(f"flash {name} {dtype}: rows of the T={T} call "
-                         "differ from the same rows of the T=64 call")
-            # the slotted kernel's key tile is the paged kernel's page (64
-            # keys) and both run one kernel body: over the same keys laid
-            # out in pages, K3 equals K8a and K4 equals K8b bit for bit
-            paged = pa.paged_decode_attention_quant_stacked(
-                q, *map(as_pages, (k[0], k[1], v[0], v[1])), 0, table,
-                off) if quant else pa.paged_decode_attention_stacked(
-                q, as_pages(k), as_pages(v), 0, table, off)
-            if not torch.equal(full, paged):
-                fail(f"flash {name} {dtype}: the slotted kernel differs from "
-                     "the paged kernel over the same keys")
+    for S, o in ROW_CHECK_S:
+        off = torch.tensor([o], dtype=torch.int32, device=device)
+        kf, vf = (torch.randn((1, S, Hk, Dh), generator=gen, device=device)
+                  for _ in range(2))
+        kq, vq = quantize_kv_block(kf), quantize_kv_block(vf)
+        MP = -(-S // PAGE)
+        table = torch.arange(1, MP + 1, dtype=torch.int32, device=device)[None]
+        for name, quant in (("K3", False), ("K4", True)):
+            for dtype in (torch.float32, torch.bfloat16):
+                k, v = (kq, vq) if quant else (kf.to(dtype), vf.to(dtype))
+                q = torch.randn((1, 64, Hq, Dh), generator=gen,
+                                device=device).to(dtype)
+                full = run("kernel", q, k, v, off, quant)
+                for T in ROW_CHECK_T:
+                    part = run("kernel", q[:, :T].contiguous(), k, v, off,
+                               quant)
+                    if not torch.equal(part, full[:, :T]):
+                        fail(f"flash {name} {dtype} S={S}: rows of the T={T} "
+                             "call differ from the same rows of the T=64 "
+                             "call")
+                if S != SINGLE_S:
+                    continue
+                # over the same keys laid out in pages, K3 agrees with K8a
+                # and K4 with K8b within the kernel-vs-plain tolerance (the
+                # two bodies sum in different orders)
+                paged = pa.paged_decode_attention_quant_stacked(
+                    q, *(as_pages(a, S) for a in (k[0], k[1], v[0], v[1])), 0,
+                    table, off) if quant else pa.paged_decode_attention_stacked(
+                    q, as_pages(k, S), as_pages(v, S), 0, table, off)
+                check_attention(
+                    f"flash {name} {dtype} against the paged kernel", full,
+                    paged, pv_abs(q, k, v, off, quant)
+                    if dtype == torch.bfloat16 else None,
+                    against="the paged kernel")
     n = sum(map(len, records.values()))
     say(f"[3c flash] all {n} comparisons within tolerance: "
-        f"{tol_summary(records['K3'] + records['K4'])}; rows independent of T (T in {ROW_CHECK_T} against 64, offset {o}); "
-        "K3 == K8a and K4 == K8b bit for bit over the same keys in pages")
+        f"{tol_summary(records['K3'] + records['K4'])}; rows independent of "
+        f"T (T in {ROW_CHECK_T} against 64; S, offset in {ROW_CHECK_S}) and "
+        "of the batch "
+        "(each sequence alone at B=1 against the B=8 calls); K3 ~ K8a and "
+        "K4 ~ K8b within the same tolerance over the same keys in pages")
     return records, max_err
 
 
@@ -1174,27 +1248,44 @@ def phase_profile(pair, summary, device, config="bf16 KV"):
             continue
         out[label] = {"device_ms_per_step": per_step,
                       "wall_ms_per_step": wall,
-                      "busy_share": per_step / wall, "top": diff[:6]}
+                      "busy_share": per_step / wall, "top": diff[:6],
+                      "port": port_kernels(diff)}
         say(f"[5 profile] {config}, {label}: device {per_step:.3f} ms per "
             f"{'token' if label == 'ar' else 'window'} of {wall:.3f} ms "
             f"wall (busy {per_step / wall:.1%}); top: " + "; ".join(
-                f"{k} {t:.3f} ms" for k, t in diff[:4]))
+                f"{k} {t:.3f} ms" for k, t in diff[:4]) + "; port kernels: "
+            + "; ".join(f"{k} {t:.3f} ms" for k, t in port_kernels(diff)))
     return out
+
+
+# kernel_label's names of the port's kernels
+PORT_KERNEL_LABELS = ("int4_pair_matmul", "q4_halfplane_matmul",
+                      "int8_matmul", "attention_kernel", "flash_decode_kernel")
 
 
 def kernel_label(key):
     """A profiler key, shortened: the port's kernels by what they are (the
-    attention body's instantiations by key layout and K/V type), others to
-    their first 48 characters."""
+    attention kernels' instantiations by key layout and K/V type), others
+    to their first 48 characters."""
     for name in ("int4_pair_matmul", "q4_halfplane_matmul", "int8_matmul"):
         if name in key:
             return name
+    if "flash_decode_kernel" in key:
+        kv = "int8" if "signed char" in key else (
+            "bf16" if key.count("bfloat16") > 1 else "f32")
+        return f"flash_decode_kernel[{kv} K/V]"
     if "attention_kernel" in key:
         layout = "paged" if "PagedKeys" in key else "slotted"
         kv = "int8" if "signed char" in key else (
             "bf16" if key.count("bfloat16") > 1 else "f32")
         return f"attention_kernel[{layout}, {kv} K/V]"
     return key[:48]
+
+
+def port_kernels(times):
+    """The port's own kernels among (label, time) pairs, in their order."""
+    return [(k, t) for k, t in times
+            if k.split("[")[0] in PORT_KERNEL_LABELS]
 
 
 def device_times(prof):
@@ -1229,7 +1320,8 @@ def serving_busy(batcher, device):
         return None
     wall_ms = rec["seconds"] * 1e3
     return {"device_ms": device_ms, "wall_ms": wall_ms,
-            "busy_share": device_ms / wall_ms, "top": totals[:6]}
+            "busy_share": device_ms / wall_ms, "top": totals[:6],
+            "port": port_kernels(totals)}
 
 
 def phase_serve(pair, device, label="bf16 KV", engines=("paged", "slotted")):
@@ -1382,7 +1474,9 @@ def phase_serve(pair, device, label="bf16 KV", engines=("paged", "slotted")):
         say(f"[6 profile] {label}, {r['engine']}: device "
             f"{busy['device_ms']:.0f} ms of {busy['wall_ms']:.0f} ms wall "
             f"(busy {busy['busy_share']:.1%}); top: " + "; ".join(
-                f"{k} {t:.0f} ms" for k, t in busy["top"][:4]))
+                f"{k} {t:.0f} ms" for k, t in busy["top"][:4])
+            + "; port kernels: " + "; ".join(
+                f"{k} {t:.1f} ms" for k, t in busy["port"]))
     return summary, total
 
 
@@ -1443,10 +1537,10 @@ def stacked_records(records, stacked=True):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", metavar="NAME=SRC",
-                    help="also time weight kernel NAME (int4_pair_matmul, "
-                    "int8_matmul or q4_halfplane_matmul) built from SRC, "
-                    "another source of it, in turns with the checkout's "
-                    "(phases 3 and 3d)")
+                    help="also time kernel NAME (int4_pair_matmul, "
+                    "int8_matmul, q4_halfplane_matmul or decode_attention) "
+                    "built from SRC, another source of it, in turns with the "
+                    "checkout's (phases 3 and 3d, or 3c)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
@@ -1481,7 +1575,7 @@ def main():
     against = build_against(args.against) if args.against else None
     records, max_err = phase_kernel(pair[2], device, against=against)
     paged_records, paged_err = phase_paged_kernel(device)
-    flash_records, flash_err = phase_flash_kernel(device)
+    flash_records, flash_err = phase_flash_kernel(device, against)
     fmt_records = {q: phase_kernel(pairs[q][2], device, "3d kernel", against)
                    for q in QUANTS}
     stamp("3-3d kernels")

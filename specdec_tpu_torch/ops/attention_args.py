@@ -1,6 +1,6 @@
 """What the attention kernels take: the argument checks that the wrappers of
 ``ops/paged_attention.py`` and ``ops/decode_attention.py`` share, and the
-constants of their common kernel body, ``csrc/attention_tile.cuh``.
+constants of the paged kernel's body, ``csrc/attention_tile.cuh``.
 
 A wrapper raises on anything the kernel does not take; there is no
 fallback to the plain version for a CUDA tensor.
@@ -26,12 +26,13 @@ def shared_bytes(tile: int, head_dim: int, quant: bool = False) -> int:
                 + WARPS * tile + (2 * tile if quant else 0))
 
 
-def check_kv_args(name: str, q, k, v, k_scale, v_scale, tile: int):
+def check_kv_args(name: str, q, k, v, k_scale, v_scale, smem: int):
     """The checks every attention kernel's wrapper shares: q float32 or
     bf16 on a CUDA device; K/V of q's type, or int8 with f32 scales shaped
-    like the values without Dh; one head_dim the kernel takes; a block's
-    shared memory within the card's; every array contiguous, K/V 16-byte
-    aligned (the kernel stages them with 16-byte loads)."""
+    like the values without Dh; one head_dim the kernel takes; ``smem``, the
+    dynamic shared memory of one of the kernel's blocks, within the card's;
+    every array contiguous, K/V 16-byte aligned (the kernels stage them with
+    16-byte loads)."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: q on {q.device}, not CUDA")
     quant = k_scale is not None
@@ -66,10 +67,9 @@ def check_kv_args(name: str, q, k, v, k_scale, v_scale, tile: int):
     if Dh > MAX_HEAD_DIM or Dh % vec != 0:
         raise ValueError(f"{name}: head_dim {Dh} (takes multiples of {vec} "
                          f"up to {MAX_HEAD_DIM})")
-    if shared_bytes(tile, Dh, quant) > MAX_SHARED_BYTES:
-        raise ValueError(f"{name}: tile {tile} x head_dim {Dh} needs "
-                         f"{shared_bytes(tile, Dh, quant)} bytes of shared "
-                         f"memory (at most {MAX_SHARED_BYTES})")
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(f"{name}: head_dim {Dh} needs {smem} bytes of "
+                         f"shared memory (at most {MAX_SHARED_BYTES})")
     if not (q.is_contiguous()
             and all(a.is_contiguous() for a in arrays.values())):
         raise ValueError(f"{name}: q, K/V and scales must be contiguous")

@@ -8,14 +8,18 @@ wrappers and its plain PyTorch version (counterpart of
   with f32 scales [B, S, Hk]; the k-scale multiplies the score after the
   dot, the v-scale the probability before P.V.
 
-One CUDA kernel, ``csrc/decode_attention.cu``, serves both. It reads one
-layer of the slotted cache in place (the model passes ``cache.k[i]``),
-streams only the live key tiles 0 .. (offsets[b] + T - 1) / 64 and folds
-grouped-query heads as T*G rows per KV head. Unlike the TPU wrapper there
-is no transpose, no padding and no copy, and no limit on T: the JAX
-dispatch sends T*G > 1024 to the XLA path only because of the TPU's VMEM,
-while this kernel tiles query rows over blocks, so the dense admission
-prefills (T = 64 or 256) attend through it too.
+One CUDA kernel, ``csrc/decode_attention.cu`` on ``csrc/flash_decode.cuh``,
+serves both. It reads one layer of the slotted cache in place (the model
+passes ``cache.k[i]``), streams only the live 64-key tiles and folds
+grouped-query heads as T*G rows per KV head, 16 rows per block. Each
+sequence's tiles are split into spans over the blocks of a thread-block
+cluster (chosen from S alone, so a row's result does not depend on T, B or
+its neighbours), whose partial softmax states are merged through
+distributed shared memory; bf16 q runs on the tensor cores. Unlike the TPU
+wrapper there is no transpose, no padding and no copy, and no limit on T:
+the JAX dispatch sends T*G > 1024 to the XLA path only because of the TPU's
+VMEM, so the dense admission prefills (T = 64 or 256) attend through this
+kernel too.
 
 On a CPU tensor a wrapper computes the plain version,
 ``decode_attention_reference`` (the dense ``masked_attention`` of
@@ -33,7 +37,31 @@ import torch
 from specdec_tpu_torch.core.model import masked_attention
 from specdec_tpu_torch.ops.attention_args import DTYPE_CODE, check_kv_args
 
-TILE = 64   # keys per staged tile (csrc/decode_attention.cu, kTile)
+# the kernel's constants (csrc/flash_decode.cuh): keys per tile, warps per
+# block (each owns 16 keys of a tile), query rows per block, spans at most
+# (blocks of a cluster), tiles in the staging ring, row slots of a split
+# block's inbox
+TILE, WARPS, ROWS, MAX_CLUSTER, STAGES = 64, 4, 16, 8, 2
+MAX_INBOX = ROWS + MAX_CLUSTER
+
+
+def shared_bytes(head_dim: int, q_dtype: torch.dtype, quant: bool) -> int:
+    """Dynamic shared memory of one block of the kernel (``flash::layout``):
+    the staging ring of K/V tiles in their stored type (rows padded by 16
+    bytes; int8 with its scales), which a split block's inbox reuses; the
+    warps' partials; for f32 q, Q and the warps' probabilities; the
+    merge's per-row numbers; a local block's running state."""
+    kv_bytes = 1 if quant else torch.tensor([], dtype=q_dtype).element_size()
+    ring = 2 * STAGES * TILE * (head_dim * kv_bytes + 16)
+    if quant:
+        ring += 2 * STAGES * TILE * 4
+    inbox = MAX_INBOX * (head_dim + 2) * 4
+    partial = WARPS * ROWS * (head_dim + 2) * 4
+    f32 = (ROWS * (head_dim + 4) + WARPS * ROWS * (TILE // WARPS + 1)
+           + WARPS * ROWS) * 4 if q_dtype == torch.float32 else 0
+    merge = ROWS * (WARPS + 2 + 2 * MAX_CLUSTER) * 4
+    return (max(ring, inbox) + partial + f32 + merge
+            + ROWS * (head_dim + 2) * 4)
 
 
 def decode_attention_reference(q: torch.Tensor, k_all: torch.Tensor,
@@ -53,7 +81,10 @@ def decode_attention_reference(q: torch.Tensor, k_all: torch.Tensor,
 
 
 def _check_args(name, q, k_all, v_all, k_scale, v_scale, offsets):
-    check_kv_args(name, q, k_all, v_all, k_scale, v_scale, TILE)
+    check_kv_args(name, q, k_all, v_all, k_scale, v_scale,
+                  shared_bytes(q.shape[-1], q.dtype, k_scale is not None))
+    if q.data_ptr() % 16:
+        raise ValueError(f"{name}: q must be 16-byte aligned")
     if offsets.device != q.device:
         raise ValueError(f"{name}: q on {q.device}, offsets on "
                          f"{offsets.device}")

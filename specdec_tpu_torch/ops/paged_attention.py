@@ -37,7 +37,9 @@ import torch
 
 from specdec_tpu_torch.core.model import masked_attention
 from specdec_tpu_torch.core.paged_cache import gather_page_scales, gather_pages
-from specdec_tpu_torch.ops.attention_args import DTYPE_CODE, check_kv_args
+from specdec_tpu_torch.ops.attention_args import (
+    DTYPE_CODE, check_kv_args, shared_bytes,
+)
 
 
 def paged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
@@ -65,7 +67,8 @@ def paged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
 def _check_paged_args(name, q, k_pool, v_pool, k_scale, v_scale, page_table,
                       offsets):
     page = k_pool.shape[-2]
-    check_kv_args(name, q, k_pool, v_pool, k_scale, v_scale, page)
+    check_kv_args(name, q, k_pool, v_pool, k_scale, v_scale,
+                  shared_bytes(page, q.shape[-1], k_scale is not None))
     for label, a in (("page_table", page_table), ("offsets", offsets)):
         if a.device != q.device:
             raise ValueError(f"{name}: q on {q.device}, {label} on "

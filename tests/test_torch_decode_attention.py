@@ -10,7 +10,14 @@ and K8b (its stacked form) cover decode and verify blocks over scrambled
 int8 pools with mostly dead pages. Both sides are float32 and differ in
 summation order only (online against dense softmax), and for int8 K/V in
 where the v-scale meets the softmax's normalization: the tolerances of the
-JAX kernels' own tests (2e-5; 3e-5 for the int8 paged kernel)."""
+JAX kernels' own tests (2e-5; 3e-5 for the int8 paged kernel).
+
+A NumPy model of the CUDA kernel's algorithm (``split_merge_model``: the
+cache's 64-key tiles in spans over a cluster's blocks, each block's rows in
+16-row tiles, four warps of 16 keys a tile, a partial (m, l, acc) per warp
+and block, merged in rank order) is held against the same Pallas kernels,
+so the CPU pins what the card runs; the wrappers' plain version stays
+``decode_attention_reference``."""
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -45,33 +52,183 @@ FLASH_CASES = {
 }
 
 
-@pytest.mark.parametrize("quant", [False, True], ids=["K3", "K4"])
-@pytest.mark.parametrize("case", list(FLASH_CASES))
-def test_flash_decode_plain_matches_jax_kernel(case, quant):
-    B, T, Hq, Hk, Dh, S, offsets = FLASH_CASES[case]
+# the kernel's split at work: S = 1100 gives 6 spans of 3 tiles, all but
+# the first two past every row's position; S = 1300 (7 spans of 3 tiles)
+# with every row's keys inside span 0, its own span the only live one
+SPLIT_CASES = {
+    "dead-spans": (2, 2, 8, 4, 16, 1100, [200, 130]),
+    "own-span-only": (2, 4, 4, 2, 32, 1300, [0, 60]),
+}
+
+
+def flash_inputs(case, cases):
+    """The case's q, K/V (float32, and int8 with scales quantized by the JAX
+    quantizer) and offsets, made from a seed with numpy."""
+    B, T, Hq, Hk, Dh, S, offsets = cases[case]
     rng = np.random.default_rng(sum(map(ord, case)))
     q = rng.standard_normal((B, T, Hq, Dh)).astype(np.float32)
     k = rng.standard_normal((B, S, Hk, Dh)).astype(np.float32)
     v = rng.standard_normal((B, S, Hk, Dh)).astype(np.float32)
-    off = np.asarray(offsets, np.int32)
+    (kq, ks), (vq, vs) = (map(np.asarray, quantize_kv_block(jnp.asarray(a)))
+                          for a in (k, v))
+    return q, (k, v), (kq, ks, vq, vs), np.asarray(offsets, np.int32), Hk
+
+
+def jax_flash(q, kv, quantized, off, Hk, quant):
+    """The JAX package's Pallas kernel (interpret mode), float32."""
+    with pltpu.force_tpu_interpret_mode():
+        if quant:
+            return np.asarray(jda.flash_decode_attention_quant(
+                jnp.asarray(q), *map(jnp.asarray, quantized),
+                jnp.asarray(off), num_kv_heads=Hk, tile_s=64))
+        return np.asarray(jda.flash_decode_attention(
+            jnp.asarray(q), *map(jnp.asarray, kv), jnp.asarray(off),
+            num_kv_heads=Hk, tile_s=64))
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["K3", "K4"])
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_decode_plain_matches_jax_kernel(case, quant):
+    q, kv, quantized, off, Hk = flash_inputs(case, FLASH_CASES)
+    ref = jax_flash(q, kv, quantized, off, Hk, quant)
     if quant:
-        (kq, ks), (vq, vs) = (map(np.asarray, quantize_kv_block(
-            jnp.asarray(a))) for a in (k, v))
-        with pltpu.force_tpu_interpret_mode():
-            ref = jda.flash_decode_attention_quant(
-                jnp.asarray(q), jnp.asarray(kq), jnp.asarray(ks),
-                jnp.asarray(vq), jnp.asarray(vs), jnp.asarray(off),
-                num_kv_heads=Hk, tile_s=64)
+        kq, ks, vq, vs = quantized
         got = tda.flash_decode_attention_quant(t(q), t(kq), t(ks), t(vq),
                                                t(vs), t(off))
     else:
-        with pltpu.force_tpu_interpret_mode():
-            ref = jda.flash_decode_attention(
-                jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                jnp.asarray(off), num_kv_heads=Hk, tile_s=64)
-        got = tda.flash_decode_attention(t(q), t(k), t(v), t(off))
-    assert got.shape == (B, T, Hq, Dh) and got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **FLASH_TOL)
+        got = tda.flash_decode_attention(t(q), *map(t, kv), t(off))
+    assert got.shape == q.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, **FLASH_TOL)
+
+
+def split(S):
+    """The kernel's spans over a cache of capacity S (``flash::span_of``,
+    ``flash::clusters_of`` in ``csrc/flash_decode.cuh``): (span, C), C
+    spans of ``span`` consecutive 64-key tiles, span the fewest that let
+    C <= MAX_CLUSTER cover S."""
+    tiles = -(-S // tda.TILE)
+    span = -(-tiles // tda.MAX_CLUSTER)
+    return span, -(-tiles // span)
+
+
+def split_merge_model(q, k, v, off, k_scale=None, v_scale=None):
+    """The CUDA kernel's algorithm (``csrc/flash_decode.cuh``) in float32
+    NumPy. Per (b, h) and 16-row tile of the T*G rows, the cache's tiles
+    are cut into C spans (``split``); for each span up to the tile of the
+    rows' largest position, warp w owns keys 16w .. 16w + 15 of each tile
+    and keeps its own online softmax (masked probabilities exactly 0); the
+    warps' partials are merged in warp order into the span's partial, and
+    the span partials are combined in span order by the online rule from
+    the empty state (-1e30, 0, 0)."""
+    B, T, Hq, Dh = q.shape
+    S, Hk = k.shape[1], k.shape[2]
+    G, TG = Hq // Hk, T * Hq // Hk
+    span, C = split(S)
+    keys_per_warp = tda.TILE // tda.WARPS
+    scale = np.float32(1.0) / np.sqrt(np.float32(Dh))
+    neg = np.float32(-1e30)
+    out = np.zeros_like(q)
+    for b in range(B):
+        for h in range(Hk):
+            rows = q[b, :, h * G:(h + 1) * G].reshape(TG, Dh)
+            for r0 in range(0, TG, tda.ROWS):
+                qr = rows[r0:r0 + tda.ROWS]
+                q_pos = off[b] + np.arange(r0, r0 + len(qr)) // G
+                last = min(int(q_pos.max()), S - 1) // tda.TILE
+                m_run = np.full(len(qr), neg, np.float32)
+                l_run = np.zeros(len(qr), np.float32)
+                acc_run = np.zeros((len(qr), Dh), np.float32)
+                for c in range(last // span + 1):
+                    parts = []
+                    for w in range(tda.WARPS):
+                        m = np.full(len(qr), neg, np.float32)
+                        l = np.zeros(len(qr), np.float32)
+                        acc = np.zeros((len(qr), Dh), np.float32)
+                        for tile in range(c * span,
+                                          min(c * span + span, last + 1)):
+                            pos = (tile * tda.TILE + w * keys_per_warp
+                                   + np.arange(keys_per_warp))
+                            at = np.minimum(pos, S - 1)
+                            kt = k[b, at, h].astype(np.float32)
+                            vt = v[b, at, h].astype(np.float32)
+                            s = (qr @ kt.T) * scale
+                            if k_scale is not None:
+                                s = s * k_scale[b, at, h][None]
+                            live = (pos[None] <= q_pos[:, None]) & (pos < S)
+                            s = np.where(live, s, neg)
+                            m_new = np.maximum(m, s.max(1))
+                            alpha = np.exp(m - m_new)
+                            p = np.where(live, np.exp(s - m_new[:, None]), 0)
+                            l = l * alpha + p.sum(1)
+                            if v_scale is not None:
+                                p = p * v_scale[b, at, h][None]
+                            acc = acc * alpha[:, None] + p @ vt
+                            m = m_new
+                        parts.append((m, l, acc))
+                    # the span's partial: the warps' in warp order
+                    m_c = np.max([pm for pm, _, _ in parts], axis=0)
+                    l_c = np.zeros_like(m_c)
+                    acc_c = np.zeros((len(qr), Dh), np.float32)
+                    for pm, pl, pa in parts:
+                        wt = np.exp(pm - m_c)
+                        l_c = l_c + wt * pl
+                        acc_c = acc_c + wt[:, None] * pa
+                    # combined into the running state, in span order
+                    m_new = np.maximum(m_run, m_c)
+                    ca, cb = np.exp(m_run - m_new), np.exp(m_c - m_new)
+                    l_run = l_run * ca + l_c * cb
+                    acc_run = acc_run * ca[:, None] + acc_c * cb[:, None]
+                    m_run = m_new
+                o = acc_run / np.maximum(l_run, np.float32(1e-38))[:, None]
+                for i, r in enumerate(range(r0, r0 + len(qr))):
+                    out[b, r // G, h * G + r % G] = o[i]
+    return out
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["K3", "K4"])
+@pytest.mark.parametrize("case", list(FLASH_CASES) + list(SPLIT_CASES))
+def test_kernel_split_and_merge_matches_jax_kernel(case, quant):
+    """The kernel's split over a cluster and its merge, modelled in NumPy,
+    give the Pallas kernel's result within its test's tolerance; whole
+    spans past every row's position add nothing and cause no NaN."""
+    cases = {**FLASH_CASES, **SPLIT_CASES}
+    q, kv, quantized, off, Hk = flash_inputs(case, cases)
+    ref = jax_flash(q, kv, quantized, off, Hk, quant)
+    if quant:
+        kq, ks, vq, vs = quantized
+        got = split_merge_model(q, kq, vq, off, ks, vs)
+    else:
+        got = split_merge_model(q, *kv, off)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, **FLASH_TOL)
+
+
+@pytest.mark.parametrize("S", [1, 64, 65, 334, 394, 960, 961, 1100, 2048,
+                               8192])
+def test_split_covers_the_cache_in_one_cluster(S):
+    """Spans of whole tiles, at most MAX_CLUSTER blocks, each owning at
+    least one tile, together every tile of S; the fewest tiles per span
+    that allow it."""
+    span, C = split(S)
+    tiles = -(-S // tda.TILE)
+    assert 1 <= C <= tda.MAX_CLUSTER
+    assert (C - 1) * span < tiles <= C * span
+    assert span == 1 or -(-tiles // (span - 1)) > tda.MAX_CLUSTER
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["K3", "K4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_shared_memory_fits_every_head_dim(dtype, quant):
+    """Every head_dim the wrapper takes fits one block of the kernel in the
+    card's shared memory; the paged kernel's formula is its own."""
+    from specdec_tpu_torch.ops.attention_args import (
+        MAX_HEAD_DIM, MAX_SHARED_BYTES,
+    )
+    step = 16 if quant else 8
+    sizes = [tda.shared_bytes(dh, dtype, quant)
+             for dh in range(step, MAX_HEAD_DIM + 1, step)]
+    assert all(0 < n <= MAX_SHARED_BYTES for n in sizes)
+    assert sizes == sorted(sizes)
 
 
 @pytest.mark.parametrize("T,offsets", [(1, [13, 27]), (3, [5, 20]),
