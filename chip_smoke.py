@@ -34,10 +34,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    prefill T=256), at qwen3-family heads (decode and verify, Dh=128) and
    at S=2048 (8 spans of 4 tiles), offsets up to S; a row's result must
    not depend on T (at S=334 and 2048), nor a sequence's on the rest of its
-   batch (each alone
-   at B=1, bit for bit); over the same keys laid out in pages, K3/K4 agree
-   with the paged kernel K8a/K8b within the kernel-vs-plain tolerance;
-   times beside the plain version's, SDPA over the live K/V and the bound;
+   batch (each alone at B=1, bit for bit); over the same keys laid out in
+   pages of 64, K3/K4 equal the paged kernel K8a/K8b bit for bit (one
+   kernel body, the same tiles and spans); times beside the plain
+   version's, SDPA over the live K/V and the bound;
 3d. kernel vs plain, INT8/NF4/FP4: as phase 3, for the INT8 kernel (K7)
    and the NF4/FP4 half-plane kernel (K6, both codecs), on the 22-layer
    pair's own weights in each format, with the share of output elements
@@ -46,12 +46,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    K6 (as K1) at K = 768, so K % 512 = 256, and N = 1000, not a multiple of
    its column tiles, or N = 1001, odd; K7 at K = 1000, N = 1000 (K % 256 !=
    0, N % 32 = 8) and K = 1001, N = 1004 (odd K: x's rows are unaligned and
-   take the scalar staging). Phase 2 rebuilds K1, K6, K7 and the
-   flash-decode kernel and fails if ptxas reports a register spill in any
-   of their instances. With ``--against NAME=SRC`` (NAME a kernel's library
-   in ``_build.SIGNATURES``: a weight kernel's or ``decode_attention``; SRC
-   another source of it, such as an earlier commit's from ``git show``),
-   phases 3 and 3d, or 3c, also time that source, built the same way and
+   take the scalar staging). Phase 2 rebuilds every kernel (K1, K6, K7,
+   the flash-decode and the paged attention kernels) and fails if ptxas
+   reports a register spill in any of their instances. With ``--against
+   NAME=SRC`` (NAME a kernel's library in ``_build.SIGNATURES``; SRC
+   another source of it, such as an earlier commit's from ``git show``,
+   whose quoted includes are looked up beside it first, then in
+   ``csrc``), phases 3 and 3d, 3b (``paged_attention``) or 3c
+   (``decode_attention``) also time that source, built the same way and
    launched through the same wrappers, in turns with the checkout's (this,
    other, other, this);
 4. greedy oracle: greedy self-draft speculative decoding equals greedy AR
@@ -158,21 +160,34 @@ SLEEP_CYCLES = 50_000_000   # keeps the card busy while the runs enqueue
 # attention kernel
 PAIR_HEADS = (32, 4, 64)
 QWEN3_HEADS = (32, 8, 128)
-# paged attention shapes (page 64): (label, B, T, MP, offsets, heads).
-# decode/verify are tools/bench_paged.py's validation shapes; long reaches
-# the config's 2048 positions; serve is the serving engine's verify (8
-# slots, gamma 8) at its table width of 9 pages
+# paged attention shapes: (label, B, T, page, MP, offsets, heads). Page 64
+# is the serving engine's: decode/verify are tools/bench_paged.py's
+# validation shapes; long reaches the config's 2048 positions; serve is the
+# serving engine's verify (8 slots, gamma 8) at its table width of 9 pages,
+# chunk a chunk of phase 4b's chunked prefill (prefill_chunk=64) at that
+# width. Pages of 16 (four to a 64-key tile) and 128 (half a page a tile)
+# with offsets at page starts and ends. Every table's entries past its
+# sequence's last live page hold POISON, an out-of-range page index that
+# faults if the kernel reads it.
 PAGE = 64
 SERVE_TABLE_PAGES = 9
+POISON = 2 ** 30
 PAGED_SHAPES = [
-    ("decode", 8, 1, 8, [40, 100, 511, 7, 250, 64, 63, 300], PAIR_HEADS),
-    ("verify", 4, 9, 8, [40, 100, 350, 7], PAIR_HEADS),
-    ("long", 8, 9, 32, [2000, 1500, 1023, 64, 7, 1800, 2030, 511],
+    ("decode", 8, 1, PAGE, 8, [40, 100, 511, 7, 250, 64, 63, 300],
      PAIR_HEADS),
-    ("serve", 8, 9, SERVE_TABLE_PAGES,
+    ("verify", 4, 9, PAGE, 8, [40, 100, 350, 7], PAIR_HEADS),
+    ("long", 8, 9, PAGE, 32, [2000, 1500, 1023, 64, 7, 1800, 2030, 511],
+     PAIR_HEADS),
+    ("serve", 8, 9, PAGE, SERVE_TABLE_PAGES,
      [60, 150, 230, 320, 90, 200, 280, 330], PAIR_HEADS),
-    ("qwen3-verify", 4, 9, 8, [40, 100, 350, 7], QWEN3_HEADS),
+    ("chunk", 1, 64, PAGE, SERVE_TABLE_PAGES, [128], PAIR_HEADS),
+    ("page16", 4, 9, 16, 32, [15, 16, 200, 490], PAIR_HEADS),
+    ("page128", 4, 9, 128, 4, [127, 128, 300, 500], PAIR_HEADS),
+    ("qwen3-verify", 4, 9, PAGE, 8, [40, 100, 350, 7], QWEN3_HEADS),
 ]
+# row independence of the paged kernel: the rows of a T=64 call against the
+# same rows of calls at these T, at every paged shape
+PAGED_ROW_CHECK_T = (1, 2, 9)
 # kernel vs plain, float32: the sides differ in summation order only
 # (online vs dense softmax)
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -280,12 +295,14 @@ def phase_device():
 
 # kernels rebuilt on every run and failed on any ptxas register spill: the
 # INT4 kernel (K1), the NF4/FP4 kernel (K6), the INT8 kernel (K7) and the
-# flash-decode kernel (K3/K4)
+# attention kernels, flash-decode (K3/K4) and paged (K2/K8a, K5/K8b): every
+# kernel of the port
 SPILL_CHECKED = ("int4_pair_matmul", "q4_halfplane_matmul", "int8_matmul",
-                 "decode_attention")
-# the kernels ``--against`` takes: the weight kernels and the flash-decode
-# kernel
-AGAINST_LIBS = sorted(set(WEIGHT_LIBS.values())) + ["decode_attention"]
+                 "decode_attention", "paged_attention")
+# the kernels ``--against`` takes: the weight kernels and the attention
+# kernels
+AGAINST_LIBS = (sorted(set(WEIGHT_LIBS.values()))
+                + ["decode_attention", "paged_attention"])
 
 
 def phase_build():
@@ -684,27 +701,43 @@ def tol_summary(recs):
             "one ulp)")
 
 
-def phase_paged_kernel(device):
+def poisoned(table, offsets, T, page):
+    """``table`` with every entry past its sequence's last live page (that
+    of position offsets[b] + T - 1) set to POISON."""
+    last = (torch.as_tensor(offsets, device=table.device) + T - 1) // page
+    lp = torch.arange(table.shape[1], device=table.device)
+    return torch.where(lp[None] > last[:, None], POISON, table).to(
+        torch.int32)
+
+
+def phase_paged_kernel(device, against=None):
     """The paged attention kernel vs its plain version at PAGED_SHAPES, in
-    float32 and bf16, through both wrappers, over pools of q's type and
-    over int8 pools with scales (quantized from the same kind of random
-    pools). Returns the per-shape records of each pool format (timed in
-    bf16, the main path's type) and each format's largest absolute
-    error."""
+    float32 and bf16, through both wrappers (which must agree bit for bit),
+    over pools of q's type and over int8 pools with scales (quantized from
+    the same kind of random pools), the tables poisoned past each
+    sequence's last live page (the plain version reads the clean table);
+    checks that a query row's result does not depend on T, nor a
+    sequence's on the others of its batch. ``against``: build_against's
+    (NAME, library); where NAME is ``paged_attention``, that library is
+    held to the same tolerance and timed in turns with the checkout's.
+    Returns the per-shape records of each pool format (timed in bf16, the
+    main path's type) and each format's largest absolute error."""
     from specdec_tpu_torch.core.cache import quantize_kv_block
     from specdec_tpu_torch.core.paged_cache import (
         gather_page_scales, gather_pages,
     )
     from specdec_tpu_torch.ops import paged_attention as pa
 
-    page = PAGE
+    other = (against[1] if against and against[0] == "paged_attention"
+             else None)
     gen = torch.Generator(device=device).manual_seed(4321)
     flush = torch.zeros(256 * 2 ** 20, dtype=torch.uint8, device=device)
     records, max_err = {"bf16": [], "int8": []}, {"bf16": 0.0, "int8": 0.0}
-    for label, B, T, MP, offsets, (Hq, Hk, Dh) in PAGED_SHAPES:
+    for label, B, T, page, MP, offsets, (Hq, Hk, Dh) in PAGED_SHAPES:
         NP = B * MP + 1
-        table = (1 + torch.randperm(NP - 1, generator=gen, device=device)
+        clean = (1 + torch.randperm(NP - 1, generator=gen, device=device)
                  )[:B * MP].reshape(B, MP).to(torch.int32)
+        table = poisoned(clean, offsets, T, page)
         off = torch.tensor(offsets, dtype=torch.int32, device=device)
         pools = [torch.randn((2, NP, Hk, page, Dh), generator=gen,
                              device=device) for _ in range(2)]
@@ -716,38 +749,69 @@ def phase_paged_kernel(device):
                 if fmt == "int8":
                     stack = (kq, kss, vq, vss)
                     layer = [a[1] for a in stack]
-                    k4 = pa.paged_decode_attention_quant(q, *layer, table,
-                                                         off)
-                    k8 = pa.paged_decode_attention_quant_stacked(
-                        q, *stack, 1, table, off)
-                    plain = pa.paged_attention_reference(
-                        q, layer[0], layer[2], table, off, layer[1],
-                        layer[3])
+
+                    def k4(q, table, off):
+                        return pa.paged_decode_attention_quant(
+                            q, *layer, table, off)
+
+                    def kern(q=q, table=table, off=off):
+                        return pa.paged_decode_attention_quant_stacked(
+                            q, *stack, 1, table, off)
+
+                    def ref():
+                        return pa.paged_attention_reference(
+                            q, layer[0], layer[2], clean, off, layer[1],
+                            layer[3])
                     pv_abs = pa.paged_attention_reference(
-                        q.float(), layer[0], layer[2].abs(), table, off,
+                        q.float(), layer[0], layer[2].abs(), clean, off,
                         layer[1], layer[3])
                 else:
                     ks, vs = (p.to(dtype) for p in pools)
-                    k4 = pa.paged_decode_attention(q, ks[1], vs[1], table,
-                                                   off)
-                    k8 = pa.paged_decode_attention_stacked(q, ks, vs, 1,
-                                                           table, off)
-                    plain = pa.paged_attention_reference(q, ks[1], vs[1],
+
+                    def k4(q, table, off):
+                        return pa.paged_decode_attention(q, ks[1], vs[1],
                                                          table, off)
+
+                    def kern(q=q, table=table, off=off):
+                        return pa.paged_decode_attention_stacked(
+                            q, ks, vs, 1, table, off)
+
+                    def ref():
+                        return pa.paged_attention_reference(
+                            q, ks[1], vs[1], clean, off)
                     pv_abs = pa.paged_attention_reference(
                         q.float(), ks[1].float(), vs[1].float().abs(),
-                        table, off)
+                        clean, off)
+                got, plain = kern(), ref()
                 torch.cuda.synchronize()
                 what = f"paged {label} {fmt} pool, q {dtype}"
-                if not torch.equal(k4, k8):
+                if not torch.equal(k4(q, table, off), got):
                     fail(f"{what}: the stacked wrapper (layer 1) differs "
                          "from the 4D wrapper on that layer")
                 rec = {"name": label, "pool": fmt,
                        "dtype": str(dtype).split(".")[-1], "B": B, "T": T,
-                       "MP": MP, "offsets": offsets, "heads": [Hq, Hk, Dh],
-                       **check_attention(what, k4, plain,
+                       "page": page, "MP": MP, "offsets": offsets,
+                       "heads": [Hq, Hk, Dh],
+                       **check_attention(what, got, plain,
                                          pv_abs if dtype == torch.bfloat16
                                          else None)}
+                # a sequence's rows do not depend on the rest of its batch
+                for b in range(B if B > 1 else 0):
+                    one = kern(q[b:b + 1], table[b:b + 1], off[b:b + 1])
+                    if not torch.equal(one, got[b:b + 1]):
+                        fail(f"{what}: sequence {b} alone differs from the "
+                             f"same sequence in the B={B} call")
+                # nor a row's on T: the rows of a T=64 call against the
+                # same rows of calls at smaller T
+                q64 = torch.randn((B, 64, Hq, Dh), generator=gen,
+                                  device=device).to(dtype)
+                t64 = poisoned(clean, offsets, 64, page)
+                full = kern(q64, t64)
+                for t in PAGED_ROW_CHECK_T:
+                    if not torch.equal(kern(q64[:, :t].contiguous(), t64),
+                                       full[:, :t]):
+                        fail(f"{what}: rows of the T={t} call differ from "
+                             "the same rows of the T=64 call")
                 err = rec["max_abs_err"]
                 max_err[fmt] = max(max_err[fmt], err)
                 if dtype == torch.bfloat16:
@@ -756,30 +820,13 @@ def phase_paged_kernel(device):
                     # only the SDPA call is timed
                     if fmt == "int8":
                         lib = sdpa_args(
-                            q, gather_pages(kq[1], table),
-                            gather_pages(vq[1], table), off,
-                            gather_page_scales(kss[1], table),
-                            gather_page_scales(vss[1], table))
-
-                        def kern():
-                            return pa.paged_decode_attention_quant_stacked(
-                                q, *stack, 1, table, off)
-
-                        def ref():
-                            return pa.paged_attention_reference(
-                                q, layer[0], layer[2], table, off, layer[1],
-                                layer[3])
+                            q, gather_pages(kq[1], clean),
+                            gather_pages(vq[1], clean), off,
+                            gather_page_scales(kss[1], clean),
+                            gather_page_scales(vss[1], clean))
                     else:
-                        lib = sdpa_args(q, gather_pages(ks[1], table),
-                                        gather_pages(vs[1], table), off)
-
-                        def kern():
-                            return pa.paged_decode_attention_stacked(
-                                q, ks, vs, 1, table, off)
-
-                        def ref():
-                            return pa.paged_attention_reference(
-                                q, ks[1], vs[1], table, off)
+                        lib = sdpa_args(q, gather_pages(ks[1], clean),
+                                        gather_pages(vs[1], clean), off)
                     b, by = paged_bound_ms(B, T, Hq, Hk, Dh, page, MP,
                                            offsets, int8=fmt == "int8")
                     rec.update(
@@ -789,10 +836,22 @@ def phase_paged_kernel(device):
                                 lib[0], lib[1], lib[2], attn_mask=lib[3]),
                             flush),
                         bound_ms=b, bound_by=by)
-                    say(f"[3b paged] {label:6s} {fmt} B={B} T={T} MP={MP} "
-                        f"Hq={Hq} Hk={Hk} Dh={Dh}: "
-                        f"kernel {rec['ms'] * 1e3:7.1f} us, plain "
-                        f"{rec['plain_ms'] * 1e3:7.1f} us, SDPA "
+                    # the other source in turns with the checkout's (this,
+                    # other, other, this)
+                    against_txt = ""
+                    if other is not None:
+                        with launching("paged_attention", other):
+                            check_attention(f"other source {what}", kern(),
+                                            plain, pv_abs)
+                            rec["against_ms"] = min(gpu_ms(kern, flush)
+                                                    for _ in (0, 1))
+                        rec["ms"] = min(rec["ms"], gpu_ms(kern, flush))
+                        against_txt = (f" (other source "
+                                       f"{rec['against_ms'] * 1e3:.1f})")
+                    say(f"[3b paged] {label:12s} {fmt} B={B} T={T:2d} "
+                        f"page={page:3d} MP={MP:2d} Hq={Hq} Hk={Hk} Dh={Dh}: "
+                        f"kernel {rec['ms'] * 1e3:7.1f} us{against_txt}, "
+                        f"plain {rec['plain_ms'] * 1e3:7.1f} us, SDPA "
                         f"{rec['library_ms'] * 1e3:7.1f} us, bound "
                         f"{b * 1e3:5.2f} us ({by}); max abs err {err:.3g} "
                         f"({rec['max_ulps']:.0f} ulps at worst, "
@@ -801,8 +860,11 @@ def phase_paged_kernel(device):
                 records[fmt].append(rec)
     n = sum(map(len, records.values()))
     say(f"[3b paged] all {n} comparisons within tolerance: "
-        f"{tol_summary(records['bf16'] + records['int8'])}; stacked == 4D "
-        "bit for bit, for bf16/f32 and int8 pools")
+        f"{tol_summary(records['bf16'] + records['int8'])}; tables poisoned "
+        f"past each sequence's last live page (entry {POISON}); stacked == "
+        "4D bit for bit, for bf16/f32 and int8 pools; rows independent of "
+        f"T (T in {PAGED_ROW_CHECK_T} against 64) and of the batch (each "
+        "sequence alone at B=1), bit for bit")
     return records, max_err
 
 
@@ -820,7 +882,8 @@ def phase_flash_kernel(device, against=None):
     K/V of q's type (K3) and over int8 K/V quantized from the same random
     K/V (K4), q in float32 and bf16; checks that a query row's result does
     not depend on T, nor a sequence's on the others of its batch; and K3/K4
-    against the paged kernels K8a/K8b over the same keys laid out in pages.
+    against the paged kernels K8a/K8b over the same keys laid out in pages
+    of 64, bit for bit.
     ``against``: build_against's (NAME, library); where NAME is
     ``decode_attention``, that library is held to the same tolerance and
     timed in turns with the checkout's. Returns the per-shape records of each kernel (timed in
@@ -960,35 +1023,39 @@ def phase_flash_kernel(device, against=None):
                 k, v = (kq, vq) if quant else (kf.to(dtype), vf.to(dtype))
                 q = torch.randn((1, 64, Hq, Dh), generator=gen,
                                 device=device).to(dtype)
+                pools = tuple(as_pages(a, S) for a in (
+                    (k[0], k[1], v[0], v[1]) if quant else (k, v)))
+
+                def paged(q):
+                    if quant:
+                        return pa.paged_decode_attention_quant_stacked(
+                            q, *pools, 0, table, off)
+                    return pa.paged_decode_attention_stacked(
+                        q, *pools, 0, table, off)
+
                 full = run("kernel", q, k, v, off, quant)
-                for T in ROW_CHECK_T:
-                    part = run("kernel", q[:, :T].contiguous(), k, v, off,
-                               quant)
+                for T in ROW_CHECK_T + (64,):
+                    qt = q[:, :T].contiguous()
+                    part = run("kernel", qt, k, v, off, quant)
                     if not torch.equal(part, full[:, :T]):
                         fail(f"flash {name} {dtype} S={S}: rows of the T={T} "
                              "call differ from the same rows of the T=64 "
                              "call")
-                if S != SINGLE_S:
-                    continue
-                # over the same keys laid out in pages, K3 agrees with K8a
-                # and K4 with K8b within the kernel-vs-plain tolerance (the
-                # two bodies sum in different orders)
-                paged = pa.paged_decode_attention_quant_stacked(
-                    q, *(as_pages(a, S) for a in (k[0], k[1], v[0], v[1])), 0,
-                    table, off) if quant else pa.paged_decode_attention_stacked(
-                    q, as_pages(k, S), as_pages(v, S), 0, table, off)
-                check_attention(
-                    f"flash {name} {dtype} against the paged kernel", full,
-                    paged, pv_abs(q, k, v, off, quant)
-                    if dtype == torch.bfloat16 else None,
-                    against="the paged kernel")
+                    # over the same keys laid out in pages of 64 (MP =
+                    # ceil(S / 64): the same tiles, so the same spans), K3
+                    # equals K8a and K4 equals K8b bit for bit
+                    if not torch.equal(paged(qt), part):
+                        fail(f"flash {name} {dtype} S={S} T={T}: the paged "
+                             "kernel over the same keys in pages of "
+                             f"{PAGE} differs from the flash-decode kernel")
     n = sum(map(len, records.values()))
     say(f"[3c flash] all {n} comparisons within tolerance: "
         f"{tol_summary(records['K3'] + records['K4'])}; rows independent of "
         f"T (T in {ROW_CHECK_T} against 64; S, offset in {ROW_CHECK_S}) and "
         "of the batch "
-        "(each sequence alone at B=1 against the B=8 calls); K3 ~ K8a and "
-        "K4 ~ K8b within the same tolerance over the same keys in pages")
+        "(each sequence alone at B=1 against the B=8 calls); K3 == K8a and "
+        f"K4 == K8b bit for bit over the same keys in pages of {PAGE} (T in "
+        f"{ROW_CHECK_T + (64,)}; S in {[S for S, _ in ROW_CHECK_S]})")
     return records, max_err
 
 
@@ -1260,25 +1327,22 @@ def phase_profile(pair, summary, device, config="bf16 KV"):
 
 # kernel_label's names of the port's kernels
 PORT_KERNEL_LABELS = ("int4_pair_matmul", "q4_halfplane_matmul",
-                      "int8_matmul", "attention_kernel", "flash_decode_kernel")
+                      "int8_matmul", "flash_decode_kernel")
 
 
 def kernel_label(key):
     """A profiler key, shortened: the port's kernels by what they are (the
-    attention kernels' instantiations by key layout and K/V type), others
-    to their first 48 characters."""
+    attention kernel's instantiations by key layout, paged K2/K8a and
+    K5/K8b or slotted K3/K4, and K/V type), others to their first 48
+    characters."""
     for name in ("int4_pair_matmul", "q4_halfplane_matmul", "int8_matmul"):
         if name in key:
             return name
     if "flash_decode_kernel" in key:
+        layout = "paged" if "Paged" in key else "slotted"
         kv = "int8" if "signed char" in key else (
             "bf16" if key.count("bfloat16") > 1 else "f32")
-        return f"flash_decode_kernel[{kv} K/V]"
-    if "attention_kernel" in key:
-        layout = "paged" if "PagedKeys" in key else "slotted"
-        kv = "int8" if "signed char" in key else (
-            "bf16" if key.count("bfloat16") > 1 else "f32")
-        return f"attention_kernel[{layout}, {kv} K/V]"
+        return f"flash_decode_kernel[{layout}, {kv} K/V]"
     return key[:48]
 
 
@@ -1538,9 +1602,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", metavar="NAME=SRC",
                     help="also time kernel NAME (int4_pair_matmul, "
-                    "int8_matmul, q4_halfplane_matmul or decode_attention) "
-                    "built from SRC, another source of it, in turns with the "
-                    "checkout's (phases 3 and 3d, or 3c)")
+                    "int8_matmul, q4_halfplane_matmul, decode_attention or "
+                    "paged_attention) built from SRC, another source of it, "
+                    "in turns with the checkout's (phases 3 and 3d, 3c or "
+                    "3b)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
@@ -1574,7 +1639,7 @@ def main():
 
     against = build_against(args.against) if args.against else None
     records, max_err = phase_kernel(pair[2], device, against=against)
-    paged_records, paged_err = phase_paged_kernel(device)
+    paged_records, paged_err = phase_paged_kernel(device, against)
     flash_records, flash_err = phase_flash_kernel(device, against)
     fmt_records = {q: phase_kernel(pairs[q][2], device, "3d kernel", against)
                    for q in QUANTS}

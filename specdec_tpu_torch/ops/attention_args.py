@@ -1,6 +1,7 @@
 """What the attention kernels take: the argument checks that the wrappers of
 ``ops/paged_attention.py`` and ``ops/decode_attention.py`` share, and the
-constants of the paged kernel's body, ``csrc/attention_tile.cuh``.
+constants and shared memory of the kernel body both launch,
+``csrc/flash_decode.cuh``.
 
 A wrapper raises on anything the kernel does not take; there is no
 fallback to the plain version for a CUDA tensor.
@@ -11,19 +12,34 @@ import torch
 
 MAX_HEAD_DIM = 128
 MAX_SHARED_BYTES = 232448   # an H100 block's dynamic shared memory
-ROWS = 16                   # query rows per block (attn::kRows)
-WARPS = 4                   # warps per block (attn::kWarps)
 # q's type as the CUDA entry points take it
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's constants (csrc/flash_decode.cuh): keys per tile, warps per
+# block (each owns 16 keys of a tile), query rows per block, spans at most
+# (blocks of a cluster), tiles in the staging ring, row slots of a split
+# block's inbox
+TILE, WARPS, ROWS, MAX_CLUSTER, STAGES = 64, 4, 16, 8, 2
+MAX_INBOX = ROWS + MAX_CLUSTER
 
 
-def shared_bytes(tile: int, head_dim: int, quant: bool = False) -> int:
-    """Dynamic shared memory of one block (``attn::shared_bytes``): the
-    query tile, K (rows padded by one float against bank conflicts), V,
-    each warp's probabilities and, for int8 K/V, the two scale rows, all
-    f32."""
-    return 4 * (ROWS * head_dim + tile * (head_dim + 1) + tile * head_dim
-                + WARPS * tile + (2 * tile if quant else 0))
+def shared_bytes(head_dim: int, q_dtype: torch.dtype, quant: bool) -> int:
+    """Dynamic shared memory of one block of the kernel (``flash::layout``):
+    the staging ring of K/V tiles in their stored type (rows padded by 16
+    bytes; int8 with its scales), which a split block's inbox reuses; the
+    warps' partials; for f32 q, Q and the warps' probabilities; the
+    merge's per-row numbers; a local block's running state; the 64-bit
+    rows of the ring's positions (read by the paged layout)."""
+    kv_bytes = 1 if quant else torch.tensor([], dtype=q_dtype).element_size()
+    ring = 2 * STAGES * TILE * (head_dim * kv_bytes + 16)
+    if quant:
+        ring += 2 * STAGES * TILE * 4
+    inbox = MAX_INBOX * (head_dim + 2) * 4
+    partial = WARPS * ROWS * (head_dim + 2) * 4
+    f32 = (ROWS * (head_dim + 4) + WARPS * ROWS * (TILE // WARPS + 1)
+           + WARPS * ROWS) * 4 if q_dtype == torch.float32 else 0
+    merge = ROWS * (WARPS + 2 + 2 * MAX_CLUSTER) * 4
+    return (max(ring, inbox) + partial + f32 + merge
+            + ROWS * (head_dim + 2) * 4 + STAGES * TILE * 8)
 
 
 def check_kv_args(name: str, q, k, v, k_scale, v_scale, smem: int):
@@ -31,8 +47,8 @@ def check_kv_args(name: str, q, k, v, k_scale, v_scale, smem: int):
     bf16 on a CUDA device; K/V of q's type, or int8 with f32 scales shaped
     like the values without Dh; one head_dim the kernel takes; ``smem``, the
     dynamic shared memory of one of the kernel's blocks, within the card's;
-    every array contiguous, K/V 16-byte aligned (the kernels stage them with
-    16-byte loads)."""
+    every array contiguous, q and K/V 16-byte aligned (the kernel stages
+    K/V with 16-byte copies and loads q's fragments from device memory)."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: q on {q.device}, not CUDA")
     quant = k_scale is not None
@@ -73,5 +89,7 @@ def check_kv_args(name: str, q, k, v, k_scale, v_scale, smem: int):
     if not (q.is_contiguous()
             and all(a.is_contiguous() for a in arrays.values())):
         raise ValueError(f"{name}: q, K/V and scales must be contiguous")
+    if q.data_ptr() % 16:
+        raise ValueError(f"{name}: q must be 16-byte aligned")
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError(f"{name}: K/V must be 16-byte aligned")

@@ -5,14 +5,15 @@
 //                   type),
 //   _kernel_quant  (:159, flash_decode_attention_quant: int8 K/V with f32
 //                   scales [B, S, Hk]).
-// Both are instantiations of the kernel in csrc/flash_decode.cuh, whose
-// header holds the design: each sequence's keys split over the blocks of a
-// thread-block cluster and merged through distributed shared memory, the
-// rows of bf16 q on the tensor cores. The kernel reads one layer of the
-// slotted cache IN PLACE: the base pointers are cache.k[i] and cache.v[i],
-// the keys of a KV head are Hk * Dh elements apart, their scales Hk apart.
-// Unlike the TPU wrapper there are no transposes, no padding of S to a tile
-// multiple and no copies; tiles past a sequence's live length are never read.
+// Both are instantiations of the kernel in csrc/flash_decode.cuh over its
+// Slotted key layout; the header holds the design: each sequence's keys
+// split over the blocks of a thread-block cluster and merged through
+// distributed shared memory, the rows of bf16 q on the tensor cores. The
+// kernel reads one layer of the slotted cache IN PLACE: the base pointers
+// are cache.k[i] and cache.v[i], the keys of a KV head are Hk * Dh elements
+// apart, their scales Hk apart. Unlike the TPU wrapper there are no
+// transposes, no padding of S to a tile multiple and no copies; tiles past a
+// sequence's live length are never read.
 //
 // What bounds it on an H100: bytes. A call must read the live K and V (for
 // each sequence, offsets[b] + T positions x Hk x Dh, twice; int8 a quarter of
@@ -22,16 +23,6 @@
 // to shorten it.
 
 #include "flash_decode.cuh"
-
-namespace {
-
-template <typename TQ, typename TKV>
-cudaError_t run(const flash::Args& a, int B, cudaStream_t stream) {
-  if (a.Dh <= 64) return flash::launch<TQ, TKV, 64>(a, B, stream);
-  return flash::launch<TQ, TKV, 128>(a, B, stream);
-}
-
-}  // namespace
 
 // C interface, loaded with ctypes. q/out: [B, T, Hq, Dh], q_dtype 0 = float32,
 // 1 = bfloat16; k/v: one layer [B, S, Hk, Dh] of the slotted cache, of q's
@@ -44,23 +35,11 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const void* offsets, void* out, int q_dtype,
                                 int kv_int8, int B, int T, int Hq, int Hk,
                                 int Dh, int S, float scale, void* stream) {
-  const int vec = kv_int8 ? 16 : 8;
-  if (B < 1 || T < 1 || Hk < 1 || Hq % Hk != 0 || Dh < vec ||
-      Dh % vec != 0 || Dh > 128 || S < 1 || q_dtype < 0 || q_dtype > 1 ||
-      (kv_int8 && (!k_scale || !v_scale)))
-    return (int)cudaErrorInvalidValue;
-  const int kv_bytes = kv_int8 ? 1 : (q_dtype == 0 ? 4 : 2);
-  if (flash::layout(Dh, q_dtype == 0, kv_bytes).total > 232448)
-    return (int)cudaErrorInvalidValue;
   const flash::Args a{q, k, v,
                       static_cast<const float*>(k_scale),
                       static_cast<const float*>(v_scale),
                       static_cast<const int32_t*>(offsets), out, T, Hq, Hk,
-                      Dh, S, scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kv_int8 == 0 && q_dtype == 0) return (int)run<float, float>(a, B, s);
-  if (kv_int8 == 0 && q_dtype == 1)
-    return (int)run<__nv_bfloat16, __nv_bfloat16>(a, B, s);
-  if (kv_int8 == 1 && q_dtype == 0) return (int)run<float, int8_t>(a, B, s);
-  return (int)run<__nv_bfloat16, int8_t>(a, B, s);
+                      Dh, S, scale, nullptr, 0, 0};
+  return flash::run<flash::Slotted>(a, B, q_dtype, kv_int8,
+                                    static_cast<cudaStream_t>(stream));
 }

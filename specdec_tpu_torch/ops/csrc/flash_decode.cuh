@@ -1,26 +1,35 @@
-// Flash-decode attention over the slotted KV cache for Hopper (sm_90a): the
-// kernel body that csrc/decode_attention.cu instantiates for K3 (K/V of q's
-// type) and K4 (int8 K/V with f32 scales).
+// Flash-decode attention for Hopper (sm_90a): the kernel body that
+// csrc/decode_attention.cu instantiates for K3 (K/V of q's type) and K4
+// (int8 K/V with f32 scales) over the slotted cache, and that
+// csrc/paged_attention.cu instantiates for K2/K8a and K5/K8b over page pools
+// reached through a page table.
 //
-// Computes, for q [B, T, Hq, Dh] and one layer of the cache, K/V [B, S, Hk,
-// Dh],
+// Computes, for q [B, T, Hq, Dh] and one layer of the keys and values,
 //
 //   out[b, t, h*G + g, :] = sum_s softmax_s(scale * q . k_s) v_s
 //
 // over the key positions s <= offsets[b] + t (G = Hq / Hk query heads share KV
 // head h), with the semantics of the TPU kernels _kernel and _kernel_quant
-// (specdec_tpu/ops/decode_attention.py): scores, running max and sum and the
-// P.V accumulator in f32; the k-scale multiplies the score after
-// (q.k) * scale; the v-scale multiplies the unnormalized probability, which
-// is then rounded to q's type for P.V; the result is divided by
-// max(l, 1e-38) and written in q's type. `scale` is the f32 1/sqrt(Dh).
+// (specdec_tpu/ops/decode_attention.py, and paged_attention.py's four, whose
+// math is the same): scores, running max and sum and the P.V accumulator in
+// f32; the k-scale multiplies the score after (q.k) * scale; the v-scale
+// multiplies the unnormalized probability, which is then rounded to q's type
+// for P.V; the result is divided by max(l, 1e-38) and written in q's type.
+// `scale` is the f32 1/sqrt(Dh).
+//
+// Where key position s of sequence b, KV head h lives is the kernel's Keys
+// parameter, the index of its row (Dh elements of K and of V, one scale of
+// each): Slotted, the cache [B, S, Hk, Dh], row (b*S + s)*Hk + h; Paged, pools
+// [NP, Hk, page, Dh] through table [B, MP], row (table[b, s / page]*Hk + h)*
+// page + s % page, with capacity S = MP * page (the table's width). The rest
+// of the design does not depend on it.
 //
 // What bounds it on an H100: bytes, the live K and V of each sequence read
 // once (0.06-0.7 us at the main path's shapes), far below the latency of one
-// launch. The kernel it replaces (the body in attention_tile.cuh) ran B*Hk
-// blocks (4 on 132 SMs at B=1), each walking its sequence's tiles one after
-// another, with serial f32 dot products from K/V staged as f32: 55-103 us a
-// call. This design attacks the latency chain.
+// launch. The body it replaces (attention_tile.cuh) ran B*Hk blocks (4 on
+// 132 SMs at B=1), each walking its sequence's tiles one after another,
+// with serial f32 dot products from K/V staged as f32: 55-121 us a call.
+// This design attacks the latency chain.
 //
 // Design:
 //   - Spans. The cache's 64-key tiles are cut into C spans of `span`
@@ -62,15 +71,18 @@
 //     the wrapper are those of the kernel it replaces.
 //   - bf16 q: Q.K^T and P.V on the tensor cores, mma.sync m16n8k16 bf16 with
 //     f32 accumulation. Q's fragments are loaded from global memory into
-//     registers once. The 16 k-indices of an mma are permuted (2t + h -> 4t +
-//     h, 2t + 8 + h -> 4t + 2 + h, shared by A and B, so the sum is the same
-//     up to f32 order): a thread's Q fragment is 4 consecutive d of a row (one
-//     8-byte load) and its K fragment 4 consecutive d of a key (8 bytes of
-//     bf16 or 4 of int8). The 16 keys of a warp are assigned to the score
-//     mma's columns so that its C fragments are, register for register, the A
-//     fragments of the P.V mma (the score tile never leaves registers): score
-//     n-tile j, column 2t + h is key 4t + 2j + h. An int8 key or value
-//     converts to bf16 exactly (|x| <= 128), through the f32 2^23 trick.
+//     registers once, every load issued before any is used (loads under a
+//     branch went one after another). The 16 k-indices of an mma are
+//     permuted (2t + h -> 4t + h, 2t + 8 + h -> 4t + 2 + h, shared by A and
+//     B, so the sum is the same up to f32 order): a thread's Q fragment is 4
+//     consecutive d of a row (one 8-byte load) and its K fragment 4
+//     consecutive d of a key (8 bytes of bf16 or 4 of int8). The 16 keys of
+//     a warp are assigned to the score mma's columns so that its C fragments
+//     are, register for register, the A fragments of the P.V mma (the score
+//     tile never leaves registers): score n-tile j, column 2t + h is key
+//     4t + 2j + h. A bf16 V fragment pair of
+//     two n-tiles is one ldmatrix.x4.trans. An int8 key or value converts
+//     to bf16 exactly (|x| <= 128), through the f32 2^23 trick.
 //     Dh % 16 == 8 pads the last k-step with zeros in registers.
 //   - f32 q (the float32 oracles): the same spans, partials and merges, with
 //     f32 products on the CUDA cores: lane (key k, row half) computes 8 rows'
@@ -79,22 +91,35 @@
 //   - Staging: K and V (and the int8 scales) are copied in their stored type
 //     with cp.async into a double-buffered ring (the copy of tile i + 1 is in
 //     flight while tile i is computed, across span boundaries too), rows
-//     padded by 16 bytes; positions past S read as zeros and are masked.
+//     padded by 16 bytes. Positions past the block's largest live position
+//     (and past S) read as zeros (cp.async's src_bytes = 0) and are masked;
+//     their rows are not computed, so a paged block reads no table entry
+//     past its rows' last live page, whatever those entries hold. A masked
+//     probability is exactly 0 and its zero key and value add nothing.
+//   - Paged rows: the tile is 64 positions whatever the page size (a page,
+//     part of one, or several). Threads 0-63 read the pages of the tile
+//     after next from the table into registers while a tile is computed
+//     and put their rows in shared memory after it, so a table read adds
+//     no latency to a tile's copy but the first two.
 // Alternatives, timed on the H100 in turns with this design (PERF.md; a
 // variant is timed by `chip_smoke.py --against decode_attention=DIR/
-// decode_attention.cu` with the modified copy of this header beside it in
-// DIR): the split for every call is 2-3x slower at the prefills (blocks
-// whose spans are dead for their rows hold SMs at the cluster barrier),
-// local for every call 2x slower at decode; at most 4 or 2 spans make
-// decode slower and the admission faster; at most 16 put more blocks of
-// K3's bf16 K/V on the card at S=2048 than fit at once. Slower in earlier
-// builds: pulling a row's 4C warp partials through distributed shared
-// memory, one remote load after another, and summing the warps' partials
-// into one buffer warp after warp. Not done yet: ldmatrix.trans for bf16 V
-// fragments (two 16-bit loads per register now), cheaper span merges for
-// the local blocks of the admission prefill, and a placement that weighs
-// the live tiles a local block walks, not only the grid's size (S=2048,
-// T=64 runs local where the split is faster).
+// decode_attention.cu`, or `paged_attention=DIR/paged_attention.cu`, with
+// the modified copy of this header beside it in DIR): the split for every
+// call is 2-3x slower at the prefills (blocks whose spans are dead for their
+// rows hold SMs at the cluster barrier), local for every call 2x slower at
+// decode; neither wins at every paged shape (the split at the B=4 verify
+// and S=2048, local at the serving verify, a chunk and Dh=128); at most 4
+// or 2 spans make decode slower and the admission faster; at most 16 put
+// more blocks of K3's bf16 K/V on the card at S=2048 than fit at once.
+// Slower, or no faster, in earlier builds: pulling a row's 4C warp
+// partials through distributed shared memory, one remote load after
+// another; summing the warps' partials into one buffer warp after warp; a
+// ring of four tiles for local blocks (a local block waits on
+// instructions, not on its copies); a merge that loads four elements
+// before storing them. Not done yet: cheaper span merges for local blocks
+// (one per tile where a span is one tile), more warps per local block, and
+// a placement that weighs the live tiles a local block walks, not only
+// the grid's size (S=2048, T=64 runs local where the split is faster).
 
 #pragma once
 
@@ -146,11 +171,12 @@ __host__ __device__ inline int row_stride(int dh, int kv_bytes) {
 // cluster is past its tiles; the warps' partials, acc [4][16][Dh], m and l
 // [4][16]; for f32 q, Q [16][Dh + 4], the warps' probabilities [4][16][17]
 // and their alphas [4][16]; the merge's per-row numbers [16][kMergeFloats];
-// a local block's running acc [16][Dh], m and l [16].
-// ops/decode_attention.py computes the same.
+// a local block's running acc [16][Dh], m and l [16]; the rows of the
+// positions of the tiles in the ring [kStages][kTile] (64-bit; paged only).
+// ops/attention_args.py computes the same.
 struct Layout {
   int ring_v, scales, parts, parts_m, parts_l, qs, pw, alpha, merge, run,
-      total;
+      rows, total;
 };
 
 __host__ __device__ inline Layout layout(int dh, bool q_f32, int kv_bytes) {
@@ -168,20 +194,43 @@ __host__ __device__ inline Layout layout(int dh, bool q_f32, int kv_bytes) {
   o.alpha = o.pw + (q_f32 ? kWarps * kRows * (kWarpKeys + 1) * 4 : 0);
   o.merge = o.alpha + (q_f32 ? kWarps * kRows * 4 : 0);
   o.run = o.merge + kRows * kMergeFloats * 4;
-  o.total = o.run + kRows * (dh + 2) * 4;
+  o.rows = o.run + kRows * (dh + 2) * 4;
+  o.total = o.rows + kStages * kTile * 8;
   return o;
 }
 
 struct Args {
   const void* q;
-  const void* k;
+  const void* k;  // one layer
   const void* v;
   const float* ks;  // int8 K/V only
   const float* vs;
   const int32_t* offsets;
   void* out;
-  int T, Hq, Hk, Dh, S;
+  int T, Hq, Hk, Dh, S;  // S: the capacity (paged: MP * page)
   float scale;
+  const int32_t* table;  // paged only: [B, MP]
+  int MP, page;
+};
+
+// The key layouts: where the row of key position s (0 <= s < S) of sequence
+// b, KV head h lives, its K/V at row * Dh elements and its scales at row.
+struct Slotted {  // the slotted cache [B, S, Hk, Dh]
+  static constexpr bool kPaged = false;
+  __device__ static long long row(const Args& a, int b, int s, int h) {
+    return ((long long)b * a.S + s) * a.Hk + h;
+  }
+};
+struct Paged {  // pools [NP, Hk, page, Dh] through table [B, MP]
+  static constexpr bool kPaged = true;
+  // the pool page holding position s: its table entry
+  __device__ static int page_of(const Args& a, int b, int s) {
+    return __ldg(a.table + (long long)b * a.MP + s / a.page);
+  }
+  // the row of position s on pool page pg
+  __device__ static long long row_on(const Args& a, int pg, int s, int h) {
+    return ((long long)pg * a.Hk + h) * a.page + s % a.page;
+  }
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -220,6 +269,20 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// four 8x8 b16 matrices from shared memory, transposed: lanes 8i .. 8i + 7
+// give the row addresses of matrix i, and lane (g, t) receives rows 2t and
+// 2t + 1 of column g of matrix i in r_i (row 2t in the low half)
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1,
+                                                  uint32_t& r2, uint32_t& r3,
+                                                  const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(smem_addr(row))
+      : "memory");
+}
+
 // bf16x2 of two floats: `lo` in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
@@ -248,11 +311,14 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 }
 
 // Copy tile `tile` of sequence b, head h (K, V and, for int8, their scales)
-// into ring slot `st`. Positions at or past S read as zeros.
-template <typename TKV>
+// into ring slot `st`. Positions past last_pos (the block's largest live
+// position, < S) read as zeros from the layer's first row, and their rows
+// are not computed. Slotted computes the rows; Paged takes them from `rows`
+// in shared memory (-1 for such positions).
+template <typename TKV, typename Keys>
 __device__ __forceinline__ void stage_tile(const Args& a, int b, int h,
                                            int tile, int st, unsigned char* sm,
-                                           const Layout& lo) {
+                                           const Layout& lo, int last_pos) {
   constexpr int kvb = sizeof(TKV);
   const int rs = row_stride(a.Dh, kvb);
   const int per_row = a.Dh * kvb / 16;
@@ -261,23 +327,33 @@ __device__ __forceinline__ void stage_tile(const Args& a, int b, int h,
   unsigned char* vd = sm + lo.ring_v + st * kTile * rs;
   const char* kg = static_cast<const char*>(a.k);
   const char* vg = static_cast<const char*>(a.v);
-  for (int i = threadIdx.x; i < kTile * per_row; i += kThreads) {
-    const int r = i / per_row, c = i - r * per_row;
-    const int s = s0 + r;
-    const int ok = s < a.S ? 16 : 0;
-    const size_t src =
-        (((size_t)b * a.S + min(s, a.S - 1)) * a.Hk + h) * a.Dh * kvb +
-        c * 16;
-    cp_async<16>(kd + r * rs + c * 16, kg + src, ok);
-    cp_async<16>(vd + r * rs + c * 16, vg + src, ok);
+  const long long* rows =
+      reinterpret_cast<const long long*>(sm + lo.rows) + st * kTile;
+  auto row_at = [&](int j) -> long long {
+    if constexpr (Keys::kPaged)
+      return rows[j];
+    else
+      return s0 + j <= last_pos ? Keys::row(a, b, s0 + j, h) : -1;
+  };
+  // chunk threadIdx.x + n * kThreads is 16-byte column c of row r: stepped
+  // without a division (per_row <= 32)
+  const int dr = kThreads / per_row, dc = kThreads - dr * per_row;
+  for (int r = threadIdx.x / per_row, c = threadIdx.x - r * per_row;
+       r < kTile;) {
+    const long long row = row_at(r);
+    const long long src = (row < 0 ? 0 : row * a.Dh * kvb) + c * 16;
+    cp_async<16>(kd + r * rs + c * 16, kg + src, row < 0 ? 0 : 16);
+    cp_async<16>(vd + r * rs + c * 16, vg + src, row < 0 ? 0 : 16);
+    r += dr;
+    c += dc;
+    if (c >= per_row) c -= per_row, ++r;
   }
   if constexpr (std::is_same<TKV, int8_t>::value) {
     float* ksd = reinterpret_cast<float*>(sm + lo.scales) + st * 2 * kTile;
     for (int i = threadIdx.x; i < 2 * kTile; i += kThreads) {
-      const int j = i % kTile, s = s0 + j;
-      const float* src = (i < kTile ? a.ks : a.vs) +
-                         ((size_t)b * a.S + min(s, a.S - 1)) * a.Hk + h;
-      cp_async<4>(ksd + i, src, s < a.S ? 4 : 0);
+      const long long row = row_at(i % kTile);
+      cp_async<4>(ksd + i, (i < kTile ? a.ks : a.vs) + (row < 0 ? 0 : row),
+                  row < 0 ? 0 : 4);
     }
   }
 }
@@ -290,11 +366,12 @@ __device__ __forceinline__ void cluster_arrive() {
 
 // The kernel. TQ: q's and out's type (float: CUDA cores; bf16: tensor
 // cores); TKV: the stored K/V (TQ, or int8 with scales); kMaxDh: 64 or 128,
-// the register arrays' size (Dh <= kMaxDh, a multiple of 8; of 16 for int8).
-// Launched in clusters of C blocks (split) or of 1 (local).
+// the register arrays' size (Dh <= kMaxDh, a multiple of 8; of 16 for int8);
+// Keys: Slotted or Paged. Launched in clusters of C blocks (split) or of 1
+// (local).
 // 4 blocks an SM for bf16 q up to Dh = 64 (at most 128 registers a thread;
 // Dh = 128 and f32 q would spill under that cap)
-template <typename TQ, typename TKV, int kMaxDh>
+template <typename TQ, typename TKV, int kMaxDh, typename Keys>
 __global__ void __launch_bounds__(
     kThreads, std::is_same<TQ, __nv_bfloat16>::value && kMaxDh == 64 ? 4 : 1)
 flash_decode_kernel(const Args a) {
@@ -320,13 +397,46 @@ flash_decode_kernel(const Args a) {
   const int off = a.offsets[b];
 
   // the tiles of this block: its span (split) or all spans (local), up to
-  // the tile of its rows' largest position; n_live spans hold such tiles
+  // the tile of last_pos, its rows' largest position; n_live spans hold
+  // such tiles
   const int t_max = (row0 + live_rows - 1) / G;
-  const int last = min(off + t_max, S - 1) / kTile;
+  const int last_pos = min(off + t_max, S - 1);
+  const int last = last_pos / kTile;
   const int n_live = last / span + 1;
   const int t0 = split ? rank * span : 0;
   const int t1 = split ? min(t0 + span, last + 1) : last + 1;
-  if (t0 < t1) stage_tile<TKV>(a, b, h, t0, 0, sm, lo);
+
+  // Paged: thread j < kTile reads the page of position j of a tile of this
+  // block (-1 past last_pos or past the block's tiles, whose entries are
+  // not read) and puts the position's row into the rows of the tile's ring
+  // slot: for the first two tiles here, for tile i + 2 while tile i is
+  // computed (load_page, then put_row after the tile)
+  long long* rows = reinterpret_cast<long long*>(sm + lo.rows);
+  auto load_page = [&](int tile) -> int {
+    const int s = tile * kTile + threadIdx.x;
+    if constexpr (Keys::kPaged) {
+      // read without a branch, from a live position's entry
+      const int pg = Keys::page_of(a, b, max(min(s, last_pos), 0));
+      return tile < t1 && s <= last_pos ? pg : -1;
+    } else {
+      return -1;
+    }
+  };
+  auto put_row = [&](int st, int tile, int pg) {
+    if constexpr (Keys::kPaged)
+      if (threadIdx.x < kTile)
+        rows[st * kTile + threadIdx.x] =
+            pg < 0 ? -1 : Keys::row_on(a, pg, tile * kTile + threadIdx.x, h);
+  };
+  if constexpr (Keys::kPaged) {
+    if (threadIdx.x < kTile) {
+      const int pg0 = load_page(t0), pg1 = load_page(t0 + 1);
+      put_row(0, t0, pg0);
+      put_row(1, t0 + 1, pg1);
+    }
+    __syncthreads();
+  }
+  if (t0 < t1) stage_tile<TKV, Keys>(a, b, h, t0, 0, sm, lo, last_pos);
   cp_async_commit();
 
   // element (row r, d = 0) of q and out for this block's row r
@@ -385,8 +495,11 @@ flash_decode_kernel(const Args a) {
     }
     __syncthreads();
     if (split) asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
-    for (int e = threadIdx.x; e < live_rows * Dh; e += kThreads) {
-      const int r = e / Dh, d = e - r * Dh;
+    // element e = threadIdx.x + n * kThreads is (row r, d), stepped without
+    // a division
+    const int dr = kThreads / Dh, dd = kThreads - dr * Dh;
+    for (int e = threadIdx.x, r = e / Dh, d = e - r * Dh; r < live_rows;
+         e += kThreads) {
       const float* w = mg + r * kMergeFloats;
       float acc = 0.f;
 #pragma unroll
@@ -404,6 +517,9 @@ flash_decode_kernel(const Args a) {
         run_acc[e] = x;
         if (final) store(out + q_index(r) + d, x / fmaxf(run_l[r], 1e-38f));
       }
+      r += dr;
+      d += dd;
+      if (d >= Dh) d -= Dh, ++r;
     }
   };
 
@@ -414,19 +530,28 @@ flash_decode_kernel(const Args a) {
     const int nks = (Dh + 15) / 16, nnd = Dh / 8;
     // Q fragments, k permuted: row g / g + 8, d = 16 ks + 4t .. + 3 (loaded
     // whether or not the block has live tiles, so as not to wait for the
-    // offset first)
+    // offset first). Every load is issued, from an address clamped into
+    // the block's rows and Dh, before any is used, and the fragments past
+    // them are zeroed after: a load under a branch waits for its data
+    // before the next one is issued.
     uint32_t qa[kKS][4];
+    uint2 qw[kKS][2];
+    const TQ* qrow[2] = {q + q_index(min(g, live_rows - 1)),
+                         q + q_index(min(g + 8, live_rows - 1))};
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        qw[ks][half] = __ldg(reinterpret_cast<const uint2*>(
+            qrow[half] + min(16 * ks + 4 * t, Dh - 4)));
 #pragma unroll
     for (int ks = 0; ks < kKS; ++ks) {
       const int d = 16 * ks + 4 * t;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        uint2 w = make_uint2(0u, 0u);
-        if (ks < nks && d < Dh && g + 8 * half < live_rows)
-          w = __ldg(reinterpret_cast<const uint2*>(q + q_index(g + 8 * half) +
-                                                   d));
-        qa[ks][half] = w.x;      // a0 / a1: d, d + 1
-        qa[ks][2 + half] = w.y;  // a2 / a3: d + 2, d + 3
+        const bool ok = ks < nks && d < Dh && g + 8 * half < live_rows;
+        qa[ks][half] = ok ? qw[ks][half].x : 0u;      // a0 / a1: d, d + 1
+        qa[ks][2 + half] = ok ? qw[ks][half].y : 0u;  // a2 / a3: d + 2, d + 3
       }
     }
     int qpos[2];
@@ -474,8 +599,11 @@ flash_decode_kernel(const Args a) {
 
     for (int tile = t0; tile < t1; ++tile) {
       const int st = (tile - t0) & 1;
-      if (tile + 1 < t1) stage_tile<TKV>(a, b, h, tile + 1, st ^ 1, sm, lo);
+      if (tile + 1 < t1)
+        stage_tile<TKV, Keys>(a, b, h, tile + 1, st ^ 1, sm, lo, last_pos);
       cp_async_commit();
+      const int next_page =
+          Keys::kPaged && threadIdx.x < kTile ? load_page(tile + 2) : -1;
       if (tile > t0 && tile % span == 0) {  // a span is complete (local)
         write_parts();
         span_done(false);
@@ -567,6 +695,17 @@ flash_decode_kernel(const Args a) {
                               pack_bf16(pv[1][0], pv[1][1]),
                               pack_bf16(pv[1][2], pv[1][3])};
       const unsigned char* vr = vt + kw * rs;  // rows kw .. kw + 3
+      // bf16 V: one ldmatrix.x4.trans gives b0 and b1 of n-tiles nd and
+      // nd + 1 (matrix 2i + j: b_j of n-tile nd + i); lane l addresses row
+      // l & 7 of matrix l >> 3, key 4 ((l & 7) >> 1) + (l & 1) + 2j of the
+      // warp's 16 (b_j holds keys 4t + 2j, 4t + 2j + 1), its columns
+      // 8 (nd + i) .. + 7. An odd last n-tile reads the row's padding.
+      const unsigned char* vl =
+          vt +
+          (kWarpKeys * warp + 4 * ((lane & 7) >> 1) + (lane & 1) +
+           2 * ((lane >> 3) & 1)) * rs +
+          16 * (lane >> 4);
+      uint32_t vb[4];
 #pragma unroll
       for (int nd = 0; nd < kND; ++nd) {
         if (nd >= nnd) break;
@@ -574,21 +713,20 @@ flash_decode_kernel(const Args a) {
         acc[nd][1] *= alpha[0];
         acc[nd][2] *= alpha[1];
         acc[nd][3] *= alpha[1];
-        const int d = 8 * nd + g;
         uint32_t b0, b1;
         if constexpr (kQuant) {
-          const int8_t* v8 = reinterpret_cast<const int8_t*>(vr) + d;
+          const int8_t* v8 = reinterpret_cast<const int8_t*>(vr) + 8 * nd + g;
           b0 = i8_to_bf16x2(v8[0], v8[rs]);
           b1 = i8_to_bf16x2(v8[2 * rs], v8[3 * rs]);
         } else {
-          const unsigned short* v16 =
-              reinterpret_cast<const unsigned short*>(vr + 2 * d);
-          const int r16 = rs / 2;
-          b0 = (uint32_t)v16[0] | ((uint32_t)v16[r16] << 16);
-          b1 = (uint32_t)v16[2 * r16] | ((uint32_t)v16[3 * r16] << 16);
+          if (nd % 2 == 0)
+            ldmatrix_x4_trans(vb[0], vb[1], vb[2], vb[3], vl + 16 * nd);
+          b0 = vb[2 * (nd % 2)];
+          b1 = vb[2 * (nd % 2) + 1];
         }
         mma_bf16(acc[nd], pa, b0, b1);
       }
+      put_row(st, tile + 2, next_page);  // slot st's next tile
       __syncthreads();  // the slot is consumed before it is staged again
     }
     if (split) cluster_arrive();  // this block's ring is free for the inbox
@@ -641,8 +779,11 @@ flash_decode_kernel(const Args a) {
 
     for (int tile = t0; tile < t1; ++tile) {
       const int st = (tile - t0) & 1;
-      if (tile + 1 < t1) stage_tile<TKV>(a, b, h, tile + 1, st ^ 1, sm, lo);
+      if (tile + 1 < t1)
+        stage_tile<TKV, Keys>(a, b, h, tile + 1, st ^ 1, sm, lo, last_pos);
       cp_async_commit();
+      const int next_page =
+          Keys::kPaged && threadIdx.x < kTile ? load_page(tile + 2) : -1;
       if (tile > t0 && tile % span == 0) {  // a span is complete (local)
         write_parts();
         span_done(false);
@@ -731,6 +872,7 @@ flash_decode_kernel(const Args a) {
           for (int c = 0; c < kDC; ++c) acc[r][c] = fmaf(p, v[c], acc[r][c]);
         }
       }
+      put_row(st, tile + 2, next_page);  // slot st's next tile
       __syncthreads();  // the slot (and pw) are consumed
     }
     if (split) cluster_arrive();  // this block's ring is free for the inbox
@@ -776,13 +918,13 @@ flash_decode_kernel(const Args a) {
   }
 }
 
-// Launch flash_decode_kernel<TQ, TKV, kMaxDh> for B sequences on `stream`:
-// grid (C, row tiles, B * Hk) in clusters of (C, 1, 1) (split) when that
-// grid fits the card at 4 blocks an SM, else grid (1, row tiles, B * Hk)
+// Launch flash_decode_kernel<TQ, TKV, kMaxDh, Keys> for B sequences on
+// `stream`: grid (C, row tiles, B * Hk) in clusters of (C, 1, 1) (split) when
+// that grid fits the card at 4 blocks an SM, else grid (1, row tiles, B * Hk)
 // (local). Returns the launch's error, or cudaGetLastError() after it.
-template <typename TQ, typename TKV, int kMaxDh>
+template <typename TQ, typename TKV, int kMaxDh, typename Keys>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  auto kern = flash_decode_kernel<TQ, TKV, kMaxDh>;
+  auto kern = flash_decode_kernel<TQ, TKV, kMaxDh, Keys>;
   const int smem = layout(a.Dh, std::is_same<TQ, float>::value,
                           (int)sizeof(TKV)).total;
   cudaError_t err = cudaFuncSetAttribute(
@@ -811,6 +953,35 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   err = cudaLaunchKernelEx(&cfg, kern, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <typename Keys, typename TQ, typename TKV>
+cudaError_t launch_dh(const Args& a, int B, cudaStream_t stream) {
+  if (a.Dh <= 64) return launch<TQ, TKV, 64, Keys>(a, B, stream);
+  return launch<TQ, TKV, 128, Keys>(a, B, stream);
+}
+
+// The entry points' launch: q_dtype 0 = float32, 1 = bfloat16; kv_int8 0 =
+// K/V of q's type, 1 = int8 with both scales. Dh <= 64 takes the 64
+// instance, else the 128 one. cudaErrorInvalidValue for arguments the
+// kernel does not take (Dh a multiple of 8, of 16 for int8, up to 128; a
+// block's shared memory within an H100's), else launch's result.
+template <typename Keys>
+int run(const Args& a, int B, int q_dtype, int kv_int8, cudaStream_t stream) {
+  const int vec = kv_int8 ? 16 : 8;
+  const int kv_bytes = kv_int8 ? 1 : (q_dtype == 0 ? 4 : 2);
+  if (B < 1 || a.T < 1 || a.Hk < 1 || a.Hq % a.Hk != 0 || a.Dh < vec ||
+      a.Dh % vec != 0 || a.Dh > 128 || a.S < 1 || q_dtype < 0 ||
+      q_dtype > 1 || (kv_int8 && (!a.ks || !a.vs)) ||
+      layout(a.Dh, q_dtype == 0, kv_bytes).total > 232448)
+    return (int)cudaErrorInvalidValue;
+  if (q_dtype == 0)
+    return (int)(kv_int8 ? launch_dh<Keys, float, int8_t>(a, B, stream)
+                         : launch_dh<Keys, float, float>(a, B, stream));
+  return (int)(kv_int8
+                   ? launch_dh<Keys, __nv_bfloat16, int8_t>(a, B, stream)
+                   : launch_dh<Keys, __nv_bfloat16, __nv_bfloat16>(
+                         a, B, stream));
 }
 
 }  // namespace flash

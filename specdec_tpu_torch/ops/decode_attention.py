@@ -35,33 +35,9 @@ import numpy as np
 import torch
 
 from specdec_tpu_torch.core.model import masked_attention
-from specdec_tpu_torch.ops.attention_args import DTYPE_CODE, check_kv_args
-
-# the kernel's constants (csrc/flash_decode.cuh): keys per tile, warps per
-# block (each owns 16 keys of a tile), query rows per block, spans at most
-# (blocks of a cluster), tiles in the staging ring, row slots of a split
-# block's inbox
-TILE, WARPS, ROWS, MAX_CLUSTER, STAGES = 64, 4, 16, 8, 2
-MAX_INBOX = ROWS + MAX_CLUSTER
-
-
-def shared_bytes(head_dim: int, q_dtype: torch.dtype, quant: bool) -> int:
-    """Dynamic shared memory of one block of the kernel (``flash::layout``):
-    the staging ring of K/V tiles in their stored type (rows padded by 16
-    bytes; int8 with its scales), which a split block's inbox reuses; the
-    warps' partials; for f32 q, Q and the warps' probabilities; the
-    merge's per-row numbers; a local block's running state."""
-    kv_bytes = 1 if quant else torch.tensor([], dtype=q_dtype).element_size()
-    ring = 2 * STAGES * TILE * (head_dim * kv_bytes + 16)
-    if quant:
-        ring += 2 * STAGES * TILE * 4
-    inbox = MAX_INBOX * (head_dim + 2) * 4
-    partial = WARPS * ROWS * (head_dim + 2) * 4
-    f32 = (ROWS * (head_dim + 4) + WARPS * ROWS * (TILE // WARPS + 1)
-           + WARPS * ROWS) * 4 if q_dtype == torch.float32 else 0
-    merge = ROWS * (WARPS + 2 + 2 * MAX_CLUSTER) * 4
-    return (max(ring, inbox) + partial + f32 + merge
-            + ROWS * (head_dim + 2) * 4)
+from specdec_tpu_torch.ops.attention_args import (
+    DTYPE_CODE, check_kv_args, shared_bytes,
+)
 
 
 def decode_attention_reference(q: torch.Tensor, k_all: torch.Tensor,
@@ -83,8 +59,6 @@ def decode_attention_reference(q: torch.Tensor, k_all: torch.Tensor,
 def _check_args(name, q, k_all, v_all, k_scale, v_scale, offsets):
     check_kv_args(name, q, k_all, v_all, k_scale, v_scale,
                   shared_bytes(q.shape[-1], q.dtype, k_scale is not None))
-    if q.data_ptr() % 16:
-        raise ValueError(f"{name}: q must be 16-byte aligned")
     if offsets.device != q.device:
         raise ValueError(f"{name}: q on {q.device}, offsets on "
                          f"{offsets.device}")

@@ -12,9 +12,17 @@ Four wrappers replace the four TPU kernels of that module:
   layer ``layer`` of the int8 stacks and [L, NP, Hk, page] scales, the
   serving path's call under ``kv_quant="int8"``.
 
-One CUDA kernel, ``csrc/paged_attention.cu``, serves all four: the layer is
-a base-pointer offset (stride 0 for a 4D pool), and int8 pools are its int8
-instantiation, which stages each page's scales with the page.
+One CUDA kernel, ``csrc/paged_attention.cu``, serves all four: the
+flash-decode body of ``csrc/flash_decode.cuh`` (``ops/decode_attention.py``)
+with key position s read at slot s % page of pool page
+``page_table[b, s // page]``. The layer is a base-pointer offset (stride 0
+for a 4D pool), and int8 pools are its int8 instantiation. The capacity is
+the table's width, MP * page: it fixes the spans of 64-key tiles, so a row's
+result depends on the table's width only, not on T, the batch or its
+neighbours, and over the same keys in pages of 64 it is the slotted
+kernel's bit for bit. A block reads the table entries of its rows' live
+positions only; entries past a sequence's last live page may hold
+anything.
 
 All compute flash-decode over K/V reached through the page table: query
 position ``offsets[b] + t`` attends every key position ``<=`` it, scores in
@@ -66,9 +74,8 @@ def paged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
 
 def _check_paged_args(name, q, k_pool, v_pool, k_scale, v_scale, page_table,
                       offsets):
-    page = k_pool.shape[-2]
     check_kv_args(name, q, k_pool, v_pool, k_scale, v_scale,
-                  shared_bytes(page, q.shape[-1], k_scale is not None))
+                  shared_bytes(q.shape[-1], q.dtype, k_scale is not None))
     for label, a in (("page_table", page_table), ("offsets", offsets)):
         if a.device != q.device:
             raise ValueError(f"{name}: q on {q.device}, {label} on "
