@@ -11,7 +11,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 3. kernel vs plain, INT4: the pair4 dequant-matmul kernel (K1) against its
    plain PyTorch version at every shape the main paths give it (M = 1, 2,
    13, 64 for single-sequence decoding; 8, 72, 256 for the serving engine's
-   draft step, verify and admission prefill), on the main path's own
+   draft step, verify and admission prefill; 4 for a beam step, 6, 24, 48
+   for NASD's verify at B = 1, 4, 8 and 512 for its B = 8 prefill; M = 33
+   and up share one kernel instance), on the main path's own
    weights; its time beside the plain version's, a bf16 ``torch.matmul`` on
    pre-dequantized weights (a yardstick the port never calls) and the
    bound; the share of output elements bit-equal to the plain version's
@@ -87,7 +89,33 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    card's busy share under the paged engine; with bf16 KV and with
    ``--kv-quant int8 --attn flash``; and the paged engine under ``--quant
    int8`` and ``--quant nf4`` (K7 or K6 on every projection, at the
-   serving row counts M = 8, 72, 256).
+   serving row counts M = 8, 72, 256);
+4c. dispatch: a model with head_dim 256 (gemma's; the attention kernels
+   take at most 128) runs the slotted forward under the flash setting and
+   the paged forward with ``use_kernel=None``, over bf16 and int8 KV, with
+   no attention kernel launched, logits equal to the plain path's, and
+   ``use_kernel=True`` raising before any launch;
+7. NASD on the INT4 target of phase 5, greedy (tools/bench_nasd.py's
+   protocol: n = 3, gamma 5, 128 tokens, prompts from default_rng(3)):
+   the host store in Python at B = 1, 4 and 8 (fresh each call), the C++
+   store at B=1 (carried from call to call, so that its drafts are
+   accepted in part and the cache rolls back), and the device table at
+   B = 1, 4 and 8 (ragged prompts of 40-60 tokens, the table carried);
+   each one warm and two timed calls, every call equal to greedy AR per
+   prompt (a first parting only at a top-two bf16 tie; every token of a
+   parted output then the target's argmax over its own prefix, within
+   that tie, in a replay of the engine's computation), K1 launched per
+   target forward as implied; tok/s beside the card's name and power
+   limit; again under int8 KV + flash (K4 in every verify) for the
+   carried C++ store at B=1 and the table at B=4;
+7b. NASD serving: ``NasdContinuousBatcher`` with 8 slots, gamma 5, the 16
+   prompts of phase 6, 128 tokens each, at 1 and 4 windows per host sync:
+   every request equal to greedy AR, a parted one replayed as in phase 7,
+   both settings the same tokens; tok/s, TTFT, acceptance, windows and K1
+   launches;
+7c. beam search on the same target: one beam of one expansion equals
+   greedy AR (a parted output replayed as in phase 7), four beams give
+   the same tokens twice; ms per step and K1 launches (M = beams).
 
 Any failed phase exits 1 (without a CUDA device, or outside a checkout,
 too, before any result is printed). Standard output ends with the card's
@@ -116,7 +144,7 @@ BF16_OPS_PER_S = 989e12
 
 # main-path shapes of the weight kernels: (name, K, N) of each layer projection
 # of the 22-layer target (the drafter reads layers 0..3 of the same stacks),
-# the 2D lm_head, and the row counts M the decode loops give it
+# the 2D lm_head
 STACKED = [("wqkv", 2048, 2560), ("wo", 2048, 2048),
            ("w_gateup", 2048, 11264), ("w_down", 5632, 2048)]
 LM_HEAD = ("lm_head", 2048, 32000)
@@ -132,9 +160,14 @@ RAGGED_NAMES = {name for shapes in RAGGED.values() for name, _, _ in shapes}
 # the library of each format's weight kernel (``--against`` names one)
 WEIGHT_LIBS = {"int4": "int4_pair_matmul", "int8": "int8_matmul",
                "nf4": "q4_halfplane_matmul", "fp4": "q4_halfplane_matmul"}
-# single sequence: AR/draft step, drafter catch-up, verify (gamma 12),
-# prefill; serving (8 slots, gamma 8): draft step, verify, admission prefill
-ROWS = (1, 2, 8, 13, 64, 72, 256)
+# the row counts M the main paths give the weight kernels. Single sequence:
+# AR/draft step, drafter catch-up, verify (gamma 12), prefill (64); serving
+# (8 slots, gamma 8): draft step, verify, admission prefill (256); beam
+# search: a step of 4 beams (their prefill 256); NASD (gamma 5): the verify
+# at B = 1, 4, 8 (6, 24, 48; NASD serving's 8 slots 48) and the prefill at
+# B = 8 (512; B = 1 and 4: 64 and 256). K1's instances split M at 8, 16
+# and 32: each instance of every main path is held to the plain version
+ROWS = (1, 2, 4, 6, 8, 13, 24, 48, 64, 72, 256, 512)
 # kernel vs plain: relative Frobenius error and elementwise tolerance (the
 # JAX package's kernel-vs-oracle tolerance, tests/test_quant.py); both
 # sides round x and y to bf16 (and NF4/FP4 each weight, identically) and
@@ -1544,6 +1577,498 @@ def phase_serve(pair, device, label="bf16 KV", engines=("paged", "slotted")):
     return summary, total
 
 
+# ---------------------------------------------------------------------------
+# Dispatch at head_dim 256, NASD, NASD serving and beam search
+# ---------------------------------------------------------------------------
+
+# a gemma-2B-shaped attention (8 query heads over 1 KV head of 256) at the
+# pair's width, 2 layers: a head_dim the attention kernels do not take
+DH256_HEADS = (8, 1, 256)
+# NASD and beam search, tools/bench_nasd.py's protocol: greedy, n = 3,
+# gamma 5, 128 tokens; prompts from default_rng(3), the first of 60 tokens,
+# the rest ragged, 40-60
+NASD_N, NASD_GAMMA, NASD_GEN = 3, 5, 128
+NASD_BATCHES = (1, 4, 8)
+NASD_TIMED = 2
+# under int8 KV + flash (K4 in every verify): these variants only
+NASD_INT8_VARIANTS = ("host native B=1 carried", "device table B=4")
+# NASD serving: the serving phase's 16 prompts and 128 tokens, 8 slots
+NASD_SLOTS = 8
+BEAM_GEN, BEAM_WIDE = 64, 4
+ATTENTION_KERNELS = ("K2", "K8a", "K5", "K8b", "K3", "K4")
+
+
+def phase_dispatch(device):
+    """Part of the port's dispatch that the kernels' limits decide: a model
+    with head_dim 256 (gemma's; the attention kernels take at most 128)
+    runs a prefill and a decode step through the slotted forward under
+    ``attention_impl="flash"`` and through the paged forward with
+    ``use_kernel=None``, over bf16 and int8 KV: no attention kernel
+    launches, the logits are finite and equal the plain path's (``"xla"``,
+    ``use_kernel=False``) bit for bit, and ``use_kernel=True`` raises
+    before any launch."""
+    from specdec_tpu_torch import bench
+    from specdec_tpu_torch.core import model as tmodel
+    from specdec_tpu_torch.core.cache import init_cache
+    from specdec_tpu_torch.core.paged_cache import init_paged_cache
+
+    Hq, Hk, Dh = DH256_HEADS
+    base = bench.target_config(num_layers=2).replace(
+        num_heads=Hq, num_kv_heads=Hk, head_dim=Dh)
+    gen = torch.Generator(device=device).manual_seed(4)
+    params = tmodel.init_params(base, scale=0.02, device=device,
+                                generator=gen)
+    prompt = torch.tensor([bench.bench_prompt(seed=4)], device=device)
+    P, B, MP = prompt.shape[1], 1, 2
+    step = torch.tensor([[17]], device=device)
+
+    def run(forward, make_cache):
+        cache = make_cache()
+        logits, cache = forward(prompt, cache)
+        out = [logits]
+        logits, cache = forward(step, cache)
+        return out + [logits]
+
+    for kv in ("none", "int8"):
+        cfg = base.replace(kv_quant=kv, attention_impl="flash")
+        if tmodel.kernel_route(cfg):
+            fail(f"dispatch: head_dim {Dh} routed to the attention kernels")
+
+        def slotted(c):
+            return lambda: init_cache(c, B, 128, device=device)
+
+        def paged():
+            cache = init_paged_cache(cfg, B, MP + 1, PAGE, MP, device=device)
+            cache.page_table[0] = torch.arange(1, MP + 1, device=device)
+            return cache
+
+        results = {}
+        for what, forward, make in (
+                ("slotted flash", lambda t, c: tmodel.forward_step(
+                    cfg, params, t, c), slotted(cfg)),
+                ("slotted plain", lambda t, c: tmodel.forward_step(
+                    cfg.replace(attention_impl="xla"), params, t, c),
+                 slotted(cfg.replace(attention_impl="xla"))),
+                ("paged", lambda t, c: tmodel.forward_step_paged(
+                    cfg, params, t, c), paged),
+                ("paged gather", lambda t, c: tmodel.forward_step_paged(
+                    cfg, params, t, c, use_kernel=False), paged)):
+            reset_launches()
+            results[what] = run(forward, make)
+            torch.cuda.synchronize()
+            n = {k: v for k, v in launches().items()
+                 if k in ATTENTION_KERNELS and v}
+            if n:
+                fail(f"dispatch ({kv} KV, {what}): attention kernels "
+                     f"launched at head_dim {Dh}: {n}")
+            if not all(bool(torch.isfinite(l).all())
+                       for l in results[what]):
+                fail(f"dispatch ({kv} KV, {what}): logits not finite")
+        for a, b in (("slotted flash", "slotted plain"),
+                     ("paged", "paged gather")):
+            if not all(torch.equal(x, y)
+                       for x, y in zip(results[a], results[b])):
+                fail(f"dispatch ({kv} KV): {a} differs from {b}")
+        reset_launches()
+        try:
+            tmodel.forward_step_paged(cfg, params, prompt, paged(),
+                                      use_kernel=True)
+        except ValueError:
+            pass
+        else:
+            fail(f"dispatch ({kv} KV): use_kernel=True did not raise at "
+                 f"head_dim {Dh}")
+        if any(launches().values()):
+            fail(f"dispatch ({kv} KV): use_kernel=True launched "
+                 f"{launches()} before raising")
+        say(f"[4c dispatch] head_dim {Dh} (Hq={Hq}, Hk={Hk}), {kv} KV, 2 "
+            f"layers at D={cfg.hidden_size}: slotted flash forward == plain, "
+            f"paged forward == gather path, prefill T={P} and a decode step, no "
+            "attention kernel launched; use_kernel=True raised before any "
+            "launch")
+
+
+def nasd_prompts():
+    rng = np.random.default_rng(3)
+    lens = [60] + [int(n) for n in rng.integers(40, 61, size=7)]
+    return [[int(t) for t in rng.integers(1, 32000, size=n)] for n in lens]
+
+
+def teacher_forced(what, cfg, params, prompts, outs, device, shape):
+    """Every token of every output is the target's argmax over its own
+    prefix, or within greedy_tie's two bf16 ulps below it, in a replay of
+    the engine's computation: ``shape`` = (P, S, T, admit): the prompts
+    padded to P and prefilled on a cache of S positions (each alone, as a
+    serving admission, if ``admit``; else as one batch), then one forward
+    of T rows a token, the committed token in row 0 and padding after it,
+    row 0 read (a causal row reads nothing after it; each weight kernel's
+    row is the same bits at every row count). A forward over the whole
+    sequence at once is not such a replay: its attention reduces in
+    another order, which moves a logit by more than the tie rule allows.
+    Returns (tokens checked, tokens not the argmax, largest gap in
+    ulps)."""
+    from specdec_tpu_torch.core.cache import init_cache, install_slot
+    from specdec_tpu_torch.core.model import forward_step
+
+    P, S, T, admit = shape
+    N, L = len(prompts), max(map(len, outs))
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                        device=device)
+    if max(map(len, prompts)) + L - 1 + T > S:
+        fail(f"{what}: a replay of {L} tokens does not fit {S} positions")
+    padded = torch.zeros((N, P), dtype=torch.int64, device=device)
+    out_t = torch.zeros((N, L), dtype=torch.int64, device=device)
+    live = torch.zeros((N, L), dtype=torch.bool, device=device)
+    for i, (p, o) in enumerate(zip(prompts, outs)):
+        padded[i, :len(p)] = torch.tensor(p)
+        out_t[i, :len(o)] = torch.tensor(o)
+        live[i, :len(o)] = True
+    cache = init_cache(cfg, N, S, device=device)
+    if admit:
+        first = []
+        for i in range(N):
+            one = init_cache(cfg, 1, S, device=device)
+            lg, one = forward_step(cfg, params, padded[i:i + 1], one)
+            first.append(lg[0, len(prompts[i]) - 1])
+            cache = install_slot(cache, one, i, len(prompts[i]))
+        rows = torch.stack(first)
+    else:
+        lg, cache = forward_step(cfg, params, padded, cache)
+        rows = lg[torch.arange(N, device=device), (lens - 1).long()]
+    gaps = []
+    for j in range(L):
+        if j:
+            t_in = torch.zeros((N, T), dtype=torch.int64, device=device)
+            t_in[:, 0] = out_t[:, j - 1]
+            lg, cache = forward_step(cfg, params, t_in,
+                                     cache.with_length(lens + j - 1))
+            rows = lg[:, 0]
+        rows = rows.float()
+        top = rows.max(dim=-1).values
+        gap = top - rows.gather(1, out_t[:, j:j + 1])[:, 0]
+        ulp = torch.exp2(torch.floor(torch.log2(top.abs().clamp_min(1e-30)))
+                         - 7)
+        gaps.append(torch.where(live[:, j], gap / ulp, 0.0))
+    ratio = torch.stack(gaps, dim=1)                               # [N, L]
+    if (ratio > 2).any():
+        # the first token past the tie rule, by position
+        j, i = (ratio > 2).t().nonzero()[0].tolist()
+        fail(f"{what}: token {j} ({outs[i][j]}) of a sequence of prompt "
+             f"length {len(prompts[i])} is {ratio[i, j].item():.2f} bf16 "
+             "ulps below the target's argmax over its prefix (at most 2)")
+    return (int(live.sum()), int((ratio > 0).sum()), ratio.max().item())
+
+
+def check_greedy(what, cfg, params, prompts, refs, outs, device, parted):
+    """Every output equals its greedy AR reference, or parts from it first
+    at a top-two tie within two bf16 ulps (``greedy_tie``). A parted
+    output is added to ``parted`` ({(prompt index, output): prompt}), for
+    ``teacher_forced`` to check every token after the tie. Returns the
+    tokens where a tie parted them."""
+    ties = []
+    for i, (p, ref, out) in enumerate(zip(prompts, refs, outs)):
+        if len(out) != len(ref):
+            fail(f"{what}, sequence {i}: {len(out)} tokens, AR {len(ref)}")
+        if out != ref:
+            ties.append(greedy_tie(f"{what}, sequence {i}", cfg, params, p,
+                                   ref, out, device)[0])
+            parted[(i, tuple(out))] = p
+    return ties
+
+
+def check_parted(what, cfg, params, parted, device, shape):
+    """``teacher_forced`` over every distinct parted output, in one
+    replay; (0, 0, 0.0) if none parted. Returns its counts."""
+    if not parted:
+        return 0, 0, 0.0
+    return teacher_forced(what, cfg, params, list(parted.values()),
+                          [list(o) for _, o in parted], device, shape)
+
+
+def forced_note(forced):
+    n, off, worst = forced
+    return (f"the {n} tokens of the outputs parted from AR replayed in the "
+            f"engine's shape: {off} not the argmax, the largest gap "
+            f"{worst:.2f} bf16 ulps")
+
+
+def forward_launches(what, counts, cfg, params, extra=()):
+    """The launch counts of a run of target forwards: each forward launches
+    the stacked weight kernel 4 * L times and the lm_head's once, and under
+    the flash kernel the slotted attention kernel L times; nothing else
+    launches (``extra``: kernels also allowed). Returns the forwards."""
+    stacked, two_d = weight_kernels(params)
+    L = cfg.num_layers
+    forwards = counts[two_d]
+    want = {k: 0 for k in counts}
+    want[stacked], want[two_d] = 4 * L * forwards, forwards
+    attn = slotted_attention_kernel(cfg)
+    if attn is not None:
+        want[attn] = L * forwards
+    got = {k: n for k, n in counts.items() if k not in extra}
+    if forwards == 0 or got != {k: want[k] for k in got}:
+        fail(f"{what}: launches {counts}, expected {want} for {forwards} "
+             "forwards")
+    return forwards
+
+
+def timed_call(fn):
+    """(result, seconds) of one call, the card synchronized around it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_nasd(pair, device, card, label="bf16 KV", variants=None):
+    """NASD on the INT4 target at full width, greedy, tools/bench_nasd.py's
+    protocol. Each variant (the host store in Python at B = 1, 4, 8, fresh
+    each call as the benchmark has it; the C++ store at B=1, carried from
+    call to call, so that drafts are accepted in part and the verify rolls
+    the cache back; the device table at B = 1, 4, 8, carried, as the
+    benchmark does) runs one warm call and NASD_TIMED timed ones; every
+    call's tokens equal the greedy AR tokens of each prompt (a first
+    parting only at a top-two bf16 tie, every distinct parted output then
+    held token by token by ``teacher_forced``), and
+    every call launches K1 (and, under int8 KV + flash, K4) per target
+    forward as the forward implies. The references: prompt 0's from
+    ``autoregressive_generate``, the batch's from the batched AR engine.
+    Returns (summary, launches summed over the variants)."""
+    from specdec_tpu_torch.engine.batch_engine import (
+        batch_autoregressive_generate,
+    )
+    from specdec_tpu_torch.ngram import (
+        NGramStorage, batch_ngram_assisted_generate,
+        device_ngram_assisted_generate_batch,
+        ngram_assisted_speculative_generate,
+    )
+    from specdec_tpu_torch.ngram.native import NativeNGramStorage
+    from specdec_tpu_torch.sampling.base_decoding import (
+        autoregressive_generate,
+    )
+
+    cfg, target = pair[0], pair[2]
+    V = cfg.vocab_size
+    prompts = nasd_prompts()
+    kw = dict(gamma=NASD_GAMMA, eos_tokens_id=(), device=device)
+
+    def host(store_cls, B, carry=False):
+        def call(carried):
+            store = (carried if carry and carried is not None
+                     else store_cls(NASD_N, V))
+            if B == 1:
+                out, rate = ngram_assisted_speculative_generate(
+                    prompts[0], store, cfg, target, max_gen_len=NASD_GEN,
+                    **kw)
+                return [out], [rate], store
+            outs, rates = batch_ngram_assisted_generate(
+                prompts[:B], store, cfg, target, gen_len=NASD_GEN, **kw)
+            return outs, rates, store
+        return call
+
+    def table(B):
+        def call(carried):
+            return device_ngram_assisted_generate_batch(
+                prompts[:B], cfg, target, n=NASD_N, table=carried,
+                gen_len=NASD_GEN, **kw)
+        return call
+
+    all_variants = {f"host python B={B}": (host(NGramStorage, B), B)
+                    for B in NASD_BATCHES}
+    all_variants["host native B=1 carried"] = (
+        host(NativeNGramStorage, 1, carry=True), 1)
+    for B in NASD_BATCHES:
+        all_variants[f"device table B={B}"] = (table(B), B)
+    variants = variants or list(all_variants)
+
+    t0 = time.perf_counter()
+    n_refs = max(all_variants[v][1] for v in variants)
+    refs = {1: [autoregressive_generate(prompts[0], cfg, target,
+                                        max_gen_len=NASD_GEN,
+                                        eos_tokens_id=(), device=device)]}
+    if n_refs > 1:
+        refs[n_refs] = batch_autoregressive_generate(
+            prompts[:n_refs], cfg, target, gen_len=NASD_GEN,
+            eos_tokens_id=(), device=device)
+    say(f"[time] NASD ({label}): greedy AR references (prompt 0 alone"
+        + (f", {n_refs} prompts batched" if n_refs > 1 else "")
+        + f") in {time.perf_counter() - t0:.1f} s")
+    summary, total, parted = {}, {k: 0 for k in kernel_wrappers()}, {}
+    for name in variants:
+        call, B = all_variants[name]
+        carried, runs = None, []
+        for i in range(1 + NASD_TIMED):
+            reset_launches()
+            (outs, rates, carried), seconds = timed_call(
+                lambda: call(carried))
+            counts = launches()
+            what = f"NASD ({label}, {name}, call {i})"
+            forwards = forward_launches(what, counts, cfg, target)
+            ref = refs[1] if B == 1 else refs[n_refs][:B]
+            ties = check_greedy(what, cfg, target, prompts[:B], ref, outs,
+                                device, parted)
+            for k in total:
+                total[k] += counts[k]
+            runs.append({"seconds": seconds,
+                         "tokens": sum(len(o) for o in outs),
+                         "acceptance": float(np.mean(rates)),
+                         "windows": forwards - 1, "ties": ties,
+                         "launches": {k: n for k, n in counts.items()
+                                      if n}})
+        best = max(runs[1:], key=lambda r: r["tokens"] / r["seconds"])
+        rec = {"batch": B, "tok_s": best["tokens"] / best["seconds"],
+               "acceptance": best["acceptance"], "windows": best["windows"],
+               "runs": runs}
+        summary[name] = rec
+        say(f"[7 nasd] {label}, {name}: {rec['tok_s']:.1f} tok/s (best of "
+            f"{NASD_TIMED} timed calls after a warm one; {card}), "
+            f"acceptance {rec['acceptance']:.3f} ({runs[0]['acceptance']:.3f} "
+            f"in the warm call), {rec['windows']} windows; launches per "
+            f"call {best['launches']}; every call == greedy "
+            "AR" + (f" but for bf16 ties at tokens "
+                    f"{[r['ties'] for r in runs]}"
+                    if any(r["ties"] for r in runs) else ""))
+    # every variant prefills its batch at P = 64 on a cache of P + 128 +
+    # gamma + 2 positions and verifies gamma + 1 rows a window
+    P = 64 * max(1, -(-max(map(len, prompts)) // 64))
+    shape = (P, P + NASD_GEN + NASD_GAMMA + 2, NASD_GAMMA + 1, False)
+    forced = check_parted(f"NASD ({label})", cfg, target, parted, device,
+                          shape)
+    summary["parted_replay"] = forced
+    say(f"[7 nasd] {label}: {len(parted)} distinct outputs parted from AR; "
+        + forced_note(forced))
+    return summary, total
+
+
+def phase_nasd_serving(pair, device, card):
+    """``NasdContinuousBatcher`` on the INT4 target: 8 slots, gamma 5, the
+    serving phase's 16 prompts, 128 tokens each, greedy, at 1 and 4 windows
+    per host sync; every request equals its greedy AR tokens (the batched
+    AR engine over the same prompts; a first parting only at a top-two bf16
+    tie), and both settings give the same tokens. Launches: K1 per target
+    forward (an admission prefill or a window's verify). Returns (summary,
+    launches summed over the passes)."""
+    from specdec_tpu_torch import bench
+    from specdec_tpu_torch.engine.batch_engine import (
+        batch_autoregressive_generate,
+    )
+    from specdec_tpu_torch.serve import NasdContinuousBatcher
+
+    cfg, target = pair[0], pair[2]
+    prompts = bench.serving_prompts()
+    t0 = time.perf_counter()
+    refs = batch_autoregressive_generate(
+        prompts, cfg, target, gen_len=bench.SERVE_GEN, eos_tokens_id=(),
+        device=device)
+    say(f"[time] NASD serving: greedy AR references (batched) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    summary, total, outputs = {}, {k: 0 for k in kernel_wrappers()}, {}
+    parted = {}
+    for wps in (1, 4):
+        b = NasdContinuousBatcher(
+            cfg, target, num_slots=NASD_SLOTS, gamma=NASD_GAMMA, n=NASD_N,
+            max_prompt_len=bench.SERVE_MAX_PROMPT,
+            max_new_tokens=bench.SERVE_GEN, eos_tokens_id=(),
+            windows_per_sync=wps, device=device)
+        reset_launches()
+        rec = bench.serve_pass(b, prompts)
+        counts = launches()
+        what = f"NASD serving (windows_per_sync {wps})"
+        forwards = forward_launches(what, counts, cfg, target)
+        windows = forwards - len(prompts)
+        ties = check_greedy(what, cfg, target, prompts, refs,
+                            rec["outputs"], device, parted)
+        outputs[wps] = rec["outputs"]
+        for k in total:
+            total[k] += counts[k]
+        stacked, two_d = weight_kernels(target)
+        summary[f"windows_per_sync_{wps}"] = {
+            **{k: rec[k] for k in ("tok_s", "ttft_p50_ms", "ttft_p99_ms",
+                                   "acceptance", "seconds", "tokens")},
+            "windows": windows, "ties": ties,
+            "launches": {k: n for k, n in counts.items() if n}}
+        say(f"[7b nasd serve] windows_per_sync {wps}: {rec['tokens']} tokens "
+            f"in {rec['seconds']:.2f} s = {rec['tok_s']:.1f} tok/s ({card}), "
+            f"TTFT p50 {rec['ttft_p50_ms']:.0f} ms, p99 "
+            f"{rec['ttft_p99_ms']:.0f} ms, acceptance "
+            f"{rec['acceptance']:.3f}, {windows} windows; K1 launches "
+            f"{stacked} {counts[stacked]}, {two_d} {counts[two_d]} "
+            f"({counts[stacked] / forwards:.0f} and 1 per target forward); "
+            f"16 requests == greedy AR"
+            + (f" but for bf16 ties at tokens {ties}" if ties else ""))
+    if outputs[1] != outputs[4]:
+        fail("NASD serving: windows_per_sync 1 and 4 gave different tokens")
+    # an admission prefills one prompt padded to the longest on the
+    # batcher's cache; a window verifies gamma + 1 rows a slot
+    P = bench.SERVE_MAX_PROMPT
+    forced = check_parted("NASD serving", cfg, target, parted, device,
+                          (P, P + bench.SERVE_GEN + NASD_GAMMA + 2,
+                           NASD_GAMMA + 1, True))
+    summary["parted_replay"] = forced
+    say(f"[7b nasd serve] {len(parted)} distinct outputs parted from AR; "
+        + forced_note(forced))
+    return summary, total
+
+
+def phase_beam(pair, device, card):
+    """``beam_search_generate`` on the INT4 target, prompt 0 of the NASD
+    phase, BEAM_GEN tokens: one beam of one expansion equals greedy AR (up
+    to its first pad token, which ends a beam; a first parting only at a
+    top-two bf16 tie), BEAM_WIDE beams give the same tokens in two calls;
+    per step one target forward over the beams (K1 at M = beams). Returns
+    (summary, launches summed over the calls)."""
+    from specdec_tpu_torch.sampling.base_decoding import (
+        autoregressive_generate, beam_search_generate,
+    )
+
+    cfg, target = pair[0], pair[2]
+    prompt = nasd_prompts()[0]
+    ar = autoregressive_generate(prompt, cfg, target, max_gen_len=BEAM_GEN,
+                                 eos_tokens_id=(), device=device)
+    if 0 in ar:
+        ar = ar[:ar.index(0) + 1]
+    summary, total, outs = {}, {k: 0 for k in kernel_wrappers()}, []
+    for beams, top_k, calls in ((1, 1, 1), (BEAM_WIDE, 3, 2)):
+        for _ in range(calls):
+            reset_launches()
+            out, seconds = timed_call(lambda: beam_search_generate(
+                prompt, cfg, target, max_gen_len=BEAM_GEN, num_beams=beams,
+                top_k=top_k, eos_tokens_id=(), device=device))
+            counts = launches()
+            what = f"beam ({beams} beams)"
+            steps = forward_launches(what, counts, cfg, target) - 1
+            for k in total:
+                total[k] += counts[k]
+            outs.append(out)
+        rec = {"beams": beams, "top_k": top_k, "tokens": len(out),
+               "steps": steps, "ms_per_step": seconds / max(steps, 1) * 1e3,
+               "seconds": seconds,
+               "launches": {k: n for k, n in counts.items() if n}}
+        if beams == 1:
+            parted = {}
+            rec["ties"] = check_greedy(what, cfg, target, [prompt], [ar],
+                                       [out], device, parted)
+            # one beam: a prefill at P = 64 on P + BEAM_GEN positions, then
+            # one row a step
+            rec["parted_replay"] = check_parted(
+                what, cfg, target, parted, device,
+                (64, 64 + BEAM_GEN, 1, False))
+        elif outs[-1] != outs[-2]:
+            fail(f"beam ({beams} beams): two calls gave different tokens")
+        if not 1 <= len(out) <= BEAM_GEN:
+            fail(f"beam ({beams} beams): {len(out)} tokens")
+        summary[f"beams_{beams}"] = rec
+        stacked, two_d = weight_kernels(target)
+        say(f"[7c beam] {beams} beams, top_k {top_k}: {len(out)} tokens, "
+            f"{steps} steps, {rec['ms_per_step']:.1f} ms per step ({card}); "
+            f"K1 launches {stacked} {counts[stacked]}, {two_d} "
+            f"{counts[two_d]} (M = {beams})"
+            + (f"; == greedy AR; {forced_note(rec['parted_replay'])}"
+               if beams == 1 else "; two calls gave the same tokens"))
+    return summary, total
+
+
 def with_config(pair, **cfg_kw):
     """The pair with both configs changed (the weights do not depend on the
     KV format or the attention kernel): what ``bench.build_pair(device,
@@ -1653,6 +2178,8 @@ def main():
     phase_serve_oracle(device, "int8 KV, flash", **KVINT8_FLASH)
     phase_serve_oracle(device, kind="int8")
     stamp("4-4b oracles")
+    phase_dispatch(device)
+    stamp("4c dispatch")
     int8_pair = with_config(pair, **KVINT8_FLASH)
     summary, launches_main = phase_main(pair, device)
     stamp("5 single sequence, bf16 KV")
@@ -1677,6 +2204,17 @@ def main():
     fmt_main["nf4"]["serving"], serve_launches_nf4 = phase_serve(
         pairs["nf4"], device, "nf4 weights", engines=("paged",))
     stamp("6 serving")
+    nasd, launches_nasd = phase_nasd(pair, device, card)
+    nasd_int8, launches_nasd_int8 = phase_nasd(
+        int8_pair, device, card, "int8 KV, flash", NASD_INT8_VARIANTS)
+    stamp("7 NASD")
+    nasd_serving, launches_nasd_serve = phase_nasd_serving(pair, device,
+                                                           card)
+    stamp("7b NASD serving")
+    summary["beam"], launches_beam = phase_beam(pair, device, card)
+    stamp("7c beam")
+    summary["nasd"] = {"bf16 KV": nasd, "int8 KV, flash": nasd_int8,
+                       "serving": nasd_serving, "card": card}
     summary["kvint8_flash"] = dict(int8_main, serving=int8_serving,
                                    prefill_logit_rel_err=kv_err)
     summary["flash"] = flash_main
@@ -1697,7 +2235,11 @@ def main():
              "spec_decode_kvint8_flash": launches_int8[key],
              "spec_decode_flash": launches_flash[key],
              "serving": serve_launches[key],
-             "serving_kvint8_flash": serve_launches_int8[key]}))
+             "serving_kvint8_flash": serve_launches_int8[key],
+             "nasd": launches_nasd[key],
+             "nasd_kvint8_flash": launches_nasd_int8[key],
+             "nasd_serving": launches_nasd_serve[key],
+             "beam": launches_beam[key]}))
     # K6: one kernel for both codecs; the top-level times are NF4's (the
     # JAX package's default codec), FP4's beside them
     for key, name, line in (("K6b", "q4_halfplane_matmul (stacked layer)",
@@ -1768,8 +2310,9 @@ def main():
         flash_err["K4"], top(flash_records["K4"], "decode"),
         work + "int8 K/V, bf16 q",
         {"spec_decode_kvint8_flash": launches_int8["K4"],
-         "serving_kvint8_flash": serve_launches_int8["K4"]}))
-    say(f"[7 done] all phases passed in {time.perf_counter() - t0:.1f} s; "
+         "serving_kvint8_flash": serve_launches_int8["K4"],
+         "nasd_kvint8_flash": launches_nasd_int8["K4"]}))
+    say(f"[8 done] all phases passed in {time.perf_counter() - t0:.1f} s; "
         f"largest kernel-vs-plain abs error {max_err:.3g} (INT4), "
         + ", ".join(f"{fmt_records[q][1]:.3g} ({q})" for q in QUANTS) + ", "
         f"{paged_err['bf16']:.3g} / {paged_err['int8']:.3g} (paged "

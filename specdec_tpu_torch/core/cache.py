@@ -169,3 +169,12 @@ def zero_slot(cache, slot: int, new_len):
     for name in storage_fields(cache):
         getattr(cache, name)[:, slot].zero_()
     return with_row_length(cache, slot, new_len)
+
+
+def gather_rows(cache, rows: torch.Tensor):
+    """A cache (slotted, either format) whose batch row i is ``cache``'s
+    row ``rows[i]``, in every storage field (int8 scales too) and in the
+    length: beam search's reordering. The gathered storage is new."""
+    fields = {name: getattr(cache, name)[:, rows]
+              for name in storage_fields(cache)}
+    return dataclasses.replace(cache, length=cache.length[rows], **fields)

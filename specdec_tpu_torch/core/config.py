@@ -44,7 +44,9 @@ class ModelConfig:
     logit_softcap: float = 0.0
     # slotted-cache attention: "xla" is the plain PyTorch attention, "flash"
     # the flash-decode kernel (ops/decode_attention.py) unless the model
-    # soft-caps its logits; the paged forward always takes its own kernel
+    # soft-caps its logits or has a head_dim the kernel does not take
+    # (core/model.py::kernel_route); the paged forward takes its own kernel
+    # under the same rule
     attention_impl: str = "xla"
     # "none" | "int8": int8 K/V with a per-(position, head) f32 scale
     # (QuantKVCache, QuantPagedKVCache), in every cache the model allocates

@@ -38,6 +38,7 @@ from specdec_tpu_torch.core.paged_cache import (
     write_block_paged_stacked,
 )
 from specdec_tpu_torch.core.rope import apply_rope, rope_cos_sin
+from specdec_tpu_torch.ops.attention_args import kernel_takes
 from specdec_tpu_torch.quant.core import QUANTIZED, StackedSlice, qmatmul
 
 Params = Dict[str, Any]
@@ -121,17 +122,27 @@ def masked_attention(q, k_all, v_all, q_pos, num_kv_heads: int,
     return out.reshape(B, T, Hq * Dh)
 
 
+def kernel_route(cfg: ModelConfig) -> bool:
+    """Whether the config's attention can run on the attention kernels: no
+    logit softcap (the kernels have none) and a head_dim and activation
+    type the kernel body takes (``ops/attention_args.kernel_takes``; int8
+    K/V under ``kv_quant="int8"``). Decided from the config alone, before
+    any launch, as the JAX dispatch decides what its kernel cannot hold."""
+    return cfg.logit_softcap == 0.0 and kernel_takes(
+        cfg.head_dim, cfg.dtype, cfg.kv_quant == "int8")
+
+
 def attention(cfg: ModelConfig, q, k_all, v_all, q_pos,
               k_scale: Optional[torch.Tensor] = None,
               v_scale: Optional[torch.Tensor] = None):
     """Cached attention over dense [B, S, Hk, Dh] K/V (the counterpart of
     the JAX ``_attention``): the flash-decode kernel (K3, or K4 for int8
     K/V; ``ops/decode_attention.py``) when ``cfg.attention_impl == "flash"``
-    and the model does not soft-cap, else ``masked_attention``. The kernel
-    tiles query rows over blocks, so any T takes it, dense prefills
-    included. Returns [B, T, Hq * Dh]."""
+    and ``kernel_route(cfg)``, else ``masked_attention``. The kernel tiles
+    query rows over blocks, so any T takes it, dense prefills included.
+    Returns [B, T, Hq * Dh]."""
     B, T = q.shape[:2]
-    if cfg.attention_impl == "flash" and cfg.logit_softcap == 0.0:
+    if cfg.attention_impl == "flash" and kernel_route(cfg):
         from specdec_tpu_torch.ops import decode_attention as da
 
         if k_scale is not None:
@@ -295,19 +306,24 @@ def forward_step_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     stacks (``ops/paged_attention.py``: K8a, or K8b for int8 pools; on a
     CPU tensor the wrapper computes the plain version).
 
-    ``use_kernel=None`` takes the kernel unless the model soft-caps its
-    attention logits, which the kernel does not do; such models gather the
-    pages (and scales) and run ``attention``, as the JAX dispatch does.
-    ``True`` forces the kernel (and raises for a softcap model), ``False``
-    the gather path. The CUDA kernel tiles query rows over blocks, so any T
-    takes it."""
+    ``use_kernel=None`` takes the kernel where ``kernel_route(cfg)``: not
+    for a model that soft-caps its attention logits, which the kernel does
+    not do, nor for a head_dim the kernel has no instance for (above 128);
+    such models gather the pages (and scales) and run ``attention``, as the
+    JAX dispatch does. ``True`` forces the kernel (and raises for such a
+    model before any launch), ``False`` the gather path. The CUDA kernel
+    tiles query rows over blocks, so any T takes it."""
     from specdec_tpu_torch.ops import paged_attention as pa
 
     if use_kernel is None:
-        use_kernel = cfg.logit_softcap == 0.0
+        use_kernel = kernel_route(cfg)
     elif use_kernel and cfg.logit_softcap != 0.0:
         raise ValueError("the paged attention kernel has no logit softcap; "
                          "use_kernel=True needs logit_softcap == 0")
+    elif use_kernel and not kernel_route(cfg):
+        raise ValueError(f"the paged attention kernel does not take "
+                         f"head_dim {cfg.head_dim} with {cfg.dtype} "
+                         f"activations (kv_quant={cfg.kv_quant!r})")
     B, T = tokens.shape
     q_pos = _positions(cache, T)
     table, offsets = cache.page_table, cache.length

@@ -4,7 +4,9 @@ constants and shared memory of the kernel body both launch,
 ``csrc/flash_decode.cuh``.
 
 A wrapper raises on anything the kernel does not take; there is no
-fallback to the plain version for a CUDA tensor.
+fallback to the plain version for a CUDA tensor. The model's dispatch asks
+``kernel_takes`` first, from the config, and sends a head_dim the kernel
+does not take to the plain attention before any launch.
 """
 from __future__ import annotations
 
@@ -40,6 +42,16 @@ def shared_bytes(head_dim: int, q_dtype: torch.dtype, quant: bool) -> int:
     merge = ROWS * (WARPS + 2 + 2 * MAX_CLUSTER) * 4
     return (max(ring, inbox) + partial + f32 + merge
             + ROWS * (head_dim + 2) * 4 + STAGES * TILE * 8)
+
+
+def kernel_takes(head_dim: int, q_dtype: torch.dtype, quant: bool) -> bool:
+    """Whether the kernel body has an instance for this head_dim and q's
+    type: q float32 or bf16, head_dim a multiple of 8 (16 over int8 K/V)
+    up to MAX_HEAD_DIM, and a block's shared memory within the card's."""
+    vec = 16 if quant else 8
+    return (q_dtype in DTYPE_CODE and head_dim <= MAX_HEAD_DIM
+            and head_dim % vec == 0
+            and shared_bytes(head_dim, q_dtype, quant) <= MAX_SHARED_BYTES)
 
 
 def check_kv_args(name: str, q, k, v, k_scale, v_scale, smem: int):

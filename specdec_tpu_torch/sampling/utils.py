@@ -45,3 +45,23 @@ def normalize_eos(eos_tokens_id) -> Tuple[int, ...]:
     if isinstance(eos_tokens_id, int):
         return (eos_tokens_id,)
     return tuple(int(t) for t in eos_tokens_id)
+
+
+def stable_top_k(x: torch.Tensor, k: int):
+    """(values, indices) of the k largest entries over the last axis, in
+    descending order, equal values in ascending index order: the order of
+    ``lax.top_k``. A stable sort, where ``torch.topk`` leaves the order of
+    ties unspecified."""
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+def prefill_generator(generator: torch.Generator) -> torch.Generator:
+    """A generator of its own for a prefill's draws, seeded by one draw
+    from ``generator`` (a host read), so the prefill's samples and the
+    windows' come from separate streams: the counterpart of the JAX
+    package's prefill key, ``fold_in(key, 2**31 - 1)``, which no window's
+    key can equal."""
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                             device=generator.device).item())
+    return torch.Generator(device=generator.device).manual_seed(seed)

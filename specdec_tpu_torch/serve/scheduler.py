@@ -179,6 +179,12 @@ class ContinuousBatcher:
             accepted=torch.zeros((B,), dtype=torch.int32, device=dev),
             speculated=torch.zeros((B,), dtype=torch.int32, device=dev),
         )
+        self._init_host_state()
+
+    def _init_host_state(self):
+        """Queue and slot bookkeeping, shared by every batcher (the NASD
+        batcher builds its own device state and reuses this)."""
+        B = self.B
         self.queue: List[Request] = []
         self.slot_req: List[Optional[Request]] = [None] * B
         self._slot_first_token: List[Optional[float]] = [None] * B

@@ -39,7 +39,13 @@ def test_import_leaves_jax_unloaded():
             "specdec_tpu_torch.core.paged_cache, "
             "specdec_tpu_torch.ops.paged_attention, "
             "specdec_tpu_torch.ops.decode_attention, "
-            "specdec_tpu_torch.ops.quant_matmul; "
+            "specdec_tpu_torch.ops.quant_matmul, "
+            "specdec_tpu_torch.ngram, specdec_tpu_torch.ngram.native, "
+            "specdec_tpu_torch.ngram.device_assisted, "
+            "specdec_tpu_torch.serve.nasd_scheduler, "
+            "specdec_tpu_torch.engine.infer_engine, "
+            "specdec_tpu_torch.engine.metrics, "
+            "specdec_tpu_torch.sampling.base_decoding; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; "
             "assert not bad, bad; print('ok')")
