@@ -12,14 +12,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    plain PyTorch version at every shape the main paths give it (M = 1, 2,
    13, 64 for single-sequence decoding; 8, 72, 256 for the serving engine's
    draft step, verify and admission prefill; 4 for a beam step, 6, 24, 48
-   for NASD's verify at B = 1, 4, 8 and 512 for its B = 8 prefill; M = 33
-   and up share one kernel instance), on the main path's own
-   weights; its time beside the plain version's, a bf16 ``torch.matmul`` on
-   pre-dequantized weights (a yardstick the port never calls) and the
-   bound; the share of output elements bit-equal to the plain version's
-   (at least MIN_BIT_EQUAL); a check that a row's result does not depend on
-   how many rows share the call; and the two ragged shapes of K6 below, on
-   random weights quantized on the card;
+   for NASD's verify at B = 1, 4, 8 and 512 for its B = 8 prefill; 3, 15,
+   16 for the trees' drafter levels and verifies, 5 and 9 for EAGLE's
+   catch-up and gamma-8 verify; M = 33 and up share one kernel instance),
+   on the main path's own weights; its time beside the plain version's, a
+   bf16 ``torch.matmul`` on pre-dequantized weights (a yardstick the port
+   never calls) and the bound; the share of output elements bit-equal to
+   the plain version's (at least MIN_BIT_EQUAL); a check that a row's
+   result does not depend on how many rows share the call; and the two
+   ragged shapes of K6 below, on random weights quantized on the card,
+   through the 2D wrapper and through the stacked one (layer 1 of a stack
+   of 2, whose fields start off any 16-byte line);
 3b. kernel vs plain, paged attention: the paged decode-attention kernel,
    through both wrappers (a 4D pool, and a layer of stacked pools, which
    must agree bit for bit), against its plain version in float32 and bf16
@@ -34,7 +37,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    the main paths give it (single sequence B=1, S=334, T = 1, 2, 13, 64;
    the serving drafter B=8, T = 1, 2 over the batcher's S; the admission
    prefill T=256), at qwen3-family heads (decode and verify, Dh=128) and
-   at S=2048 (8 spans of 4 tiles), offsets up to S; a row's result must
+   at S=2048 (8 spans of 4 tiles), and EAGLE's int8 + flash catch-ups
+   and verify (T = 5, 6 over S = 327, 337), offsets up to S; a row's
+   result must
    not depend on T (at S=334 and 2048), nor a sequence's on the rest of its
    batch (each alone at B=1, bit for bit); over the same keys laid out in
    pages of 64, K3/K4 equal the paged kernel K8a/K8b bit for bit (one
@@ -48,7 +53,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    K6 (as K1) at K = 768, so K % 512 = 256, and N = 1000, not a multiple of
    its column tiles, or N = 1001, odd; K7 at K = 1000, N = 1000 (K % 256 !=
    0, N % 32 = 8) and K = 1001, N = 1004 (odd K: x's rows are unaligned and
-   take the scalar staging). Phase 2 rebuilds every kernel (K1, K6, K7,
+   take the scalar staging), each through both wrappers as in phase 3.
+   Phase 2 rebuilds every kernel (K1, K6, K7,
    the flash-decode and the paged attention kernels) and fails if ptxas
    reports a register spill in any of their instances. With ``--against
    NAME=SRC`` (NAME a kernel's library in ``_build.SIGNATURES``; SRC
@@ -96,12 +102,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    no attention kernel launched, logits equal to the plain path's, and
    ``use_kernel=True`` raising before any launch;
 7. NASD on the INT4 target of phase 5, greedy (tools/bench_nasd.py's
-   protocol: n = 3, gamma 5, 128 tokens, prompts from default_rng(3)):
+   protocol, cut to 64 tokens: n = 3, gamma 5, prompts from
+   default_rng(3)):
    the host store in Python at B = 1, 4 and 8 (fresh each call), the C++
    store at B=1 (carried from call to call, so that its drafts are
    accepted in part and the cache rolls back), and the device table at
    B = 1, 4 and 8 (ragged prompts of 40-60 tokens, the table carried);
-   each one warm and two timed calls, every call equal to greedy AR per
+   each one warm and one timed call, every call equal to greedy AR per
    prompt (a first parting only at a top-two bf16 tie; every token of a
    parted output then the target's argmax over its own prefix, within
    that tie, in a replay of the engine's computation), K1 launched per
@@ -116,6 +123,34 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 7c. beam search on the same target: one beam of one expansion equals
    greedy AR (a parted output replayed as in phase 7), four beams give
    the same tokens twice; ms per step and K1 launches (M = beams).
+4d. tree oracles (full widths, 2 layers, float32 activations, K1 on every
+   projection): greedy tree speculation with a 1-layer prefix drafter and
+   greedy EAGLE trees with an untrained 1-layer head, at (2, 2, 1, 1),
+   (3, 2, 1) and (4, 2), each equal to greedy AR up to a top-two bf16
+   tie; (3, 2, 1) again under int8 KV + flash and under bf16 + flash,
+   where the launches show K4 (K3) on every sequential forward and on no
+   tree forward;
+8. trees at full depth, tools/bench_tree.py's protocol on the pair of
+   phase 5 (a 60-token prompt from default_rng(0), 256 tokens, greedy):
+   (2, 2, 2), (3, 2, 1) and (4, 2) at tail damp 0.08 and 0.35, (2, 2, 2)
+   under INT8 weights (K7) and under int8 KV + flash, a warm and a timed
+   call each; a sampled (2, 2, 2) call twice from one seed gives the same
+   tokens; tok/s, chain-depth acceptance, windows, launches as implied;
+   every greedy output equal to greedy AR up to a first tie, a parted one
+   replayed in the engine's shape;
+8b. EAGLE on the same target (tools/bench_eagle.py's protocol, 256
+   tokens), an untrained depth-1 head made on the card from a seed: chain
+   gamma 3, 5, 8 sampled, chain gamma 5 greedy (GreedyProcessor at
+   temperature 1e-4, where acceptance is exact-match), the greedy trees
+   (3, 2, 1), (2, 2, 2), (4, 2), each greedy output equal to greedy AR up
+   to a tie (replayed); chain gamma 5 and tree (2, 2, 2) under int8 KV +
+   flash; K1a on every head forward, K4 on every sequential forward;
+8c. EAGLE batched and served: ``batch_eagle_generate`` at B=8 on the
+   serving phase's prompts, 128 tokens, greedy, gamma 5, and
+   ``EagleContinuousBatcher`` (8 slots) on all 16 at 1 and 4 windows per
+   sync: the same tokens, each request equal to the batch engine's (and
+   that to greedy AR) up to a tie; tok/s, TTFT, acceptance, windows, K1
+   launches (M = 48 a verify, 256 an admission).
 
 Any failed phase exits 1 (without a CUDA device, or outside a checkout,
 too, before any result is printed). Standard output ends with the card's
@@ -148,7 +183,9 @@ BF16_OPS_PER_S = 989e12
 STACKED = [("wqkv", 2048, 2560), ("wo", 2048, 2048),
            ("w_gateup", 2048, 11264), ("w_down", 5632, 2048)]
 LM_HEAD = ("lm_head", 2048, 32000)
-# ragged shapes, by weight format, through the 2D wrapper. K1 and K6: K %
+# ragged shapes, by weight format, through the 2D wrapper and through the
+# stacked one (layer 1 of a stack of 2, its fields off any 16-byte line).
+# K1 and K6: K %
 # 512 = 256 and N not a multiple of their column tiles; an odd N also takes
 # the scalar loads and stores. K7: K % 256 != 0 (a partial last chunk), N %
 # 32 = 8 (a partial column group); an odd K leaves x's rows unaligned, which
@@ -165,9 +202,13 @@ WEIGHT_LIBS = {"int4": "int4_pair_matmul", "int8": "int8_matmul",
 # (8 slots, gamma 8): draft step, verify, admission prefill (256); beam
 # search: a step of 4 beams (their prefill 256); NASD (gamma 5): the verify
 # at B = 1, 4, 8 (6, 24, 48; NASD serving's 8 slots 48) and the prefill at
-# B = 8 (512; B = 1 and 4: 64 and 256). K1's instances split M at 8, 16
-# and 32: each instance of every main path is held to the plain version
-ROWS = (1, 2, 4, 6, 8, 13, 24, 48, 64, 72, 256, 512)
+# B = 8 (512; B = 1 and 4: 64 and 256); trees: the drafter's levels (1-8
+# nodes: 3 and 6 for (3, 2, 1)), the verify of (4, 2), (2, 2, 2) and (3, 2,
+# 1) (13, 15, 16 nodes); EAGLE: the chain verify at gamma 3, 5, 8 (4, 6,
+# 9), the head's catch-up (gamma + 1, a tree's depth + 2: 4, 5) on the
+# lm_head, its serving verify (48). K1's instances split M at 8, 16 and
+# 32: each instance of every main path is held to the plain version
+ROWS = (1, 2, 3, 4, 5, 6, 8, 9, 13, 15, 16, 24, 48, 64, 72, 256, 512)
 # kernel vs plain: relative Frobenius error and elementwise tolerance (the
 # JAX package's kernel-vs-oracle tolerance, tests/test_quant.py); both
 # sides round x and y to bf16 (and NF4/FP4 each weight, identically) and
@@ -238,10 +279,14 @@ BF16_U = 2.0 ** -8
 # draft step), 2 (drafter catch-up), 13 (gamma-12 verify) and 64 (prefill);
 # serving: the slotted drafter's draft step and catch-up over the batcher's
 # S = 256 + 128 + 8 + 2, 8 slots, and the dense admission prefill of
-# max_prompt_len = 256 rows; decode and verify at qwen3-family heads; and a
+# max_prompt_len = 256 rows; decode and verify at qwen3-family heads; a
 # verify and a prefill at the config's 2048 positions, where the kernel's 8
-# spans hold 4 tiles each. Offsets reach S - T.
+# spans hold 4 tiles each; and EAGLE's sequential forwards under int8 KV +
+# flash (phase 8b): the chain's catch-up and verify (T = 6, gamma 5) over
+# its S = 64 + 256 + 5 + 2, the (2, 2, 2) tree's catch-up (T = 5) over
+# S = 64 + 256 + 15 + 2. Offsets reach S - T.
 SINGLE_S, SERVE_S, LONG_S = 334, 394, 2048
+EAGLE_S, EAGLE_TREE_S = 327, 337
 FLASH_SHAPES = [
     ("decode", 1, SINGLE_S, 1, [333], PAIR_HEADS),
     ("catch-up", 1, SINGLE_S, 2, [150], PAIR_HEADS),
@@ -256,6 +301,9 @@ FLASH_SHAPES = [
     ("qwen3-verify", 1, SINGLE_S, 13, [321], QWEN3_HEADS),
     ("long-verify", 1, LONG_S, 13, [2030], PAIR_HEADS),
     ("long-prefill", 1, LONG_S, 64, [1900], PAIR_HEADS),
+    ("eagle-catch-up", 1, EAGLE_S, 6, [180], PAIR_HEADS),
+    ("eagle-verify", 1, EAGLE_S, 6, [321], PAIR_HEADS),
+    ("eagle-tree-catch-up", 1, EAGLE_TREE_S, 5, [300], PAIR_HEADS),
 ]
 # row independence: the rows of a T=64 call at one offset against the same
 # rows of calls at smaller T, over a cache of each capacity (S, offset)
@@ -454,15 +502,20 @@ def phase_kernel(target, device, phase="3 kernel", against=None):
     records, max_err = [], 0.0
     cases = [(name, K, N, layer) for name, K, N in STACKED
              for layer in (0, 21)] + [LM_HEAD + (None,)]
-    cases += [shape + (None,) for shape in RAGGED.get(fmt, ())]
+    # the ragged shapes through the 2D wrapper and through the stacked one
+    # (layer 1 of a stack of 2, whose fields start off any 16-byte line)
+    cases += [shape + (layer,) for shape in RAGGED.get(fmt, ())
+              for layer in (None, 1)]
     for name, K, N, layer in cases:
         if name in RAGGED_NAMES:
-            # random weights quantized on the card, through the 2D wrapper
+            # random weights quantized on the card
             w = getattr(qc, f"quantize_{fmt}")(
-                torch.randn((K, N), generator=gen, device=device) * 0.02)
+                torch.randn((K, N) if layer is None else (2, K, N),
+                            generator=gen, device=device) * 0.02)
 
-            def kern(x, w=w):
-                return qm.quant_matmul(x, w)
+            def kern(x, w=w, layer=layer):
+                return (qm.quant_matmul(x, w) if layer is None
+                        else qm.quant_matmul_stacked(x, w, layer))
         elif layer is None:
             w = target["lm_head"]
 
@@ -1249,11 +1302,13 @@ def phase_main(pair, device, label="bf16 KV"):
                               gamma, proc, device, reps=reps)
     total = launches()
 
-    for run in ar["runs"] + spec["runs"]:
-        if run["tokens"] != gen or not all(0 <= t < bench.V
-                                           for t in run["ids"]):
-            fail(f"main path ({label}): {run['tokens']} tokens (expected "
-                 f"{gen}) or a token outside the vocabulary")
+    for runs in (ar["runs"], spec["runs"]):
+        # the warm-up call runs bench.WARM_GEN tokens, the timed ones gen
+        for run, n in zip(runs, [bench.WARM_GEN] + [gen] * reps):
+            if run["tokens"] != n or not all(0 <= t < bench.V
+                                             for t in run["ids"]):
+                fail(f"main path ({label}): {run['tokens']} tokens "
+                     f"(expected {n}) or a token outside the vocabulary")
     for run in spec["runs"]:
         if not 0.0 < run["acceptance"] <= 1.0:
             fail(f"main path ({label}): acceptance {run['acceptance']}")
@@ -1585,16 +1640,18 @@ def phase_serve(pair, device, label="bf16 KV", engines=("paged", "slotted")):
 # pair's width, 2 layers: a head_dim the attention kernels do not take
 DH256_HEADS = (8, 1, 256)
 # NASD and beam search, tools/bench_nasd.py's protocol: greedy, n = 3,
-# gamma 5, 128 tokens; prompts from default_rng(3), the first of 60 tokens,
-# the rest ragged, 40-60
-NASD_N, NASD_GAMMA, NASD_GEN = 3, 5, 128
+# gamma 5; prompts from default_rng(3), the first of 60 tokens, the rest
+# ragged, 40-60. The benchmark decodes 128 tokens; 64 here, one timed
+# call after the warm one, and 32 tokens of beam search, so that the run
+# holds the tree and EAGLE phases within its time
+NASD_N, NASD_GAMMA, NASD_GEN = 3, 5, 64
 NASD_BATCHES = (1, 4, 8)
-NASD_TIMED = 2
+NASD_TIMED = 1
 # under int8 KV + flash (K4 in every verify): these variants only
 NASD_INT8_VARIANTS = ("host native B=1 carried", "device table B=4")
 # NASD serving: the serving phase's 16 prompts and 128 tokens, 8 slots
 NASD_SLOTS = 8
-BEAM_GEN, BEAM_WIDE = 64, 4
+BEAM_GEN, BEAM_WIDE = 32, 4
 ATTENTION_KERNELS = ("K2", "K8a", "K5", "K8b", "K3", "K4")
 
 
@@ -1694,7 +1751,8 @@ def nasd_prompts():
     return [[int(t) for t in rng.integers(1, 32000, size=n)] for n in lens]
 
 
-def teacher_forced(what, cfg, params, prompts, outs, device, shape):
+def teacher_forced(what, cfg, params, prompts, outs, device, shape,
+                   root=False, step_cfg=None, max_ulps=2):
     """Every token of every output is the target's argmax over its own
     prefix, or within greedy_tie's two bf16 ulps below it, in a replay of
     the engine's computation: ``shape`` = (P, S, T, admit): the prompts
@@ -1705,11 +1763,17 @@ def teacher_forced(what, cfg, params, prompts, outs, device, shape):
     row is the same bits at every row count). A forward over the whole
     sequence at once is not such a replay: its attention reduces in
     another order, which moves a logit by more than the tie rule allows.
-    Returns (tokens checked, tokens not the argmax, largest gap in
-    ulps)."""
+    ``root``: the engine re-forwards the prompt's last token in its first
+    window (the tree loops), so the first token comes from such a forward
+    too, not from the prefill. ``step_cfg``: the config of those forwards
+    where it differs from the prefill's (a tree verify attends in the
+    plain attention under every setting). ``max_ulps``: the largest gap
+    allowed (TREE_REPLAY_ULPS for the tree engines). Returns (tokens
+    checked, tokens not the argmax, largest gap in ulps)."""
     from specdec_tpu_torch.core.cache import init_cache, install_slot
     from specdec_tpu_torch.core.model import forward_step
 
+    step_cfg = step_cfg or cfg
     P, S, T, admit = shape
     N, L = len(prompts), max(map(len, outs))
     lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
@@ -1735,12 +1799,13 @@ def teacher_forced(what, cfg, params, prompts, outs, device, shape):
     else:
         lg, cache = forward_step(cfg, params, padded, cache)
         rows = lg[torch.arange(N, device=device), (lens - 1).long()]
+    last = padded[torch.arange(N, device=device), (lens - 1).long()]
     gaps = []
     for j in range(L):
-        if j:
+        if j or root:
             t_in = torch.zeros((N, T), dtype=torch.int64, device=device)
-            t_in[:, 0] = out_t[:, j - 1]
-            lg, cache = forward_step(cfg, params, t_in,
+            t_in[:, 0] = out_t[:, j - 1] if j else last
+            lg, cache = forward_step(step_cfg, params, t_in,
                                      cache.with_length(lens + j - 1))
             rows = lg[:, 0]
         rows = rows.float()
@@ -1750,12 +1815,13 @@ def teacher_forced(what, cfg, params, prompts, outs, device, shape):
                          - 7)
         gaps.append(torch.where(live[:, j], gap / ulp, 0.0))
     ratio = torch.stack(gaps, dim=1)                               # [N, L]
-    if (ratio > 2).any():
+    if (ratio > max_ulps).any():
         # the first token past the tie rule, by position
-        j, i = (ratio > 2).t().nonzero()[0].tolist()
+        j, i = (ratio > max_ulps).t().nonzero()[0].tolist()
         fail(f"{what}: token {j} ({outs[i][j]}) of a sequence of prompt "
              f"length {len(prompts[i])} is {ratio[i, j].item():.2f} bf16 "
-             "ulps below the target's argmax over its prefix (at most 2)")
+             f"ulps below the target's argmax over its prefix (at most "
+             f"{max_ulps})")
     return (int(live.sum()), int((ratio > 0).sum()), ratio.max().item())
 
 
@@ -1776,13 +1842,15 @@ def check_greedy(what, cfg, params, prompts, refs, outs, device, parted):
     return ties
 
 
-def check_parted(what, cfg, params, parted, device, shape):
+def check_parted(what, cfg, params, parted, device, shape, **replay):
     """``teacher_forced`` over every distinct parted output, in one
-    replay; (0, 0, 0.0) if none parted. Returns its counts."""
+    replay (``replay``: its ``root`` and ``step_cfg``); (0, 0, 0.0) if none
+    parted. Returns its counts."""
     if not parted:
         return 0, 0, 0.0
     return teacher_forced(what, cfg, params, list(parted.values()),
-                          [list(o) for _, o in parted], device, shape)
+                          [list(o) for _, o in parted], device, shape,
+                          **replay)
 
 
 def forced_note(forced):
@@ -1922,7 +1990,7 @@ def phase_nasd(pair, device, card, label="bf16 KV", variants=None):
                "runs": runs}
         summary[name] = rec
         say(f"[7 nasd] {label}, {name}: {rec['tok_s']:.1f} tok/s (best of "
-            f"{NASD_TIMED} timed calls after a warm one; {card}), "
+            f"{NASD_TIMED} timed call(s) after a warm one; {card}), "
             f"acceptance {rec['acceptance']:.3f} ({runs[0]['acceptance']:.3f} "
             f"in the warm call), {rec['windows']} windows; launches per "
             f"call {best['launches']}; every call == greedy "
@@ -2069,6 +2137,500 @@ def phase_beam(pair, device, card):
     return summary, total
 
 
+# ---------------------------------------------------------------------------
+# Trees and EAGLE: oracles at 2 layers (4d), trees at full depth (8), EAGLE
+# single sequence (8b), EAGLE batched and serving (8c)
+# ---------------------------------------------------------------------------
+
+# phase 4d: 2 layers at full widths, f32 activations, K1 on every
+# projection, 64 tokens; a 1-layer prefix drafter and a 1-layer EAGLE head
+ORACLE_TREES = ((2, 2, 1, 1), (3, 2, 1), (4, 2))
+ORACLE_GEN = 64
+# phase 8, tools/bench_tree.py's protocol: a 60-token prompt from
+# default_rng(0) (bench.bench_prompt()), 256 tokens, greedy, at its two
+# tail damps (the drafter strong and weak)
+TREES = ((2, 2, 2), (3, 2, 1), (4, 2))
+TREE_DAMPS = (0.08, 0.35)
+TREE_GEN = 256
+# the replay's tie rule for the tree engines. A tree verify sums each
+# node's attention over its ancestors at their tree slots, with the
+# other nodes' slots masked in between; the replay sums over contiguous
+# positions. Where such a sum sits near a bf16 rounding boundary the two
+# round apart, and 22 layers carry it on: on an H100 a parted token lay
+# 3.00 ulps below the replay's argmax, where the sequential engines'
+# replays (phases 7-7c) stay within 1
+TREE_REPLAY_ULPS = 4
+# phase 8b, tools/bench_eagle.py's protocol at 256 tokens (it decodes
+# 512): an untrained depth-1 head made on the card from EAGLE_SEED
+EAGLE_GAMMAS = (3, 5, 8)
+EAGLE_GAMMA = 5
+EAGLE_SEED = 7
+# greedy chain EAGLE runs GreedyProcessor at this temperature: its
+# softmaxes saturate, so a draft is accepted iff it is the target's argmax
+# and a rejection commits the argmax, whatever the acceptance draws (at
+# temperature 1 the draws decide, and the tokens are not greedy AR's)
+GREEDY_T = 1e-4
+# phase 8c: the serving phase's prompts and tokens, 8 slots, gamma 5
+EAGLE_SLOTS = 8
+
+
+def expect_launches(what, counts, params, cfg, forwards):
+    """Fail unless ``counts`` are exactly what ``forwards`` launch: a list
+    of (calls, quantized layers, lm_heads, attention layers) per kind of
+    forward. Each quantized layer launches the weight format's stacked
+    kernel 4 times, each lm_head its 2D kernel once, and each attention
+    layer of a sequential forward the slotted attention kernel under
+    ``attention_impl="flash"`` (tree forwards attend in the plain
+    attention: 0). Nothing else launches."""
+    stacked, two_d = weight_kernels(params)
+    attn = slotted_attention_kernel(cfg)
+    want = {k: 0 for k in counts}
+    for calls, layers, heads, attn_layers in forwards:
+        want[stacked] += 4 * layers * calls
+        want[two_d] += heads * calls
+        if attn is not None:
+            want[attn] += attn_layers * calls
+    if counts != want:
+        fail(f"{what}: launches {counts}, expected {want}")
+    return {k: n for k, n in counts.items() if n}
+
+
+def tree_forwards(kind, t_cfg, d_cfg, topo, windows, gamma=None):
+    """The forwards of one call of a tree or EAGLE loop, for
+    ``expect_launches``. ``kind``: "tree" (the prefix drafter: both
+    prefills, d drafter levels with logits and the last without, a tree
+    verify a window), "eagle tree" (the target's prefill; a catch-up and
+    d-1 tree levels of the dense head, a tree verify) or "eagle" (chain:
+    a catch-up and gamma-1 steps of the head, a sequential verify)."""
+    L, Ld = t_cfg.num_layers, d_cfg.num_layers
+    if kind == "tree":
+        d = topo.depth
+        return [(1, L, 1, L), (1, Ld, 1, Ld), (windows * d, Ld, 1, 0),
+                (windows, Ld, 0, 0), (windows, L, 1, 0)]
+    if kind == "eagle tree":
+        return [(1, L, 1, L), (windows, 0, 1, Ld),
+                (windows * (topo.depth - 1), 0, 1, 0), (windows, L, 1, 0)]
+    return [(1, L, 1, L), (windows * gamma, 0, 1, Ld), (windows, L, 1, L)]
+
+
+def run_tree(kind, cfgs, params, prompt, topo, gen, device, processor=None,
+             seed=0, gamma=None):
+    """One call of a tree or EAGLE loop through its inner function (which
+    also returns the windows). ``cfgs`` = (target config, drafter or head
+    config); ``params`` = (target, drafter or head). Returns ((tokens,
+    acceptance, windows), seconds)."""
+    from specdec_tpu_torch.sampling.eagle_speculative import _eagle_generate
+    from specdec_tpu_torch.sampling.eagle_tree import _eagle_tree_generate
+    from specdec_tpu_torch.sampling.tree_speculative import (
+        _tree_spec_generate,
+    )
+
+    (t_cfg, d_cfg), (target, drafter) = cfgs, params
+    gen_t = torch.Generator(device=device).manual_seed(seed)
+
+    def call():
+        if kind == "eagle":
+            out, acc, spec, log = _eagle_generate(
+                prompt, d_cfg, drafter, t_cfg, target, gamma, gen, processor,
+                (), True, False, gen_t, 0, device)
+            return out, acc / spec if spec else 0.0, len(log)
+        fn = _tree_spec_generate if kind == "tree" else _eagle_tree_generate
+        out, acc, spec, windows = fn(prompt, d_cfg, drafter, t_cfg, target,
+                                     topo, gen, (), processor, gen_t, 0,
+                                     device)
+        return out, acc / spec if spec else 0.0, windows
+    return timed_call(call)
+
+
+def phase_tree_oracle(device):
+    """Greedy trees == greedy AR on the kernels (full widths, 2 layers,
+    float32 activations, INT4 weights: K1 on every projection): the prefix
+    drafter (the target's first layer) through ``tree_speculative`` and an
+    untrained 1-layer EAGLE head through ``eagle_tree``, at each of
+    ORACLE_TREES, a first parting allowed only at a top-two bf16 tie
+    (``greedy_tie``); then (3, 2, 1) under int8 KV + flash and under bf16 +
+    flash, where the launches show the flash-decode kernel (K4, K3) on
+    every sequential forward and on no tree forward. Returns the launches
+    summed by setting."""
+    from specdec_tpu_torch import bench
+    from specdec_tpu_torch.core.eagle import init_eagle_params
+    from specdec_tpu_torch.core.model import init_params
+    from specdec_tpu_torch.quant.core import quantize_params
+    from specdec_tpu_torch.sampling.base_decoding import (
+        autoregressive_generate,
+    )
+    from specdec_tpu_torch.sampling.tree_speculative import _topology
+
+    base = bench.target_config(num_layers=2, dtype=torch.float32)
+    gen = torch.Generator(device=device).manual_seed(1)
+    params = quantize_params(
+        init_params(base, scale=0.02, device=device, generator=gen),
+        kind="int4", fuse=True)
+    drafter = dict(params, layers=bench.layer_views(params["layers"], 1))
+    head = init_eagle_params(base.replace(num_layers=1), seed=EAGLE_SEED,
+                             device=device)
+    prompt = bench.bench_prompt(seed=1)
+    totals = {}
+    for label, kw, trees in (("bf16 KV", {}, ORACLE_TREES),
+                             ("int8 KV, flash", KVINT8_FLASH, ((3, 2, 1),)),
+                             ("bf16 KV, flash", FLASH, ((3, 2, 1),))):
+        cfg = base.replace(**kw)
+        d_cfg = cfg.replace(num_layers=1)
+        ar = autoregressive_generate(prompt, cfg, params,
+                                     max_gen_len=ORACLE_GEN,
+                                     eos_tokens_id=(), device=device)
+        total = totals.setdefault(label, {k: 0 for k in kernel_wrappers()})
+        for br in trees:
+            topo = _topology(br)
+            for kind, second in (("tree", drafter), ("eagle tree", head)):
+                what = f"tree oracle ({label}, {kind} {br})"
+                reset_launches()
+                (out, rate, windows), _ = run_tree(
+                    kind, (cfg, d_cfg), (params, second), prompt, topo,
+                    ORACLE_GEN, device)
+                counts = launches()
+                for k in total:
+                    total[k] += counts[k]
+                got = expect_launches(what, counts, params, cfg,
+                                      tree_forwards(kind, cfg, d_cfg, topo,
+                                                    windows))
+                if len(out) != ORACLE_GEN:
+                    fail(f"{what}: {len(out)} tokens, not {ORACLE_GEN}")
+                tie = ""
+                if out != ar:
+                    i, gap, ulp = greedy_tie(what, cfg, params, prompt, ar,
+                                             out, device)
+                    tie = (f"; == AR for {i} tokens, then a tie within two "
+                           f"bf16 ulps (gap {gap:.3g}, ulp {ulp:.3g})")
+                say(f"[4d tree oracle] {label}, {kind} {br}: greedy == AR "
+                    f"over {ORACLE_GEN} tokens{tie}; acceptance {rate:.3f}, "
+                    f"{windows} windows; launches {got}")
+    return totals
+
+
+def phase_trees(pairs, device, card, refs):
+    """Tree speculation on the 22-layer INT4 pair, tools/bench_tree.py's
+    protocol: each of TREES at tail damp 0.08 and 0.35, (2, 2, 2) again
+    under INT8 weights (K7) and under int8 KV + flash (K4 in the two
+    prefills only), then a sampled (2, 2, 2) call twice from one seed (the
+    same tokens). Each greedy configuration runs a warm and a timed call,
+    each equal to greedy AR (``refs``: the AR tokens by setting, filled
+    here) up to a first top-two bf16 tie; the distinct parted outputs are
+    replayed in the engine's shape (a root re-forward, then N rows a token
+    in the plain attention). Launches are checked per call. Returns
+    (summary, launches by setting)."""
+    from specdec_tpu_torch import bench
+    from specdec_tpu_torch.sampling.processors import MultinomialProcessor
+    from specdec_tpu_torch.sampling.tree_speculative import _topology
+
+    prompt = bench.bench_prompt()
+    damp35 = bench.build_pair(device, tail_damp=0.35)
+    settings = {"damp 0.08": pairs["int4"], "damp 0.35": damp35,
+                "int8 weights": pairs["int8"],
+                "int8 KV, flash": with_config(pairs["int4"], **KVINT8_FLASH)}
+    runs = [(f"damp {damp}", br, None) for damp in TREE_DAMPS for br in TREES]
+    runs += [("int8 weights", (2, 2, 2), None),
+             ("int8 KV, flash", (2, 2, 2), None),
+             ("damp 0.08", (2, 2, 2), MultinomialProcessor(temperature=1.0))]
+    summary, totals, parted = {}, {}, {}
+    for setting, br, proc in runs:
+        t_cfg, d_cfg, target, drafter = settings[setting]
+        topo = _topology(br)
+        if proc is None and setting not in refs:
+            refs[setting] = greedy_ar(t_cfg, target, prompt, TREE_GEN,
+                                      device)
+        total = totals.setdefault(setting, {k: 0 for k in kernel_wrappers()})
+        label = f"{setting}, {br}" + (", sampled" if proc else "")
+        calls = []
+        # a short warm call, then the timed one; the sampled configuration
+        # runs two full calls from one seed, the first its warm-up
+        for i, gen in enumerate((TREE_GEN if proc else bench.WARM_GEN,
+                                  TREE_GEN)):
+            reset_launches()
+            (out, rate, windows), seconds = run_tree(
+                "tree", (t_cfg, d_cfg), (target, drafter), prompt, topo,
+                gen, device, proc, seed=100)
+            counts = launches()
+            for k in total:
+                total[k] += counts[k]
+            what = f"trees ({label}, call {i})"
+            got = expect_launches(what, counts, target, t_cfg,
+                                  tree_forwards("tree", t_cfg, d_cfg, topo,
+                                                windows))
+            if len(out) != gen or not all(0 <= t < bench.V for t in out):
+                fail(f"{what}: {len(out)} tokens or one outside the "
+                     "vocabulary")
+            ties = ([] if proc else check_greedy(
+                what, t_cfg, target, [prompt], [refs[setting][:gen]], [out],
+                device, parted.setdefault(setting, {})))
+            calls.append({"tokens": len(out), "seconds": seconds,
+                          "acceptance": rate, "windows": windows,
+                          "ties": ties, "launches": got, "ids": out})
+        if proc and calls[0]["ids"] != calls[1]["ids"]:
+            fail(f"trees ({label}): two calls from one seed gave different "
+                 "tokens")
+        timed = calls[1]
+        stacked, two_d = weight_kernels(target)
+        rec = {"tok_s": timed["tokens"] / timed["seconds"],
+               "acceptance": timed["acceptance"],
+               "windows": timed["windows"], "ties": timed["ties"],
+               "warm_seconds": calls[0]["seconds"],
+               "seconds": timed["seconds"], "launches": timed["launches"],
+               "per_window": {
+                   stacked: 4 * ((topo.depth + 1) * d_cfg.num_layers
+                                 + t_cfg.num_layers),
+                   two_d: topo.depth + 1}}
+        summary[label] = rec
+        say(f"[8 trees] {label}: {rec['tok_s']:.1f} tok/s ({card}), "
+            f"chain-depth acceptance {rec['acceptance']:.3f}, "
+            f"{rec['windows']} windows; launches {rec['launches']} "
+            f"({rec['per_window']} a window, as implied)"
+            + ("; two calls from one seed gave the same tokens" if proc
+               else "; == greedy AR" + (f" but for bf16 ties at tokens "
+                                        f"{timed['ties']}" if timed["ties"]
+                                        else "")))
+    for setting, outs in parted.items():
+        forced = tree_replay(f"trees ({setting})", settings[setting][0],
+                             settings[setting][2], outs, device)
+        summary[f"{setting} parted_replay"] = forced
+        if outs:
+            say(f"[8 trees] {setting}: {len(outs)} distinct outputs parted "
+                f"from AR; " + forced_note(forced))
+    return summary, totals
+
+
+def tree_replay(what, cfg, params, outs, device):
+    """``check_parted`` for tree engines' outputs: the root re-forwarded,
+    then a tree's 16 rows a token (the largest of TREES) in the plain
+    attention, each token within TREE_REPLAY_ULPS of the argmax."""
+    N = max(_nodes(br) for br in TREES)
+    return check_parted(what, cfg, params, outs, device,
+                        (64, 64 + TREE_GEN + N + 2, N, False), root=True,
+                        step_cfg=cfg.replace(attention_impl="xla"),
+                        max_ulps=TREE_REPLAY_ULPS)
+
+
+def _nodes(branching):
+    return int(sum(np.cumprod((1,) + tuple(branching))))
+
+
+def greedy_ar(cfg, params, prompt, gen, device):
+    from specdec_tpu_torch.sampling.base_decoding import (
+        autoregressive_generate,
+    )
+
+    t0 = time.perf_counter()
+    out = autoregressive_generate(prompt, cfg, params, max_gen_len=gen,
+                                  eos_tokens_id=(), device=device)
+    say(f"[time] greedy AR reference ({cfg.kv_quant} KV, "
+        f"{cfg.attention_impl}, {weight_format(params['lm_head'])[0]}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_eagle(pair, device, card, refs):
+    """EAGLE on the 22-layer INT4 target (tools/bench_eagle.py's protocol,
+    256 tokens): an untrained depth-1 head made on the card from
+    EAGLE_SEED, one warm-up call, then one timed call each of chain gamma
+    3, 5, 8 (MultinomialProcessor(1.0)), chain gamma 5 greedy (at
+    GREEDY_T) and the greedy trees of TREES; chain gamma 5 greedy and tree
+    (2, 2, 2) again under int8 KV + flash. Greedy outputs equal greedy AR
+    (``refs``) up to a first top-two bf16 tie, the parted ones replayed in
+    the engine's shape. Launches: K1b per target forward, K1a per target
+    and head forward, K4 per sequential forward of either under int8 KV +
+    flash. Returns (summary, launches by setting, the head)."""
+    from specdec_tpu_torch import bench
+    from specdec_tpu_torch.core.eagle import init_eagle_params
+    from specdec_tpu_torch.sampling.processors import (
+        GreedyProcessor, MultinomialProcessor,
+    )
+    from specdec_tpu_torch.sampling.tree_speculative import _topology
+
+    t_cfg, _, target, _ = pair
+    e_cfg = t_cfg.replace(num_layers=1)
+    head = init_eagle_params(e_cfg, seed=EAGLE_SEED, device=device)
+    prompt = bench.bench_prompt()
+    sampled = MultinomialProcessor(temperature=1.0)
+    greedy = GreedyProcessor(temperature=GREEDY_T)
+    runs = [("damp 0.08", "eagle", g, None, sampled) for g in EAGLE_GAMMAS]
+    runs += [("damp 0.08", "eagle", EAGLE_GAMMA, None, greedy)]
+    runs += [("damp 0.08", "eagle tree", None, br, None) for br in TREES]
+    runs += [("int8 KV, flash", "eagle", EAGLE_GAMMA, None, greedy),
+             ("int8 KV, flash", "eagle tree", None, (2, 2, 2), None)]
+    cfgs = {"damp 0.08": t_cfg, "int8 KV, flash": t_cfg.replace(
+        **KVINT8_FLASH)}
+    # one short warm-up call
+    run_tree("eagle", (t_cfg, e_cfg), (target, head), prompt, None,
+             bench.WARM_GEN, device, sampled, gamma=EAGLE_GAMMAS[0])
+    summary, totals, parted = {}, {}, {}
+    for setting, kind, gamma, br, proc in runs:
+        cfg = cfgs[setting]
+        ecfg = cfg.replace(num_layers=1)
+        topo = _topology(br) if br else None
+        if proc is not sampled and setting not in refs:
+            refs[setting] = greedy_ar(cfg, target, prompt, TREE_GEN, device)
+        label = (f"{setting}, chain gamma {gamma}"
+                 + (", greedy" if proc is greedy else ", sampled")
+                 if kind == "eagle" else f"{setting}, tree {br}")
+        reset_launches()
+        (out, rate, windows), seconds = run_tree(
+            kind, (cfg, ecfg), (target, head), prompt, topo, TREE_GEN,
+            device, proc if kind == "eagle" else None, seed=100, gamma=gamma)
+        counts = launches()
+        total = totals.setdefault(setting, {k: 0 for k in kernel_wrappers()})
+        for k in total:
+            total[k] += counts[k]
+        what = f"eagle ({label})"
+        got = expect_launches(what, counts, target, cfg, tree_forwards(
+            kind, cfg, ecfg, topo, windows, gamma))
+        if len(out) != TREE_GEN or not all(0 <= t < bench.V for t in out):
+            fail(f"{what}: {len(out)} tokens or one outside the vocabulary")
+        ties = []
+        if proc is not sampled:
+            ties = check_greedy(what, cfg, target, [prompt], [refs[setting]],
+                                [out], device,
+                                parted.setdefault((setting, kind), {}))
+        rec = {"tok_s": len(out) / seconds, "acceptance": rate,
+               "windows": windows, "seconds": seconds, "ties": ties,
+               "launches": got}
+        summary[label] = rec
+        say(f"[8b eagle] {label}: {rec['tok_s']:.1f} tok/s ({card}), "
+            f"acceptance {rate:.3f}, {windows} windows; launches {got} (as "
+            "implied)" + ("" if proc is sampled else "; == greedy AR" + (
+                f" but for bf16 ties at tokens {ties}" if ties else "")))
+    for (setting, kind), outs in parted.items():
+        cfg, what = cfgs[setting], f"eagle ({setting}, {kind})"
+        if kind == "eagle":
+            # the first token from the prefill, then a verify of gamma+1
+            # sequential rows a window
+            forced = check_parted(
+                what, cfg, target, outs, device,
+                (64, 64 + TREE_GEN + EAGLE_GAMMA + 2, EAGLE_GAMMA + 1,
+                 False))
+        else:
+            forced = tree_replay(what, cfg, target, outs, device)
+        summary[f"{setting}, {kind} parted_replay"] = forced
+        if outs:
+            say(f"[8b eagle] {setting}, {kind}: {len(outs)} distinct "
+                "outputs parted from AR; " + forced_note(forced))
+    return summary, totals, head
+
+
+def phase_eagle_serving(pair, head, device, card):
+    """Batched and served EAGLE on the 22-layer INT4 target, greedy (at
+    GREEDY_T), gamma 5, the serving phase's 16 prompts and 128 tokens:
+    ``batch_eagle_generate`` on prompts 0-7 (the B=8 measurement) and 8-15,
+    then ``EagleContinuousBatcher`` with 8 slots at 1 and 4 windows per
+    host sync. Every output equals the batched AR engine's tokens up to a
+    first top-two bf16 tie; each request's equals the batch engine's for
+    its prompt up to a tie; both sync settings give the same tokens.
+    Launches: K1b per target forward (a batch prefill or an admission at M
+    = 256, a verify at M = 48), K1a per target and head forward. Returns
+    (summary, launches by path)."""
+    from specdec_tpu_torch import bench
+    from specdec_tpu_torch.engine.batch_engine import (
+        batch_autoregressive_generate,
+    )
+    from specdec_tpu_torch.engine.eagle_batch import batch_eagle_generate
+    from specdec_tpu_torch.sampling.processors import GreedyProcessor
+    from specdec_tpu_torch.serve import EagleContinuousBatcher
+
+    t_cfg, _, target, _ = pair
+    e_cfg = t_cfg.replace(num_layers=1)
+    L, gamma, gen = t_cfg.num_layers, EAGLE_GAMMA, bench.SERVE_GEN
+    proc = GreedyProcessor(temperature=GREEDY_T)
+    prompts = bench.serving_prompts()
+    t0 = time.perf_counter()
+    refs = batch_autoregressive_generate(prompts, t_cfg, target, gen_len=gen,
+                                         eos_tokens_id=(), device=device)
+    say(f"[time] EAGLE serving: greedy AR references (batched) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def windows_of(what, counts, admissions):
+        """Windows from the K1b launches (4 L per target forward), the
+        launches then checked against them."""
+        n = counts["K1b"] // (4 * L) - admissions
+        expect_launches(what, counts, target, t_cfg,
+                        [(admissions, L, 1, L), (n * gamma, 0, 1, 0),
+                         (n, L, 1, 0)])
+        return n
+
+    summary, totals, parted, engine = {}, {}, {}, []
+    for i in (0, 8):
+        batch = prompts[i:i + 8]
+        reset_launches()
+        (outs, rates), seconds = timed_call(lambda: batch_eagle_generate(
+            batch, e_cfg, head, t_cfg, target, gamma=gamma, gen_len=gen,
+            logits_processor=proc, eos_tokens_id=(), device=device))
+        counts = launches()
+        totals.setdefault("eagle_batch", {k: 0 for k in kernel_wrappers()})
+        for k in counts:
+            totals["eagle_batch"][k] += counts[k]
+        what = f"EAGLE batch (prompts {i}-{i + 7})"
+        windows = windows_of(what, counts, 1)
+        ties = check_greedy(what, t_cfg, target, batch, refs[i:i + 8], outs,
+                            device, parted.setdefault(("batch", i), {}))
+        engine += outs
+        tokens = sum(len(o) for o in outs)
+        summary[f"batch, prompts {i}-{i + 7}"] = {
+            "tok_s": tokens / seconds, "seconds": seconds,
+            "acceptance": float(np.mean(rates)), "windows": windows,
+            "ties": ties, "launches": {k: n for k, n in counts.items() if n}}
+        say(f"[8c eagle batch] B=8 (prompts {i}-{i + 7}): {tokens} tokens in "
+            f"{seconds:.2f} s = {tokens / seconds:.1f} tok/s ({card}), "
+            f"acceptance {np.mean(rates):.3f}, {windows} windows; K1b "
+            f"{counts['K1b']}, K1a {counts['K1a']} (as implied); == greedy "
+            "AR" + (f" but for bf16 ties at tokens {ties}" if ties else ""))
+    outputs = {}
+    for wps in (1, 4):
+        b = EagleContinuousBatcher(
+            e_cfg, head, t_cfg, target, num_slots=EAGLE_SLOTS, gamma=gamma,
+            max_prompt_len=bench.SERVE_MAX_PROMPT, max_new_tokens=gen,
+            logits_processor=proc, eos_tokens_id=(), windows_per_sync=wps,
+            device=device)
+        reset_launches()
+        rec = bench.serve_pass(b, prompts)
+        counts = launches()
+        totals.setdefault("eagle_serving", {k: 0 for k in kernel_wrappers()})
+        for k in counts:
+            totals["eagle_serving"][k] += counts[k]
+        what = f"EAGLE serving (windows_per_sync {wps})"
+        windows = windows_of(what, counts, len(prompts))
+        ties = check_greedy(what, t_cfg, target, prompts, engine,
+                            rec["outputs"], device,
+                            parted.setdefault(("serve", 0), {}))
+        outputs[wps] = rec["outputs"]
+        summary[f"serving, windows_per_sync {wps}"] = {
+            **{k: rec[k] for k in ("tok_s", "ttft_p50_ms", "ttft_p99_ms",
+                                   "acceptance", "seconds", "tokens")},
+            "windows": windows, "ties": ties,
+            "launches": {k: n for k, n in counts.items() if n}}
+        say(f"[8c eagle serve] windows_per_sync {wps}: {rec['tokens']} tokens "
+            f"in {rec['seconds']:.2f} s = {rec['tok_s']:.1f} tok/s ({card}), "
+            f"TTFT p50 {rec['ttft_p50_ms']:.0f} ms, p99 "
+            f"{rec['ttft_p99_ms']:.0f} ms, acceptance "
+            f"{rec['acceptance']:.3f}, {windows} windows; K1b "
+            f"{counts['K1b']}, K1a {counts['K1a']} (as implied); 16 requests "
+            "== the batch engine's outputs"
+            + (f" but for bf16 ties at tokens {ties}" if ties else ""))
+    if outputs[1] != outputs[4]:
+        fail("EAGLE serving: windows_per_sync 1 and 4 gave different tokens")
+    for (where, i), outs in parted.items():
+        if where == "batch":
+            # one batch prefill at the padded length, gamma+1 rows a window
+            P = 64 * max(1, -(-max(map(len, prompts[i:i + 8])) // 64))
+            shape = (P, P + gen + gamma + 2, gamma + 1, False)
+        else:
+            P = bench.SERVE_MAX_PROMPT
+            shape = (P, P + gen + gamma + 2, gamma + 1, True)
+        forced = check_parted(f"EAGLE {where}", t_cfg, target, outs, device,
+                              shape)
+        if outs:
+            say(f"[8c eagle] {where} {i}: {len(outs)} distinct outputs "
+                "parted; " + forced_note(forced))
+    return summary, totals
+
+
 def with_config(pair, **cfg_kw):
     """The pair with both configs changed (the weights do not depend on the
     KV format or the attention kernel): what ``bench.build_pair(device,
@@ -2213,6 +2775,18 @@ def main():
     stamp("7b NASD serving")
     summary["beam"], launches_beam = phase_beam(pair, device, card)
     stamp("7c beam")
+    tree_oracle = phase_tree_oracle(device)
+    stamp("4d tree oracles")
+    refs = {}
+    summary["trees"], launches_trees = phase_trees(pairs, device, card, refs)
+    stamp("8 trees")
+    summary["eagle"], launches_eagle, head = phase_eagle(pair, device, card,
+                                                         refs)
+    stamp("8b EAGLE")
+    summary["eagle_serving"], launches_eagle_serve = phase_eagle_serving(
+        pair, head, device, card)
+    stamp("8c EAGLE batched and serving")
+    summary["trees"]["card"] = summary["eagle"]["card"] = card
     summary["nasd"] = {"bf16 KV": nasd, "int8 KV, flash": nasd_int8,
                        "serving": nasd_serving, "card": card}
     summary["kvint8_flash"] = dict(int8_main, serving=int8_serving,
@@ -2226,9 +2800,9 @@ def main():
     for key, name, line in (("K1b", "int4_pair_matmul (stacked layer)", 219),
                             ("K1a", "int4_pair_matmul (2D lm_head)", 196)):
         mine = stacked_records(records, key == "K1b")
-        # the ragged shapes go through the 2D wrapper
-        ragged = [r for r in records
-                  if r["name"] in RAGGED_NAMES and key == "K1a"]
+        # the ragged shapes through the wrapper of the entry
+        ragged = [r for r in records if r["name"] in RAGGED_NAMES
+                  and (r["layer"] is None) == (key == "K1a")]
         entries.append(weight_entry(
             name, "int4_pair_matmul.cu", line, mine + ragged, mine,
             {"spec_decode": launches_main[key],
@@ -2239,7 +2813,15 @@ def main():
              "nasd": launches_nasd[key],
              "nasd_kvint8_flash": launches_nasd_int8[key],
              "nasd_serving": launches_nasd_serve[key],
-             "beam": launches_beam[key]}))
+             "beam": launches_beam[key],
+             "tree_oracle": sum(c[key] for c in tree_oracle.values()),
+             "trees": launches_trees["damp 0.08"][key]
+             + launches_trees["damp 0.35"][key],
+             "trees_kvint8_flash": launches_trees["int8 KV, flash"][key],
+             "eagle": launches_eagle["damp 0.08"][key],
+             "eagle_kvint8_flash": launches_eagle["int8 KV, flash"][key],
+             "eagle_batch": launches_eagle_serve["eagle_batch"][key],
+             "eagle_serving": launches_eagle_serve["eagle_serving"][key]}))
     # K6: one kernel for both codecs; the top-level times are NF4's (the
     # JAX package's default codec), FP4's beside them
     for key, name, line in (("K6b", "q4_halfplane_matmul (stacked layer)",
@@ -2247,9 +2829,10 @@ def main():
                             ("K6a", "q4_halfplane_matmul (2D lm_head)", 241)):
         nf4, fp4 = (stacked_records(fmt_records[q][0], key == "K6b")
                     for q in ("nf4", "fp4"))
-        # the ragged shapes go through the 2D wrapper
+        # the ragged shapes through the wrapper of the entry
         ragged = [r for q in ("nf4", "fp4") for r in fmt_records[q][0]
-                  if r["name"] in RAGGED_NAMES and key == "K6a"]
+                  if r["name"] in RAGGED_NAMES
+                  and (r["layer"] is None) == (key == "K6a")]
         entries.append(weight_entry(
             name, "q4_halfplane_matmul.cu", line, nf4 + fp4 + ragged, nf4,
             {**{f"spec_decode_{q}": fmt_launches[q][key]
@@ -2265,7 +2848,9 @@ def main():
         stacked_records(w8),
         {"spec_decode_int8": fmt_launches["int8"]["K7b"]
          + fmt_launches["int8"]["K7a"],
-         "serving_int8": serve_launches_w8["K7b"] + serve_launches_w8["K7a"]},
+         "serving_int8": serve_launches_w8["K7b"] + serve_launches_w8["K7a"],
+         "trees_int8": launches_trees["int8 weights"]["K7b"]
+         + launches_trees["int8 weights"]["K7a"]},
         lm_head=step_times(stacked_records(w8, False))))
 
     def top(rows, name):
@@ -2303,7 +2888,8 @@ def main():
         "flash_decode_attention (K3)", flash_src,
         "specdec_tpu/ops/decode_attention.py:38", flash_records["K3"],
         flash_err["K3"], top(flash_records["K3"], "decode"), work + "bf16",
-        {"spec_decode_flash": launches_flash["K3"]}))
+        {"spec_decode_flash": launches_flash["K3"],
+         "tree_oracle_flash": tree_oracle["bf16 KV, flash"]["K3"]}))
     entries.append(kernel_entry(
         "flash_decode_attention_quant (K4)", flash_src,
         "specdec_tpu/ops/decode_attention.py:159", flash_records["K4"],
@@ -2311,8 +2897,11 @@ def main():
         work + "int8 K/V, bf16 q",
         {"spec_decode_kvint8_flash": launches_int8["K4"],
          "serving_kvint8_flash": serve_launches_int8["K4"],
-         "nasd_kvint8_flash": launches_nasd_int8["K4"]}))
-    say(f"[8 done] all phases passed in {time.perf_counter() - t0:.1f} s; "
+         "nasd_kvint8_flash": launches_nasd_int8["K4"],
+         "tree_oracle_kvint8_flash": tree_oracle["int8 KV, flash"]["K4"],
+         "trees_kvint8_flash": launches_trees["int8 KV, flash"]["K4"],
+         "eagle_kvint8_flash": launches_eagle["int8 KV, flash"]["K4"]}))
+    say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; "
         f"largest kernel-vs-plain abs error {max_err:.3g} (INT4), "
         + ", ".join(f"{fmt_records[q][1]:.3g} ({q})" for q in QUANTS) + ", "
         f"{paged_err['bf16']:.3g} / {paged_err['int8']:.3g} (paged "

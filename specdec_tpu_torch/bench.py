@@ -20,8 +20,9 @@ Run: ``python -m specdec_tpu_torch.bench``. It decodes 256 tokens after a
 prints one JSON line to stdout,
 ``{"metric": "spec_decode_int4_tokens_per_sec", "value": spec tok/s,
 "unit": "tokens/s", "vs_baseline": spec/AR speedup}``; everything else goes
-to stderr. Each measurement is one warm-up call and REPS timed calls,
-timed with CUDA events; tokens/s is the best of the timed calls. The
+to stderr. Each measurement is one warm-up call (WARM_GEN tokens) and
+REPS timed calls, timed with CUDA events; tokens/s is the best of the
+timed calls. The
 metric names the weight format as the root bench does
 (``spec_decode_{quant}_tokens_per_sec``, ``spec_decode_tokens_per_sec``
 for none).
@@ -75,6 +76,9 @@ PROMPT_LEN = 60
 GAMMA = 12
 GEN = 256
 REPS = 3
+# the warm-up call's tokens: eager PyTorch compiles nothing, so the warm-up
+# only needs to touch every shape of a call (the prefill, a step, a window)
+WARM_GEN = 32
 QUANT_KINDS = ("int4", "int8", "nf4", "fp4", "none")
 # serving measurement
 SERVE_REQUESTS = 16
@@ -110,18 +114,21 @@ def layer_views(layers: dict, n: int) -> dict:
 
 
 def build_pair(device=None, kv_quant: str = "none",
-               attention_impl: str = "xla", quant: str = "int4"):
-    """The LayerSkip pair, weights in format ``quant`` (QUANT_KINDS).
-    Returns (t_cfg, d_cfg, target, drafter); the drafter's config is the
-    target's with 4 layers, so it inherits the KV format and the
-    attention."""
+               attention_impl: str = "xla", quant: str = "int4",
+               tail_damp: float = TAIL_DAMP):
+    """The LayerSkip pair, weights in format ``quant`` (QUANT_KINDS), the
+    ``wo`` and ``w_down`` of layers 4..21 damped by ``tail_damp`` (the
+    drafter's quality: 0.08 by default, 0.35 for a weak drafter, the two
+    operating points of ``tools/bench_tree.py``). Returns (t_cfg, d_cfg,
+    target, drafter); the drafter's config is the target's with 4 layers,
+    so it inherits the KV format and the attention."""
     device = resolve_device(device)
     t_cfg = target_config(kv_quant=kv_quant, attention_impl=attention_impl)
     d_cfg = t_cfg.replace(num_layers=DRAFT_LAYERS)
     gen = torch.Generator(device=device).manual_seed(0)
     base = init_params(t_cfg, scale=0.02, device=device, generator=gen)
     layer_scale = torch.ones(t_cfg.num_layers, device=device)
-    layer_scale[DRAFT_LAYERS:] = TAIL_DAMP
+    layer_scale[DRAFT_LAYERS:] = tail_damp
     layers = dict(base["layers"])
     for name in ("wo", "w_down"):
         layers[name] = (layers[name].to(torch.float32)
@@ -180,12 +187,13 @@ def run_spec(d_cfg: ModelConfig, drafter, t_cfg: ModelConfig, target,
 
 def measure_ar(t_cfg: ModelConfig, target, prompt: List[int], gen: int,
                proc: LogitsProcessor, device=None, reps: int = REPS) -> dict:
-    """One warm-up and ``reps`` timed AR calls. Returns {"runs": [{tokens,
-    ids, seconds}], "tok_s"}; runs[0] is the warm-up."""
+    """One warm-up (WARM_GEN tokens) and ``reps`` timed AR calls. Returns
+    {"runs": [{tokens, ids, seconds}], "tok_s"}; runs[0] is the
+    warm-up."""
     device = resolve_device(device)
-    runs = [_timed(lambda s=1 + i: run_ar(t_cfg, target, prompt, gen, proc,
-                                          s, device))
-            for i in range(reps + 1)]
+    runs = [_timed(lambda s=1 + i, n=n: run_ar(t_cfg, target, prompt, n,
+                                               proc, s, device))
+            for i, n in enumerate([WARM_GEN] + [gen] * reps)]
     return _summary(runs)
 
 
@@ -193,14 +201,13 @@ def measure_spec(d_cfg: ModelConfig, drafter, t_cfg: ModelConfig, target,
                  prompt: List[int], gen: int, gamma: int,
                  proc: LogitsProcessor, device=None,
                  reps: int = REPS) -> dict:
-    """One warm-up and ``reps`` timed speculative calls. Returns {"runs":
-    [{tokens, ids, windows, acceptance, seconds}], "tok_s",
-    "acceptance"}; runs[0] is the warm-up."""
+    """One warm-up (WARM_GEN tokens) and ``reps`` timed speculative calls.
+    Returns {"runs": [{tokens, ids, windows, acceptance, seconds}],
+    "tok_s", "acceptance"}; runs[0] is the warm-up."""
     device = resolve_device(device)
-    runs = [_timed(lambda s=100 + i: run_spec(d_cfg, drafter, t_cfg, target,
-                                              prompt, gen, gamma, proc, s,
-                                              device))
-            for i in range(reps + 1)]
+    runs = [_timed(lambda s=100 + i, n=n: run_spec(
+        d_cfg, drafter, t_cfg, target, prompt, n, gamma, proc, s, device))
+            for i, n in enumerate([WARM_GEN] + [gen] * reps)]
     out = _summary(runs)
     out["acceptance"] = float(np.mean([r["acceptance"] for r in runs[1:]]))
     return out

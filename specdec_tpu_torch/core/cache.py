@@ -178,3 +178,28 @@ def gather_rows(cache, rows: torch.Tensor):
     fields = {name: getattr(cache, name)[:, rows]
               for name in storage_fields(cache)}
     return dataclasses.replace(cache, length=cache.length[rows], **fields)
+
+
+def compact_path(cache, idx: torch.Tensor, dest: int, new_length):
+    """Gather the rows at slot indices ``idx`` [n] along the sequence axis
+    (axis 2) of every storage field (int8 scales too) and write them
+    contiguously from slot ``dest`` (a host int); set the length: tree
+    speculation's accepted-path compaction (JAX ``compact_path``).
+
+    Source and destination may overlap inside one tensor, so the rows are
+    gathered into a new tensor first (``index_select``) and then copied
+    into the destination slice, in place. Where ``jnp.take`` and
+    ``dynamic_update_slice`` clamp, this raises: ``index_select`` rejects
+    an index outside [0, S) and a ``dest`` whose block does not fit is
+    refused here, so a row is never read or written out of range
+    silently (the decode loops size S so that neither happens)."""
+    n = idx.shape[0]
+    S = getattr(cache, storage_fields(cache)[0]).shape[2]
+    if not 0 <= dest <= S - n:
+        raise IndexError(f"compact_path: {n} rows from slot {dest} do not "
+                         f"fit {S} slots")
+    idx = idx.to(torch.int64)
+    for name in storage_fields(cache):
+        arr = getattr(cache, name)
+        arr[:, :, dest:dest + n].copy_(arr.index_select(2, idx))
+    return cache.with_length(new_length)

@@ -11,7 +11,12 @@ it attends through the flash-decode kernel under ``attention_impl="flash"``
 (``attention``). ``forward_step_paged`` is the same forward over the paged
 pool (``core/paged_cache.py``), attending through the paged
 decode-attention kernel. Both take the int8 cache formats of
-``kv_quant="int8"`` as well.
+``kv_quant="int8"`` as well. ``forward_step_features`` also returns the
+pre-final-norm residual stream (the features EAGLE drafts on), and
+``forward_step_tree`` / ``forward_step_tree_features`` process a block of
+tree-structured tokens on the slotted cache, attending by ancestry
+(``masked_attention``'s ``tree``): tree blocks never take an attention
+kernel, whose mask is positional.
 
 Params are a dict of tensors whose layer leaves are STACKED with a leading
 L axis. The layer loop is a Python loop over ``range(L)``: dense leaves are
@@ -82,7 +87,8 @@ def _act(cfg: ModelConfig, x):
 def masked_attention(q, k_all, v_all, q_pos, num_kv_heads: int,
                      logit_softcap: float = 0.0,
                      k_scale: Optional[torch.Tensor] = None,
-                     v_scale: Optional[torch.Tensor] = None):
+                     v_scale: Optional[torch.Tensor] = None,
+                     tree: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """q: [B, T, Hq, Dh]; k_all/v_all: [B, S, Hk, Dh]; q_pos: [B, T].
     Returns [B, T, Hq * Dh] in v's dtype, or in q's for int8 K/V.
 
@@ -95,7 +101,13 @@ def masked_attention(q, k_all, v_all, q_pos, num_kv_heads: int,
     k-scale multiplies the scores after (q·k) * scale, the v-scale the
     normalized probabilities, which are then cast to q's dtype for the
     value product, as the JAX package's XLA path does. The int8 values are
-    used as stored: no dequantized [B, S, Hk, Dh] tensor is formed."""
+    used as stored: no dequantized [B, S, Hk, Dh] tensor is formed.
+
+    ``tree`` = (start [B], tree_mask [T, E] bool) makes the block a tree
+    of speculated tokens (the JAX ``_attention``'s ``tree``): key slots in
+    [start, start + E) hold tree nodes, admitted by ancestry through
+    ``tree_mask[t, s - start]``; every other key keeps the position
+    test."""
     B, T, Hq, Dh = q.shape
     S = k_all.shape[1]
     Hk = num_kv_heads
@@ -109,6 +121,14 @@ def masked_attention(q, k_all, v_all, q_pos, num_kv_heads: int,
         scores = scores * k_scale.permute(0, 2, 1)[:, :, None, None, :]
     k_pos = torch.arange(S, device=q.device)
     mask = k_pos[None, None, :] <= q_pos[:, :, None]           # [B, T, S]
+    if tree is not None:
+        start, tree_mask = tree
+        E = tree_mask.shape[1]
+        rel = k_pos[None, :] - start.to(torch.int64)[:, None]  # [B, S]
+        is_tree = (rel >= 0) & (rel < E)
+        by_ancestry = tree_mask[:, rel.clamp(0, E - 1)]        # [T, B, S]
+        mask = torch.where(is_tree[:, None, :],
+                           by_ancestry.permute(1, 0, 2), mask)
     scores = scores.masked_fill(~mask[:, None, None], _NEG_INF)
     if logit_softcap > 0.0:
         scores = torch.tanh(scores / logit_softcap) * logit_softcap
@@ -134,15 +154,19 @@ def kernel_route(cfg: ModelConfig) -> bool:
 
 def attention(cfg: ModelConfig, q, k_all, v_all, q_pos,
               k_scale: Optional[torch.Tensor] = None,
-              v_scale: Optional[torch.Tensor] = None):
+              v_scale: Optional[torch.Tensor] = None,
+              tree: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Cached attention over dense [B, S, Hk, Dh] K/V (the counterpart of
     the JAX ``_attention``): the flash-decode kernel (K3, or K4 for int8
     K/V; ``ops/decode_attention.py``) when ``cfg.attention_impl == "flash"``
     and ``kernel_route(cfg)``, else ``masked_attention``. The kernel tiles
     query rows over blocks, so any T takes it, dense prefills included.
-    Returns [B, T, Hq * Dh]."""
+    A tree block (``tree`` given) always goes to ``masked_attention``,
+    under every ``attention_impl``: the kernel's mask is positional and
+    would attend past a node's ancestors. Returns [B, T, Hq * Dh]."""
     B, T = q.shape[:2]
-    if cfg.attention_impl == "flash" and kernel_route(cfg):
+    if (tree is None and cfg.attention_impl == "flash"
+            and kernel_route(cfg)):
         from specdec_tpu_torch.ops import decode_attention as da
 
         if k_scale is not None:
@@ -152,7 +176,7 @@ def attention(cfg: ModelConfig, q, k_all, v_all, q_pos,
             out = da.flash_decode_attention(q, k_all, v_all, q_pos[:, 0])
         return out.reshape(B, T, -1)
     return masked_attention(q, k_all, v_all, q_pos, cfg.num_kv_heads,
-                            cfg.logit_softcap, k_scale, v_scale)
+                            cfg.logit_softcap, k_scale, v_scale, tree)
 
 
 def _qkv(cfg: ModelConfig, lp: Params, h):
@@ -239,24 +263,9 @@ def _layer_params(layers: Params, i: int) -> Params:
             for name, v in layers.items()}
 
 
-def _forward_common(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                    q_pos: torch.Tensor, layer_attend) -> torch.Tensor:
-    """embed -> layers -> final norm -> logits (f32).
-    ``layer_attend(i, q, k, v)`` is layer ``i``'s cache write and attention
-    (see ``_block``)."""
-    cos, sin = rope_cos_sin(q_pos, cfg.rotary_dim, cfg.rope_theta,
-                            scaling=cfg.rope_scaling)
-    x = params["embed"][tokens].to(cfg.dtype)
-    if cfg.embed_scale != 1.0:  # gemma: sqrt(hidden) on the embedding only
-        # a CPU 0-dim tensor is a scalar operand: rounded to cfg.dtype first,
-        # as jnp.asarray(embed_scale, dtype) is, and never copied to the card
-        x = x * torch.tensor(cfg.embed_scale, dtype=cfg.dtype)
-
-    layers = params["layers"]
-    for i in range(cfg.num_layers):
-        x = _block(cfg, _layer_params(layers, i), x, cos, sin,
-                   functools.partial(layer_attend, i))
-
+def _head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """final norm -> logits (f32), with the logit softcap: the target's
+    head, which the EAGLE drafter shares (``core/eagle.py``)."""
     x = _norm(cfg, x, params["final_norm_w"], params.get("final_norm_b"))
     if cfg.tie_embeddings:
         logits = torch.einsum("btd,vd->btv", x.to(torch.float32),
@@ -268,10 +277,54 @@ def _forward_common(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     return logits
 
 
+def _layers(cfg: ModelConfig, layers: Params, x, q_pos, layer_attend):
+    """The block stack over x [B, T, D], rope at positions q_pos."""
+    cos, sin = rope_cos_sin(q_pos, cfg.rotary_dim, cfg.rope_theta,
+                            scaling=cfg.rope_scaling)
+    for i in range(cfg.num_layers):
+        x = _block(cfg, _layer_params(layers, i), x, cos, sin,
+                   functools.partial(layer_attend, i))
+    return x
+
+
+def _forward_common(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                    q_pos: torch.Tensor, layer_attend, head: bool = True,
+                    ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """embed -> layers -> final norm -> logits (f32).
+    ``layer_attend(i, q, k, v)`` is layer ``i``'s cache write and attention
+    (see ``_block``). Returns (logits, features): the features are the
+    residual stream after the layers and before the final norm, which
+    EAGLE drafts on. ``head=False`` skips the final norm and the lm_head
+    (logits None)."""
+    x = params["embed"][tokens].to(cfg.dtype)
+    if cfg.embed_scale != 1.0:  # gemma: sqrt(hidden) on the embedding only
+        # a CPU 0-dim tensor is a scalar operand: rounded to cfg.dtype first,
+        # as jnp.asarray(embed_scale, dtype) is, and never copied to the card
+        x = x * torch.tensor(cfg.embed_scale, dtype=cfg.dtype)
+    x = _layers(cfg, params["layers"], x, q_pos, layer_attend)
+    return (_head(cfg, params, x) if head else None), x
+
+
 def _positions(cache, T: int) -> torch.Tensor:
     """q_pos [B, T]: cache.length[b] + t."""
     return cache.length[:, None] + torch.arange(
         T, dtype=torch.int32, device=cache.length.device)[None, :]
+
+
+def slotted_attend(cfg: ModelConfig, cache, q_pos: torch.Tensor,
+                   tree=None):
+    """``layer_attend`` over the slotted cache (``KVCache`` or
+    ``QuantKVCache``): writes layer ``i``'s block at ``cache.length`` in
+    place (quantized, for the int8 cache) and attends over layer ``i`` of
+    the cache through ``attention``, by ancestry where ``tree`` is given."""
+    quant = isinstance(cache, QuantKVCache)
+
+    def attend(i, q, k, v):
+        scales = (cache.k_scale[i], cache.v_scale[i]) if quant else ()
+        write_block(cache.k[i], cache.v[i], k, v, cache.length, scales)
+        return attention(cfg, q, cache.k[i], cache.v[i], q_pos, *scales,
+                         tree=tree)
+    return attend
 
 
 def forward_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -282,17 +335,68 @@ def forward_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     over everything written so far through ``attention`` (layer ``i`` of
     the cache, read in place), and returns (logits [B, T, V] f32, the cache
     advanced by T)."""
+    logits, _, cache = forward_step_features(cfg, params, tokens, cache)
+    return logits, cache
+
+
+def forward_step_features(cfg: ModelConfig, params: Params,
+                          tokens: torch.Tensor, cache,
+                          ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
+    """``forward_step`` that also returns the pre-final-norm residual
+    stream, the features [B, T, D] that EAGLE drafters autoregress on
+    (``core/eagle.py``). Same cache semantics as ``forward_step``."""
     T = tokens.shape[1]
     q_pos = _positions(cache, T)
-    quant = isinstance(cache, QuantKVCache)
+    logits, feats = _forward_common(cfg, params, tokens, q_pos,
+                                    slotted_attend(cfg, cache, q_pos))
+    return logits, feats, cache.with_length(cache.length + T)
 
-    def attend(i, q, k, v):
-        scales = (cache.k_scale[i], cache.v_scale[i]) if quant else ()
-        write_block(cache.k[i], cache.v[i], k, v, cache.length, scales)
-        return attention(cfg, q, cache.k[i], cache.v[i], q_pos, *scales)
 
-    logits = _forward_common(cfg, params, tokens, q_pos, attend)
-    return logits, cache.with_length(cache.length + T)
+def _tree_positions(cache, depths: torch.Tensor, tree_start):
+    if tree_start is None:
+        tree_start = cache.length
+    return tree_start, tree_start[:, None] + depths[None, :].to(torch.int32)
+
+
+def forward_step_tree(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                      cache, depths: torch.Tensor, tree_mask: torch.Tensor,
+                      tree_start: Optional[torch.Tensor] = None,
+                      head: bool = True) -> Tuple[Optional[torch.Tensor], Any]:
+    """Process a [B, N] block of TREE-structured tokens against the slotted
+    cache. Node j's rope position is ``tree_start + depths[j]`` and it
+    attends to the prefix plus its ancestors only (``tree_mask`` [N, E],
+    ancestor-or-self); K/V are written at slots length .. length+N-1 and
+    the cache advances by N. ``tree_start`` (default: the cache length) is
+    the slot of tree node 0: level-by-level expansion passes it when the
+    cache has advanced past earlier levels, whose E - N nodes the mask
+    then covers too. Tree blocks attend through ``masked_attention``
+    under every ``attention_impl``. ``head=False`` skips the final norm
+    and the lm_head (logits None): a forward that only writes the cache.
+    Returns (logits [B, N, V] f32, the cache advanced by N)."""
+    logits, _, cache = _tree_forward(cfg, params, tokens, cache, depths,
+                                     tree_mask, tree_start, head)
+    return logits, cache
+
+
+def forward_step_tree_features(cfg: ModelConfig, params: Params,
+                               tokens: torch.Tensor, cache,
+                               depths: torch.Tensor, tree_mask: torch.Tensor,
+                               tree_start: Optional[torch.Tensor] = None,
+                               ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
+    """``forward_step_tree`` that also returns the pre-final-norm residual
+    stream per tree node ([B, N, D]), which EAGLE tree drafting writes
+    back along the accepted path (``sampling/eagle_tree.py``)."""
+    return _tree_forward(cfg, params, tokens, cache, depths, tree_mask,
+                         tree_start, True)
+
+
+def _tree_forward(cfg, params, tokens, cache, depths, tree_mask, tree_start,
+                  head):
+    start, q_pos = _tree_positions(cache, depths, tree_start)
+    logits, feats = _forward_common(
+        cfg, params, tokens, q_pos,
+        slotted_attend(cfg, cache, q_pos, (start, tree_mask)), head)
+    return logits, feats, cache.with_length(cache.length + tokens.shape[1])
 
 
 def forward_step_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -347,7 +451,7 @@ def forward_step_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                                                     table, offsets)
         return out.reshape(B, T, -1)
 
-    logits = _forward_common(cfg, params, tokens, q_pos, attend)
+    logits, _ = _forward_common(cfg, params, tokens, q_pos, attend)
     forward_step_paged.calls += 1
     return logits, cache.with_length(cache.length + T)
 

@@ -6,7 +6,9 @@ tokenizer has one), runs it through the method the context configures and
 returns per-request ``RequestMetrics`` in a ``BatchMetrics``: NASD with a
 host store (``ngram/assisted.py``) or with the device table
 (``ngram/device_assisted.py``), model-drafted speculative decoding
-(``engine/batch_engine.py``) or the target alone. A failed batch prints its
+(``engine/batch_engine.py``), EAGLE-drafted decoding
+(``engine/eagle_batch.py``, where ``ctx.eagle_drafter`` is set and the
+drafter is an EAGLE head) or the target alone. A failed batch prints its
 traceback and returns None metrics, as the reference does.
 
 The context ``ctx`` is the JAX package's benchmark runner's, with the port's
@@ -27,6 +29,7 @@ from typing import List, Optional, Tuple
 from specdec_tpu_torch.engine.batch_engine import (
     batch_autoregressive_generate, batch_speculative_generate,
 )
+from specdec_tpu_torch.engine.eagle_batch import batch_eagle_generate
 from specdec_tpu_torch.engine.metrics import BatchMetrics, RequestMetrics
 from specdec_tpu_torch.ngram import (
     DeviceNGramTable, batch_ngram_assisted_generate,
@@ -108,10 +111,6 @@ def _start(prompt_ids):
 
 
 def _run_spec(ctx, prompt_ids) -> Optional[BatchMetrics]:
-    if getattr(ctx, "eagle_drafter", False):
-        raise NotImplementedError(
-            "the EAGLE drafter is not ported yet (ROADMAP.md, section 1, "
-            "the EAGLE item)")
     bm, start_times, first_token_times, on_first_token = _start(prompt_ids)
     common = dict(gamma=ctx.gamma, logits_processor=ctx.processor,
                   gen_len=ctx.gen_len, eos_tokens_id=ctx.end_tokens,
@@ -132,6 +131,13 @@ def _run_spec(ctx, prompt_ids) -> Optional[BatchMetrics]:
             outputs, rates = batch_ngram_assisted_generate(
                 prompt_ids, ctx.ngram, ctx.target_cfg, ctx.target_params,
                 filler_top_k=ctx.filler_top_k,
+                first_token_callback=on_first_token, **common)
+        elif getattr(ctx, "eagle_drafter", False):
+            # the EAGLE feature-predictor drafter: whole-batch
+            # feature-drafted windows
+            outputs, rates = batch_eagle_generate(
+                prompt_ids, ctx.drafter_cfg, ctx.drafter_params,
+                ctx.target_cfg, ctx.target_params,
                 first_token_callback=on_first_token, **common)
         else:
             outputs, rates = batch_speculative_generate(

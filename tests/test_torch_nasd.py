@@ -295,10 +295,11 @@ def test_infer_batch_matches_jax(models, method):
         assert all(r.acceptance_rate == 1.0 for r in got[0].requests)
 
 
-def test_infer_batch_device_table_and_reset(models):
+def test_infer_batch_device_table_and_reset(models, monkeypatch):
     """The device-table method carries its table across batches, and
-    reset_in_between gives a new empty table; the EAGLE drafter raises
-    until it is ported."""
+    reset_in_between gives a new empty table; without a table, an EAGLE
+    drafter goes to the batched EAGLE engine (tests/test_torch_eagle_serve.py
+    runs it)."""
     _, ctx = contexts(models, "speculative")
     ctx.ngram = device_ngram_assisted_generate_batch(
         [[1, 2, 3]], CFG, models[1], n=3, capacity=256, gen_len=2,
@@ -311,8 +312,15 @@ def test_infer_batch_device_table_and_reset(models):
     tie.infer_batch(ctx, PROMPT_TEXTS[:1])
     assert ctx.ngram.capacity == 256 and ctx.ngram.orders == (3, 2)
     ctx.ngram, ctx.eagle_drafter = None, True
-    with pytest.raises(NotImplementedError, match="EAGLE"):
-        tie.infer_batch(ctx, PROMPT_TEXTS)
+    calls = []
+
+    def eagle_engine(prompt_ids, *args, **kw):
+        calls.append(len(prompt_ids))
+        return [[1]] * len(prompt_ids), [0.0] * len(prompt_ids)
+    monkeypatch.setattr(tie, "batch_eagle_generate", eagle_engine)
+    spec, _ = tie.infer_batch(ctx, PROMPT_TEXTS)
+    assert calls == [3]
+    assert [r.generated_tokens for r in spec.requests] == [1] * 3
 
 
 def build_results(met):
