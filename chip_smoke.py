@@ -38,7 +38,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    the serving drafter B=8, T = 1, 2 over the batcher's S; the admission
    prefill T=256), at qwen3-family heads (decode and verify, Dh=128) and
    at S=2048 (8 spans of 4 tiles), and EAGLE's int8 + flash catch-ups
-   and verify (T = 5, 6 over S = 327, 337), offsets up to S; a row's
+   and verify (T = 5, 6 over S = 199, 209), offsets up to S; a row's
    result must
    not depend on T (at S=334 and 2048), nor a sequence's on the rest of its
    batch (each alone at B=1, bit for bit); over the same keys laid out in
@@ -131,14 +131,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    where the launches show K4 (K3) on every sequential forward and on no
    tree forward;
 8. trees at full depth, tools/bench_tree.py's protocol on the pair of
-   phase 5 (a 60-token prompt from default_rng(0), 256 tokens, greedy):
+   phase 5 (a 60-token prompt from default_rng(0), 128 tokens, greedy):
    (2, 2, 2), (3, 2, 1) and (4, 2) at tail damp 0.08 and 0.35, (2, 2, 2)
    under INT8 weights (K7) and under int8 KV + flash, a warm and a timed
    call each; a sampled (2, 2, 2) call twice from one seed gives the same
    tokens; tok/s, chain-depth acceptance, windows, launches as implied;
    every greedy output equal to greedy AR up to a first tie, a parted one
    replayed in the engine's shape;
-8b. EAGLE on the same target (tools/bench_eagle.py's protocol, 256
+8b. EAGLE on the same target (tools/bench_eagle.py's protocol, 128
    tokens), an untrained depth-1 head made on the card from a seed: chain
    gamma 3, 5, 8 sampled, chain gamma 5 greedy (GreedyProcessor at
    temperature 1e-4, where acceptance is exact-match), the greedy trees
@@ -151,6 +151,42 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    sync: the same tokens, each request equal to the batch engine's (and
    that to greedy AR) up to a tie; tok/s, TTFT, acceptance, windows, K1
    launches (M = 48 a verify, 256 an admission).
+
+9. the benchmark entry point at full width: a ShareGPT-format JSONL of 64
+   prompts of 10-500 characters written from default_rng(0); the README's
+   command (``TARGET_MODEL=synthetic:llama-1b-ls4 DRAFTER_MODEL=layerskip:4
+   QUANTIZATION=int8 ... python -m specdec_tpu_torch.cli.benchmark``, 4
+   prompts of 100 tokens, gamma 5: K7) and its INT4 counterpart in batch
+   mode (8 prompts in batches of 4: K1), each in a subprocess that runs
+   the module as ``-m`` does and then prints its launch counts; then the
+   INT4 configuration through ``BenchmarkRunner`` in-process (4 prompts of
+   64 tokens): target_ar, ngram on the device table, an untrained
+   ``eagle:1`` head and an open-loop run (2 requests/s for 10 s). Each run:
+   the result files with the JAX runner's keys at every level, the
+   requests asked for, launches that make whole forwards, NVML telemetry
+   (average power, or a sample, inside (0, the card's limit)); greedy
+   target_ar and ngram outputs equal single-sequence greedy AR up to a
+   top-two tie (``greedy_tie``); tok/s, TTFT and latency p50/p99,
+   acceptance, average and peak W and tokens per joule printed;
+9b. a local checkpoint: the dense bf16 target of phase 5 written as a
+   TinyLlama-shaped HF llama checkpoint (two safetensors shards and an
+   index, 2.2 GB, under ``build/``, removed after), loaded by
+   ``load_hf_streamed(quantization="int4")`` on the card: bit-identical to
+   ``quantize_params(dense, "int4", fuse=True)`` on the card and on the
+   CPU, peak device memory of the load under the loaded model plus two
+   dense layers and the dense lm_head, greedy AR of 32 tokens equal to
+   the pair's;
+9c. ``synthetic:llama-8b`` (built by ``init_quantized_params``, INT4) with
+   ``layerskip:4``, 4 prompts in one batch of 32 tokens, through the
+   runner: its build time and peak memory; K1 at the preset's shapes
+   (M = 1, 4, 20, 256) against its plain version, with times;
+9d. the serving facade: ``VLLMEngineManager`` from the VLLM_* variables on
+   the INT4 LayerSkip pair (max_model_len 512, 8 slots, gamma 5), the
+   paged engine with bf16 KV (K8a) and with ``KV_QUANT=int8`` (K8b),
+   ``run_server_benchmark`` over it with the serving phase's 16 prompts
+   arriving at 4 per second, 128 tokens each, greedy at temperature 1e-4:
+   every request equal to the batched AR engine's output up to a tie;
+   req/s, tok/s, TTFT and latency p50/p99.
 
 Any failed phase exits 1 (without a CUDA device, or outside a checkout,
 too, before any result is printed). Standard output ends with the card's
@@ -239,7 +275,8 @@ QWEN3_HEADS = (32, 8, 128)
 # validation shapes; long reaches the config's 2048 positions; serve is the
 # serving engine's verify (8 slots, gamma 8) at its table width of 9 pages,
 # chunk a chunk of phase 4b's chunked prefill (prefill_chunk=64) at that
-# width. Pages of 16 (four to a 64-key tile) and 128 (half a page a tile)
+# width; vllm-serve the serving facade's verify (phase 9d: 8 slots, gamma
+# 5) at its width of VLLM_TABLE_PAGES = 12 pages. Pages of 16 (four to a 64-key tile) and 128 (half a page a tile)
 # with offsets at page starts and ends. Every table's entries past its
 # sequence's last live page hold POISON, an out-of-range page index that
 # faults if the kernel reads it.
@@ -258,6 +295,8 @@ PAGED_SHAPES = [
     ("page16", 4, 9, 16, 32, [15, 16, 200, 490], PAIR_HEADS),
     ("page128", 4, 9, 128, 4, [127, 128, 300, 500], PAIR_HEADS),
     ("qwen3-verify", 4, 9, PAGE, 8, [40, 100, 350, 7], QWEN3_HEADS),
+    ("vllm-serve", 8, 6, PAGE, 12, [30, 199, 260, 400, 511, 600, 640, 700],
+     PAIR_HEADS),
 ]
 # row independence of the paged kernel: the rows of a T=64 call against the
 # same rows of calls at these T, at every paged shape
@@ -283,10 +322,10 @@ BF16_U = 2.0 ** -8
 # verify and a prefill at the config's 2048 positions, where the kernel's 8
 # spans hold 4 tiles each; and EAGLE's sequential forwards under int8 KV +
 # flash (phase 8b): the chain's catch-up and verify (T = 6, gamma 5) over
-# its S = 64 + 256 + 5 + 2, the (2, 2, 2) tree's catch-up (T = 5) over
-# S = 64 + 256 + 15 + 2. Offsets reach S - T.
+# its S = 64 + TREE_GEN + 5 + 2, the (2, 2, 2) tree's catch-up (T = 5) over
+# S = 64 + TREE_GEN + 15 + 2. Offsets reach S - T.
 SINGLE_S, SERVE_S, LONG_S = 334, 394, 2048
-EAGLE_S, EAGLE_TREE_S = 327, 337
+EAGLE_S, EAGLE_TREE_S = 167, 177
 FLASH_SHAPES = [
     ("decode", 1, SINGLE_S, 1, [333], PAIR_HEADS),
     ("catch-up", 1, SINGLE_S, 2, [150], PAIR_HEADS),
@@ -301,9 +340,9 @@ FLASH_SHAPES = [
     ("qwen3-verify", 1, SINGLE_S, 13, [321], QWEN3_HEADS),
     ("long-verify", 1, LONG_S, 13, [2030], PAIR_HEADS),
     ("long-prefill", 1, LONG_S, 64, [1900], PAIR_HEADS),
-    ("eagle-catch-up", 1, EAGLE_S, 6, [180], PAIR_HEADS),
-    ("eagle-verify", 1, EAGLE_S, 6, [321], PAIR_HEADS),
-    ("eagle-tree-catch-up", 1, EAGLE_TREE_S, 5, [300], PAIR_HEADS),
+    ("eagle-catch-up", 1, EAGLE_S, 6, [148], PAIR_HEADS),
+    ("eagle-verify", 1, EAGLE_S, 6, [161], PAIR_HEADS),
+    ("eagle-tree-catch-up", 1, EAGLE_TREE_S, 5, [172], PAIR_HEADS),
 ]
 # row independence: the rows of a T=64 call at one offset against the same
 # rows of calls at smaller T, over a cache of each capacity (S, offset)
@@ -2147,11 +2186,12 @@ def phase_beam(pair, device, card):
 ORACLE_TREES = ((2, 2, 1, 1), (3, 2, 1), (4, 2))
 ORACLE_GEN = 64
 # phase 8, tools/bench_tree.py's protocol: a 60-token prompt from
-# default_rng(0) (bench.bench_prompt()), 256 tokens, greedy, at its two
-# tail damps (the drafter strong and weak)
+# default_rng(0) (bench.bench_prompt()), greedy, at its two tail damps (the
+# drafter strong and weak); 96 tokens (the benchmark decodes 256), so
+# that the run holds phases 9-9d well within its time
 TREES = ((2, 2, 2), (3, 2, 1), (4, 2))
 TREE_DAMPS = (0.08, 0.35)
-TREE_GEN = 256
+TREE_GEN = 96
 # the replay's tie rule for the tree engines. A tree verify sums each
 # node's attention over its ancestors at their tree slots, with the
 # other nodes' slots masked in between; the replay sums over contiguous
@@ -2160,7 +2200,7 @@ TREE_GEN = 256
 # 3.00 ulps below the replay's argmax, where the sequential engines'
 # replays (phases 7-7c) stay within 1
 TREE_REPLAY_ULPS = 4
-# phase 8b, tools/bench_eagle.py's protocol at 256 tokens (it decodes
+# phase 8b, tools/bench_eagle.py's protocol at TREE_GEN tokens (it decodes
 # 512): an untrained depth-1 head made on the card from EAGLE_SEED
 EAGLE_GAMMAS = (3, 5, 8)
 EAGLE_GAMMA = 5
@@ -2430,7 +2470,7 @@ def greedy_ar(cfg, params, prompt, gen, device):
 
 def phase_eagle(pair, device, card, refs):
     """EAGLE on the 22-layer INT4 target (tools/bench_eagle.py's protocol,
-    256 tokens): an untrained depth-1 head made on the card from
+    TREE_GEN tokens): an untrained depth-1 head made on the card from
     EAGLE_SEED, one warm-up call, then one timed call each of chain gamma
     3, 5, 8 (MultinomialProcessor(1.0)), chain gamma 5 greedy (at
     GREEDY_T) and the greedy trees of TREES; chain gamma 5 greedy and tree
@@ -2631,6 +2671,812 @@ def phase_eagle_serving(pair, head, device, card):
     return summary, totals
 
 
+# ---------------------------------------------------------------------------
+# Phases 9-9d: the benchmark entry point, the loaders and the serving facade
+# ---------------------------------------------------------------------------
+
+# phase 9: the README's command (the synthetic TinyLlama-1.1B preset with
+# its LayerSkip tail, the drafter its first 4 layers, INT8 weights: K7)
+# and its INT4 counterpart in batch mode (K1), each through the CLI in a
+# subprocess; then the INT4 configuration in-process, launches counted
+README_ENV = dict(TARGET_MODEL="synthetic:llama-1b-ls4",
+                  DRAFTER_MODEL="layerskip:4", QUANTIZATION="int8",
+                  DRAFTER_QUANTIZATION="int8", NUM_PROMPTS="4",
+                  GENERATION_LENGTH="100", GAMMA_VALUE="5")
+CLI_RUNS = {"cli_int8": README_ENV,
+            "cli_int4": dict(README_ENV, QUANTIZATION="int4",
+                             DRAFTER_QUANTIZATION="int4", ENABLE_BATCH="true",
+                             BATCH_SIZE="4", NUM_PROMPTS="8")}
+# the in-process runs: 4 prompts of HARNESS_GEN tokens, single mode
+HARNESS_GEN = 64
+HARNESS_RUNS = {
+    "target_ar": dict(INFERENCE_METHOD="target_ar"),
+    "ngram_device": dict(INFERENCE_METHOD="ngram", NGRAM_DEVICE="true"),
+    "eagle": dict(DRAFTER_MODEL="eagle:1"),
+    "open_loop": dict(NUM_PROMPTS="0", AUTO_RATE="2", AUTO_DURATION="10"),
+}
+SHAREGPT_PROMPTS = 64
+# the JAX runner's result files (tests/test_torch_harness.py holds the
+# port's to them on the CPU): the method's results, each batch, each
+# request, and the telemetry
+RESULT_KEYS = ["method", "total_requests", "total_batches", "total_duration",
+               "total_tokens", "total_prompt_tokens", "overall_throughput",
+               "avg_ttft", "avg_latency", "avg_acceptance_rate", "batches"]
+BATCH_KEYS = ["batch_size", "batch_latency", "total_tokens", "avg_ttft",
+              "avg_latency", "throughput", "requests"]
+REQUEST_KEYS = ["prompt_tokens", "generated_tokens", "total_tokens", "ttft",
+                "total_latency", "acceptance_rate", "drafts_generated",
+                "drafts_accepted"]
+MONITOR_KEYS = ["power_source", "num_chips", "duration_s", "samples",
+                "avg_power_w", "peak_power_w", "avg_utilization_pct",
+                "avg_memory_pct", "peak_memory_pct", "peak_temperature_c",
+                "energy_joules", "energy_wh", "energy_kwh", "total_tokens",
+                "accepted_tokens", "tokens_per_joule",
+                "accepted_tokens_per_joule", "tokens_per_kwh"]
+# phase 9c: the 8B preset (32 layers, D=4096, F=14336, V=128256, Hk=8,
+# Dh=128) with layerskip:4, INT4, 4 prompts in one batch of 32 tokens
+LLAMA8B_ENV = dict(TARGET_MODEL="synthetic:llama-8b",
+                   DRAFTER_MODEL="layerskip:4", QUANTIZATION="int4",
+                   NUM_PROMPTS="4", ENABLE_BATCH="true", BATCH_SIZE="4",
+                   GENERATION_LENGTH="32", INFERENCE_METHOD="speculative")
+# K1 at the 8B preset's shapes, at a row count of each of its instances
+# (M <= 8, 16, 32, more): a decode step, the B=4 drafter step, the B=4
+# verify at gamma 4, a prefill slice
+LLAMA8B_STACKED = [("wqkv", 4096, 6144), ("wo", 4096, 4096),
+                   ("w_gateup", 4096, 28672), ("w_down", 14336, 4096)]
+LLAMA8B_HEAD = ("lm_head", 4096, 128256)
+LLAMA8B_ROWS = (1, 4, 20, 256)
+# phase 9d: the serving facade on the INT4 pair: VLLM_MAX_MODEL_LEN 512
+# (admission prefills min(max_model_len, 2048) rows), 8 slots, gamma 5,
+# the serving phase's 16 prompts of 128 tokens arriving at 4 per second
+VLLM_ENV = dict(TARGET_MODEL="synthetic:llama-1b-ls4",
+                DRAFTER_MODEL="layerskip:4", VLLM_ENABLE_SPECULATIVE="true",
+                VLLM_NUM_SPECULATIVE_TOKENS="5", VLLM_QUANTIZATION="int4",
+                VLLM_MAX_MODEL_LEN="512", VLLM_MAX_NUM_SEQS="8",
+                MAX_TOKENS="128")
+VLLM_RATE = 4.0
+# its page table: S = 512 + 128 + 5 + 2 positions plus a window, in pages
+# of 64, plus one (serve/paged_scheduler.py); phase 3b times this width
+VLLM_TABLE_PAGES = 12
+
+
+@contextlib.contextmanager
+def environ(**kv):
+    """os.environ with ``kv`` set inside, restored after."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update({k: str(v) for k, v in kv.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def power_limit_w(card):
+    """The power limit of nvidia-smi's "name, limit W" line."""
+    return float(card.rsplit(",", 1)[1].split()[0])
+
+
+def write_sharegpt(path, n=SHAREGPT_PROMPTS, seed=0):
+    """A ShareGPT-format JSONL of ``n`` human turns of 10-500 characters
+    (words of random letters), each followed by a model turn."""
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    with open(path, "w") as f:
+        for _ in range(n):
+            size = int(rng.integers(10, 501))
+            words = []
+            while sum(map(len, words)) + len(words) < size:
+                words.append("".join(rng.choice(letters,
+                                                int(rng.integers(1, 9)))))
+            text = " ".join(words)[:size].strip().ljust(size, "x")
+            f.write(json.dumps({"conversations": [
+                {"from": "human", "value": text},
+                {"from": "gpt", "value": "ok"}]}) + "\n")
+
+
+def check_result_files(what, base, method, asked, limit):
+    """The runner's three files under ``base``: the JAX runner's keys at
+    every level, the method file equal to the combined file's entry, the
+    requests asked for (``asked``: a count, or a (low, high) range), NVML
+    telemetry with average power inside (0, limit). Returns a summary."""
+    stem = base[:-len(".json")]
+    suffix = {"target_ar": "target"}.get(method, method)
+    try:
+        with open(base) as f:
+            combined = json.load(f)
+        with open(f"{stem}_{suffix}.json") as f:
+            alone = json.load(f)
+        with open(f"{stem}_gpu.json") as f:
+            gpu = json.load(f)
+    except (OSError, ValueError) as e:
+        fail(f"{what}: result files missing or unreadable: {e}")
+    res = combined.get(method, {})
+    if sorted(combined) != sorted([method, "gpu_monitoring"]) or \
+            list(res) != RESULT_KEYS or alone != res or \
+            list(gpu) != MONITOR_KEYS or combined["gpu_monitoring"] != gpu:
+        fail(f"{what}: result files' keys {sorted(combined)}, {list(res)}, "
+             f"{list(gpu)} are not the JAX runner's")
+    reqs = [r for b in res["batches"] for r in b["requests"]]
+    if any(list(b) != BATCH_KEYS for b in res["batches"]) or any(
+            list(r) != REQUEST_KEYS for r in reqs):
+        fail(f"{what}: a batch's or a request's keys are not the JAX "
+             "runner's")
+    n = res["total_requests"]
+    low, high = asked if isinstance(asked, tuple) else (asked, asked)
+    if not low <= n <= high or len(reqs) != n:
+        fail(f"{what}: {n} requests ({len(reqs)} recorded), asked {asked}")
+    if gpu["power_source"] != "nvml" or gpu["samples"] < 1 or not (
+            0 < gpu["avg_power_w"] < limit):
+        fail(f"{what}: telemetry {gpu['power_source']!r}, {gpu['samples']} "
+             f"samples, average {gpu['avg_power_w']} W: not NVML within "
+             f"(0, {limit}) W")
+    ttft = [r["ttft"] * 1e3 for r in reqs]
+    lat = [r["total_latency"] * 1e3 for r in reqs]
+    return {"requests": n, "tokens": res["total_tokens"],
+            "tok_s": res["overall_throughput"],
+            "ttft_p50_ms": float(np.percentile(ttft, 50)),
+            "ttft_p99_ms": float(np.percentile(ttft, 99)),
+            "latency_p50_ms": float(np.percentile(lat, 50)),
+            "latency_p99_ms": float(np.percentile(lat, 99)),
+            "acceptance": res["avg_acceptance_rate"],
+            "avg_w": gpu["avg_power_w"], "peak_w": gpu["peak_power_w"],
+            "tokens_per_joule": gpu["tokens_per_joule"],
+            "samples": gpu["samples"], "seconds": res["total_duration"]}
+
+
+def say_run(phase, name, rec, card, extra=""):
+    say(f"[{phase}] {name}: {rec['requests']} requests, {rec['tokens']} "
+        f"tokens in {rec['seconds']:.2f} s = {rec['tok_s']:.1f} tok/s "
+        f"({card}); TTFT p50 {rec['ttft_p50_ms']:.0f} / p99 "
+        f"{rec['ttft_p99_ms']:.0f} ms, latency p50 {rec['latency_p50_ms']:.0f}"
+        f" / p99 {rec['latency_p99_ms']:.0f} ms, acceptance "
+        f"{rec['acceptance']:.3f}; NVML {rec['samples']} samples, "
+        f"{rec['avg_w']:.1f} W average, {rec['peak_w']:.1f} W peak, "
+        f"{rec['tokens_per_joule']:.3f} tokens/J" + extra)
+
+
+def spec_forwards(what, counts, kernels, L, Ld):
+    """Target and drafter forwards of a LayerSkip run from its launches:
+    the stacked weight kernel 4 (L T + Ld D) times, the 2D one T + D
+    times, nothing else (``kernels``: the format's (stacked, 2D) pair).
+    Returns (T, D)."""
+    stacked, two_d = kernels
+    a, b = counts[stacked], counts[two_d]
+    num = a // 4 - Ld * b
+    T, D = num // (L - Ld), b - num // (L - Ld)
+    others = {k: n for k, n in counts.items() if n and k not in (stacked,
+                                                                two_d)}
+    if a % 4 or num % (L - Ld) or T <= 0 or D <= 0 or others:
+        fail(f"{what}: launches {counts} are no whole number of {L}-layer "
+             f"target and {Ld}-layer drafter forwards")
+    return T, D
+
+
+def run_cli(name, env, root, workdir, limit, card):
+    """``python -m specdec_tpu_torch.cli.benchmark`` in a subprocess: the
+    module run as ``-m`` runs it (runpy, ``__main__``, argv untouched),
+    then the launch counts of the port's kernel wrappers printed. Returns
+    (result summary, launch counts)."""
+    code = ("import json, runpy, chip_smoke\n"
+            "try:\n"
+            "    runpy.run_module('specdec_tpu_torch.cli.benchmark', "
+            "run_name='__main__', alter_sys=True)\n"
+            "finally:\n"
+            "    print('LAUNCHES ' + json.dumps(chip_smoke.launches()))\n")
+    base = os.path.join(workdir, f"{name}.json")
+    full = dict(os.environ, **env, OUTPUT_FILE=base,
+                SHAREGPT_DIR=workdir, GPU_MONITOR_INTERVAL="0.5",
+                PYTHONPATH=os.pathsep.join(
+                    [root] + [p for p in [os.environ.get("PYTHONPATH")]
+                              if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=full,
+                          capture_output=True, text=True, timeout=400)
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(workdir, f"{name}.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    counts = [json.loads(line[len("LAUNCHES "):])
+              for line in proc.stdout.splitlines()
+              if line.startswith("LAUNCHES ")]
+    if proc.returncode or not counts:
+        fail(f"9 {name}: the CLI exited {proc.returncode}:\n"
+             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    rec = check_result_files(f"9 {name}", base, "speculative",
+                             int(env["NUM_PROMPTS"]), limit)
+    rec["process_seconds"] = seconds
+    return rec, counts[0]
+
+
+def recording(module, names, calls):
+    """Wrap ``module``'s functions ``names`` to append (args, result) to
+    ``calls``; returns the originals, to restore."""
+    saved = {n: getattr(module, n) for n in names}
+    for n, fn in saved.items():
+        def wrapped(*a, _fn=fn, _n=n, **k):
+            out = _fn(*a, **k)
+            calls.append((_n, a, out))
+            return out
+        setattr(module, n, wrapped)
+    return saved
+
+
+def greedy_ar_outputs(what, runner, calls, device):
+    """Every recorded greedy output of the run equals single-sequence
+    greedy AR of its prompt on the runner's target, or parts from it
+    first at a top-two bf16 tie (``greedy_tie``). Returns the ties."""
+    from specdec_tpu_torch.sampling.base_decoding import (
+        autoregressive_generate,
+    )
+
+    cfg, params = runner.target_cfg, runner.target_params
+    ties = []
+    for name, args, out in calls:
+        outs = out if name == "batch_autoregressive_generate" else out[0]
+        for p, o in zip(args[0], outs):
+            ref = autoregressive_generate(
+                p, cfg, params, max_gen_len=runner.gen_len,
+                eos_tokens_id=runner.end_tokens, device=device)
+            o = [int(t) for t in o]
+            if o == ref:
+                continue
+            if not any(a != b for a, b in zip(o, ref)):
+                fail(f"{what}: an output of {len(o)} tokens and greedy AR's "
+                     f"{len(ref)} agree where both have tokens")
+            ties.append(greedy_tie(what, cfg, params, p, ref, o, device)[0])
+    return ties
+
+
+def harness_run(name, env, device, workdir, limit, calls=None):
+    """One in-process BenchmarkRunner run (its console output to
+    ``workdir/<name>.log``), launches counted from 0. Returns (runner,
+    launches, seconds)."""
+    from specdec_tpu_torch.engine.benchmark_runner import BenchmarkRunner
+
+    base = os.path.join(workdir, f"{name}.json")
+    reset_launches()
+    t0 = time.perf_counter()
+    with environ(**env, OUTPUT_FILE=base, SHAREGPT_DIR=workdir,
+                 GPU_MONITOR_INTERVAL="0.5"), \
+            open(os.path.join(workdir, f"{name}.log"), "w") as log, \
+            contextlib.redirect_stdout(log):
+        runner = BenchmarkRunner(device=device)
+    seconds = time.perf_counter() - t0
+    counts = launches()
+    mon = runner.monitor_results
+    if mon is None or mon.power_source != "nvml" or not any(
+            0 < s.power_w < limit for s in mon.snapshots):
+        fail(f"9 {name}: no NVML sample within (0, {limit}) W")
+    return runner, counts, seconds
+
+
+def phase_cli(device, card, root, workdir):
+    """Phase 9: the CLI (README's INT8 command, the INT4 batch run) in
+    subprocesses, then the INT4 configuration in-process as target_ar,
+    ngram on the device table, an EAGLE drafter and an open-loop run.
+    Returns (summary, launches by run)."""
+    from specdec_tpu_torch.engine import infer_engine as tie
+
+    limit = power_limit_w(card)
+    write_sharegpt(os.path.join(workdir, "sharegpt_gpt4.jsonl"))
+    summary, by_run = {}, {}
+    L, Ld = 22, 4  # the preset's layers and the drafter's
+    for name, env in CLI_RUNS.items():
+        rec, counts = run_cli(name, env, root, workdir, limit, card)
+        quant = env["QUANTIZATION"]
+        stacked, two_d = WEIGHT_KERNELS[quant]
+        if not counts[stacked]:
+            fail(f"9 {name}: no {stacked} launch under {quant} weights")
+        rec["target_forwards"], rec["drafter_forwards"] = spec_forwards(
+            f"9 {name}", counts, (stacked, two_d), L, Ld)
+        rec["launches"] = {k: n for k, n in counts.items() if n}
+        summary[name], by_run[name] = rec, counts
+        mode = "batch" if env.get("ENABLE_BATCH") == "true" else "single"
+        say_run("9 cli", f"{name} ({quant}, {mode})", rec, card, f"; {stacked} {counts[stacked]}, {two_d} "
+                f"{counts[two_d]} = {rec['target_forwards']} target + "
+                f"{rec['drafter_forwards']} drafter forwards; process "
+                f"{rec['process_seconds']:.1f} s")
+    base = dict(CLI_RUNS["cli_int4"], ENABLE_BATCH="false", NUM_PROMPTS="4",
+                GENERATION_LENGTH=str(HARNESS_GEN))
+    for name, env in HARNESS_RUNS.items():
+        env = dict(base, **env)
+        calls = []
+        saved = recording(tie, ("batch_autoregressive_generate",
+                                "device_ngram_assisted_generate_batch"),
+                          calls)
+        try:
+            runner, counts, seconds = harness_run(name, env, device,
+                                                  workdir, limit)
+        finally:
+            for n, fn in saved.items():
+                setattr(tie, n, fn)
+        method = ("target_ar" if name == "target_ar" else
+                  "ngram" if name == "ngram_device" else "speculative")
+        asked = ((1, int(float(env["AUTO_RATE"]) * float(env["AUTO_DURATION"]))
+                  + 1) if env["NUM_PROMPTS"] == "0" else int(env["NUM_PROMPTS"]))
+        rec = check_result_files(f"9 {name}", os.path.join(
+            workdir, f"{name}.json"), method, asked, limit)
+        params = runner.target_params
+        L = runner.target_cfg.num_layers
+        what = f"9 {name}"
+        extra = ""
+        if name in ("target_ar", "ngram_device"):
+            fw = forward_launches(what, counts, runner.target_cfg, params)
+            rec["ties"] = greedy_ar_outputs(what, runner, calls, device)
+            extra = (f"; {fw} target forwards (K1b 88, K1a 1 each); every "
+                     "output == greedy AR" + (
+                         f" but for bf16 ties at tokens {rec['ties']}"
+                         if rec["ties"] else ""))
+        elif name == "eagle":
+            T, rest = divmod(counts["K1b"], 4 * L)
+            heads = counts["K1a"] - T
+            if rest or T <= 0 or heads <= 0 or any(
+                    n for k, n in counts.items() if k not in ("K1b", "K1a")):
+                fail(f"{what}: launches {counts} are not 88 K1b and one K1a "
+                     "per target forward plus one K1a per head forward")
+            rec["target_forwards"], rec["head_forwards"] = T, heads
+            extra = f"; {T} target forwards, {heads} head forwards"
+        else:
+            T, D = spec_forwards(what, counts, weight_kernels(params), L,
+                                 runner.drafter_cfg.num_layers)
+            if rec["seconds"] < float(env["AUTO_DURATION"]):
+                fail(f"{what}: stopped after {rec['seconds']:.1f} s, before "
+                     f"AUTO_DURATION {env['AUTO_DURATION']} s")
+            rec["target_forwards"], rec["drafter_forwards"] = T, D
+            extra = f"; {T} target + {D} drafter forwards"
+        rec["launches"] = {k: n for k, n in counts.items() if n}
+        rec["wall_s"] = seconds
+        summary[name], by_run[name] = rec, counts
+        say_run("9 harness", name, rec, card, extra)
+        del runner
+    torch.cuda.empty_cache()
+    return summary, by_run
+
+
+# ---------------------------------------------------------------------------
+# phase 9b: a local checkpoint, streamed
+# ---------------------------------------------------------------------------
+
+def write_llama_checkpoint(path, cfg, params, n_shards=2):
+    """The dense bf16 params of ``cfg`` as an HF llama checkpoint: its
+    config.json and ``n_shards`` safetensors files (layers split evenly,
+    the embedding in the first, the norm and head in the last) with an
+    index. The format written by hand: an 8-byte little-endian header
+    length, the JSON header padded to 8 bytes, the raw bytes."""
+    os.makedirs(path, exist_ok=True)
+    L = cfg.num_layers
+    lay = params["layers"]
+    names = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+             "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+             "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+             "w_down": "mlp.down_proj"}
+
+    def layer_tensors(i):
+        p = f"model.layers.{i}."
+        out = [(p + "input_layernorm.weight", lay["attn_norm_w"][i]),
+               (p + "post_attention_layernorm.weight", lay["mlp_norm_w"][i])]
+        out += [(p + hf + ".weight", lay[k][i].t()) for k, hf in names.items()]
+        return out
+
+    per = -(-L // n_shards)
+    shards = []
+    for s in range(n_shards):
+        tensors = [("model.embed_tokens.weight", params["embed"])] if s == 0 \
+            else []
+        for i in range(s * per, min(L, (s + 1) * per)):
+            tensors += layer_tensors(i)
+        if s == n_shards - 1:
+            tensors += [("model.norm.weight", params["final_norm_w"]),
+                        ("lm_head.weight", params["lm_head"].t())]
+        shards.append(tensors)
+    weight_map = {}
+    for s, tensors in enumerate(shards):
+        fname = f"model-{s + 1:05d}-of-{n_shards:05d}.safetensors"
+        header, offset = {"__metadata__": {"format": "pt"}}, 0
+        for name, t in tensors:
+            n = t.numel() * 2
+            header[name] = {"dtype": "BF16", "shape": list(t.shape),
+                            "data_offsets": [offset, offset + n]}
+            offset += n
+            weight_map[name] = fname
+        head = json.dumps(header).encode()
+        head += b" " * (-len(head) % 8)
+        with open(os.path.join(path, fname), "wb") as f:
+            f.write(len(head).to_bytes(8, "little"))
+            f.write(head)
+            for _, t in tensors:
+                f.write(t.to(torch.bfloat16).contiguous().cpu().view(
+                    torch.int16).numpy().tobytes())
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {}, "weight_map": weight_map}, f)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"model_type": "llama",
+                   "architectures": ["LlamaForCausalLM"],
+                   "vocab_size": cfg.vocab_size,
+                   "hidden_size": cfg.hidden_size,
+                   "intermediate_size": cfg.intermediate_size,
+                   "num_hidden_layers": L,
+                   "num_attention_heads": cfg.num_heads,
+                   "num_key_value_heads": cfg.num_kv_heads,
+                   "max_position_embeddings": cfg.max_position_embeddings,
+                   "rms_norm_eps": cfg.norm_eps, "rope_theta": cfg.rope_theta,
+                   "tie_word_embeddings": False, "torch_dtype": "bfloat16"},
+                  f)
+
+
+def tree_bytes(tree):
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if dataclasses.is_dataclass(tree):
+        return sum(tree_bytes(getattr(tree, f.name))
+                   for f in dataclasses.fields(tree))
+    return tree.numel() * tree.element_size()
+
+
+def same_bits(what, got, ref):
+    """Quantized params equal bit for bit (``ref`` on any device)."""
+    if isinstance(got, dict):
+        if sorted(got) != sorted(ref):
+            fail(f"{what}: keys {sorted(got)} against {sorted(ref)}")
+        for k in got:
+            same_bits(f"{what}.{k}", got[k], ref[k])
+    elif dataclasses.is_dataclass(got):
+        if type(got) is not type(ref):
+            fail(f"{what}: {type(got).__name__} against "
+                 f"{type(ref).__name__}")
+        for f in dataclasses.fields(got):
+            same_bits(f"{what}.{f.name}", getattr(got, f.name),
+                      getattr(ref, f.name))
+    elif got.dtype != ref.dtype or got.shape != ref.shape or \
+            not torch.equal(got.cpu(), ref.cpu()):
+        fail(f"{what}: not bit-identical")
+
+
+def phase_stream(device, card, root, target):
+    """Phase 9b: bench.build_pair's dense bf16 target written as a
+    TinyLlama-shaped HF checkpoint (two shards and an index), loaded with
+    load_hf_streamed(quantization="int4") on the card: bit-identical to
+    quantize_params(dense, "int4", fuse=True) on the card and on the CPU,
+    peak device memory of the load under the loaded model plus two dense
+    layers and the dense lm_head, greedy AR of 32 tokens equal to that of
+    the pair's INT4 ``target``. Returns (summary, K1 launches of the greedy
+    run)."""
+    import shutil
+
+    from specdec_tpu_torch import bench
+    from specdec_tpu_torch.core.stream_loader import load_hf_streamed
+    from specdec_tpu_torch.quant.core import quantize_params
+
+    t_cfg, _, dense, _ = bench.build_pair(device, quant="none")
+    path = os.path.join(root, "build", "smoke_checkpoint")
+    shutil.rmtree(path, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_llama_checkpoint(path, t_cfg, dense)
+    disk = sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+    t_write = time.perf_counter() - t0
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        cfg, loaded = load_hf_streamed(path, quantization="int4",
+                                       device=device)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - before
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    if cfg != t_cfg:
+        fail(f"9b stream: config {cfg} against the pair's {t_cfg}")
+    dense_layer = sum(v[0].numel() * v[0].element_size()
+                      for v in dense["layers"].values())
+    head = tree_bytes(dense["lm_head"])
+    bound = tree_bytes(loaded) + 2 * dense_layer + head
+    if peak > bound:
+        fail(f"9b stream: peak {peak / 2**20:.0f} MiB over the loaded model "
+             f"plus two dense layers and the dense lm_head "
+             f"({bound / 2**20:.0f} MiB)")
+    same_bits("9b stream vs quantize_params on the card", loaded,
+              quantize_params(dense, kind="int4", fuse=True))
+    t0 = time.perf_counter()
+    cpu_dense = {k: ({n: t.cpu() for n, t in v.items()}
+                     if isinstance(v, dict) else v.cpu())
+                 for k, v in dense.items()}
+    same_bits("9b stream vs quantize_params on the CPU", loaded,
+              quantize_params(cpu_dense, kind="int4", fuse=True))
+    t_cpu = time.perf_counter() - t0
+    del cpu_dense
+    prompt = bench.bench_prompt()
+    reset_launches()
+    got = greedy_ar(cfg, loaded, prompt, 32, device)
+    counts = launches()
+    want = greedy_ar(t_cfg, target, prompt, 32, device)
+    if got != want:
+        fail("9b stream: greedy AR of the loaded model differs from the "
+             "pair's")
+    forward_launches("9b stream greedy", counts, cfg, loaded)
+    summary = {"checkpoint_bytes": disk, "write_s": t_write,
+               "load_s": t_load, "cpu_quantize_s": t_cpu,
+               "peak_bytes": peak, "bound_bytes": bound,
+               "loaded_bytes": tree_bytes(loaded)}
+    say(f"[9b stream] wrote a TinyLlama-shaped bf16 checkpoint "
+        f"({disk / 1e9:.2f} GB, 2 shards + index) in {t_write:.1f} s; "
+        f"load_hf_streamed(int4) on the card in {t_load:.1f} s, peak "
+        f"{peak / 2**20:.0f} MiB (loaded model {tree_bytes(loaded) / 2**20:.0f}"
+        f" MiB; bound {bound / 2**20:.0f} MiB); bit-identical to "
+        f"quantize_params(int4, fuse=True) on the card and on the CPU "
+        f"({t_cpu:.1f} s); greedy AR of 32 tokens == the pair's; {card}")
+    del dense, loaded
+    torch.cuda.empty_cache()
+    return summary, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 9c: the 8B preset
+# ---------------------------------------------------------------------------
+
+def phase_8b(device, card, workdir):
+    """Phase 9c: synthetic:llama-8b built by init_quantized_params (INT4)
+    with layerskip:4, 4 prompts in one batch of 32 tokens, through the
+    runner in-process; build time and peak memory; K1 at the preset's
+    shapes against its plain version. Returns (summary, launches,
+    kernel records)."""
+    from specdec_tpu_torch.engine import model_loader
+    from specdec_tpu_torch.ops import quant_matmul as qm
+    from specdec_tpu_torch.quant.core import dequantize
+
+    limit = power_limit_w(card)
+    built = {}
+    load = model_loader.load_models
+
+    def timed_load(*a, **k):
+        # the build's peak above what the process held before it
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = load(*a, **k)
+        torch.cuda.synchronize()
+        built.update(seconds=time.perf_counter() - t0,
+                     peak=torch.cuda.max_memory_allocated() - before,
+                     params=tree_bytes(out["target"]["params"]))
+        return out
+    model_loader.load_models = timed_load
+    try:
+        runner, counts, seconds = harness_run("llama_8b", LLAMA8B_ENV, device,
+                                              workdir, limit)
+    finally:
+        model_loader.load_models = load
+    cfg = runner.target_cfg
+    if (cfg.num_layers, cfg.hidden_size, cfg.intermediate_size,
+            cfg.vocab_size, cfg.num_kv_heads, cfg.head_dim) != (
+            32, 4096, 14336, 128256, 8, 128):
+        fail(f"9c 8B: config {cfg}")
+    rec = check_result_files("9c 8B", os.path.join(workdir, "llama_8b.json"),
+                             "speculative", 4, limit)
+    T, D = spec_forwards("9c 8B", counts, weight_kernels(runner.target_params),
+                         32, 4)
+    rec.update(build_s=built["seconds"], build_peak_bytes=built["peak"],
+               params_bytes=built["params"], target_forwards=T,
+               drafter_forwards=D, wall_s=seconds,
+               launches={k: n for k, n in counts.items() if n})
+    say_run("9c 8B", "synthetic:llama-8b + layerskip:4, int4, batch 4",
+            rec, card, f"; built by init_quantized_params in "
+            f"{built['seconds']:.1f} s, peak {built['peak'] / 2**30:.2f} GiB "
+            f"above the memory held before it, for "
+            f"{built['params'] / 2**30:.2f} GiB of params; {T} target + "
+            f"{D} drafter forwards")
+    # K1 at the 8B shapes, layer 0 and the lm_head, against its plain
+    # version, with its time
+    params = runner.target_params
+    gen = torch.Generator(device=device).manual_seed(88)
+    flush = torch.zeros(256 * 2 ** 20, dtype=torch.uint8, device=device)
+    records = []
+    for name, K, N in LLAMA8B_STACKED + [LLAMA8B_HEAD]:
+        head = name == LLAMA8B_HEAD[0]
+        w = params["lm_head"] if head else params["layers"][name]
+        lw = layer_of(w, None if head else 0)
+        w_bf16 = dequantize(lw, torch.bfloat16)
+        x_all = torch.randn((max(LLAMA8B_ROWS), K), generator=gen,
+                            device=device).to(torch.bfloat16)
+        for M in LLAMA8B_ROWS:
+            x = x_all[:M]
+
+            def kern(x=x, w=w, head=head):
+                return (qm.quant_matmul(x, w) if head
+                        else qm.quant_matmul_stacked(x, w, 0))
+            got = kern().float()
+            plain = qm.int4_matmul_reference(x, lw.packed, lw.absmax).float()
+            err, rel, ok = kernel_vs_plain(got, plain)
+            bit_equal = (got == plain).float().mean().item()
+            if not ok or bit_equal < MIN_BIT_EQUAL:
+                fail(f"9c K1 {name} M={M}: kernel vs plain max abs err "
+                     f"{err:.3g}, relative {rel:.3g}, bit-equal {bit_equal:.3%}")
+            b_ms, by = bound_ms(M, K, N, bytes_per_weight("int4", K))
+            records.append({
+                "name": f"8b_{name}", "format": "int4",
+                "layer": None if head else 0, "M": M, "K": K, "N": N,
+                "max_abs_err": err, "rel_fro_err": rel,
+                "bit_equal": bit_equal, "ms": gpu_ms(kern, flush),
+                "plain_ms": gpu_ms(lambda: qm.int4_matmul_reference(
+                    x, lw.packed, lw.absmax), flush),
+                "library_ms": gpu_ms(lambda: torch.matmul(x, w_bf16), flush),
+                "bound_ms": b_ms, "bound_by": by})
+        del w_bf16
+        say(f"[9c K1] {name:8s} K={K} N={N}: " + "; ".join(
+            f"M={r['M']} {r['ms'] * 1e3:.1f} us (bound "
+            f"{r['bound_ms'] * 1e3:.1f}, plain {r['plain_ms'] * 1e3:.0f}, "
+            f"torch.matmul bf16 {r['library_ms'] * 1e3:.1f}, "
+            f"{r['bit_equal']:.2%} bit-equal)"
+            for r in records if r["name"] == f"8b_{name}"))
+    del runner, params
+    torch.cuda.empty_cache()
+    return rec, counts, records
+
+
+# ---------------------------------------------------------------------------
+# phase 9d: the serving facade
+# ---------------------------------------------------------------------------
+
+def phase_vllm(device, card):
+    """Phase 9d: VLLMEngineManager from the VLLM_* environment on the INT4
+    LayerSkip pair, the default paged engine with bf16 KV (K8a) and with
+    KV_QUANT=int8 (K8b); run_server_benchmark over its batcher with the
+    serving phase's 16 prompts arriving at VLLM_RATE per second, 128 tokens
+    each, greedy at GREEDY_T (the softmaxes saturate, so acceptance is
+    exact-match and a request's tokens are the target's). Its pool is the
+    default half of full reservation, so requests may be preempted and
+    prefilled again, another computation of the same tokens. Each request
+    equals batched greedy AR under the same KV format, or parts from it
+    first at a top-two tie (``check_greedy``, as the NASD and EAGLE serving
+    phases hold theirs); then every token of every request is held to the
+    target's argmax over its own prefix, within greedy_tie's two bf16
+    ulps, in a replay of the engine's shape (``teacher_forced``). Returns
+    (summary, launches by KV format)."""
+    from specdec_tpu_torch import bench
+    from specdec_tpu_torch.core import model as tmodel
+    from specdec_tpu_torch.engine.batch_engine import (
+        batch_autoregressive_generate,
+    )
+    from specdec_tpu_torch.engine.server_benchmark import run_server_benchmark
+    from specdec_tpu_torch.engine.vllm_compat import (
+        VLLMEngineManager, create_vllm_config_from_env,
+    )
+    from specdec_tpu_torch.sampling.processors import GreedyProcessor
+    from specdec_tpu_torch.serve import PagedContinuousBatcher
+
+    prompts = bench.serving_prompts()
+    gen = int(VLLM_ENV["MAX_TOKENS"])
+    summary, by_kv = {}, {}
+    for kv in ("none", "int8"):
+        with environ(**VLLM_ENV, KV_QUANT=kv):
+            mgr = VLLMEngineManager(create_vllm_config_from_env(),
+                                    device=device)
+            mgr.initialize()
+        b = mgr.batcher
+        if type(b) is not PagedContinuousBatcher or \
+                b.max_pages_per_seq != VLLM_TABLE_PAGES or \
+                b.target_cfg.kv_quant != kv or b.drafter_cfg.num_layers != 4:
+            fail(f"9d vllm ({kv} KV): {type(b).__name__}, table width "
+                 f"{b.max_pages_per_seq}, kv {b.target_cfg.kv_quant}")
+        b.processor = GreedyProcessor(temperature=GREEDY_T)
+        t_cfg, target = b.target_cfg, b.target_params
+        reset_launches()
+        tmodel.forward_step_paged.calls = 0
+        torch.cuda.synchronize()
+        res = run_server_benchmark(b, prompts, rate=VLLM_RATE,
+                                   method_name="speculative")
+        torch.cuda.synchronize()
+        counts = launches()
+        paged_forwards = tmodel.forward_step_paged.calls
+        what = f"9d vllm ({kv} KV)"
+        if res.total_requests != len(prompts):
+            fail(f"{what}: {res.total_requests} of {len(prompts)} requests")
+        outs = [b.completed[i].output_ids for i in range(len(prompts))]
+        if any(len(o) != gen for o in outs):
+            fail(f"{what}: output lengths {[len(o) for o in outs]}, not {gen}")
+        if any(t in mgr._end_tokens for o in outs for t in o[:-1]):
+            fail(f"{what}: an output runs on past an end token "
+                 f"{mgr._end_tokens}")
+        # no request ended early, so the reference is greedy AR without
+        # end tokens: an end token only cuts a stream short, and where AR
+        # would end one (at a tie) the request parts from it there
+        refs = batch_autoregressive_generate(
+            prompts, t_cfg, target, gen_len=gen, eos_tokens_id=(),
+            device=device)
+        ar_equal = sum(o == r for o, r in zip(outs, refs))
+        ties = check_greedy(what, t_cfg, target, prompts, refs, outs,
+                            device, {})
+        # every token the target's argmax over its own prefix (within two
+        # bf16 ulps) in a replay of the engine's computation: each
+        # prompt admitted alone, padded to max_prompt_len, then gamma + 1
+        # rows a token through the flash-decode kernel over a slotted cache
+        # of the page table's capacity, whose tiles and spans are those of
+        # the paged kernel the engine verifies through (K3 == K8a, K4 ==
+        # K8b over the same keys: phase 3c)
+        P, gamma = b.max_prompt_len, b.gamma
+        forced = teacher_forced(
+            what, t_cfg, target, prompts, outs, device,
+            (P, b.max_pages_per_seq * b.page_size, gamma + 1, True),
+            step_cfg=t_cfg.replace(attention_impl="flash"))
+        paged = "K8b" if kv == "int8" else "K8a"
+        if counts[paged] != t_cfg.num_layers * paged_forwards or \
+                not paged_forwards or not counts["K1b"] or any(
+                    n for k, n in counts.items()
+                    if k not in (paged, "K1b", "K1a")):
+            fail(f"{what}: launches {counts} over {paged_forwards} paged "
+                 "forwards")
+        reqs = [r for bm in res.batches for r in bm.requests]
+        ttft = [r.ttft * 1e3 for r in reqs]
+        lat = [r.total_latency * 1e3 for r in reqs]
+        rec = {"requests": res.total_requests, "tokens": res.total_tokens,
+               "seconds": res.total_duration,
+               "tok_s": res.overall_throughput,
+               "req_s": res.total_requests / res.total_duration,
+               "ttft_p50_ms": float(np.percentile(ttft, 50)),
+               "ttft_p99_ms": float(np.percentile(ttft, 99)),
+               "latency_p50_ms": float(np.percentile(lat, 50)),
+               "latency_p99_ms": float(np.percentile(lat, 99)),
+               "acceptance": res.avg_acceptance_rate,
+               "preemptions": b.preemptions, "replay": forced,
+               "equal_to_greedy_ar": ar_equal, "ties": ties,
+               "paged_forwards": paged_forwards,
+               "launches": {k: n for k, n in counts.items() if n}}
+        summary[f"{kv} KV"], by_kv[kv] = rec, counts
+        say(f"[9d vllm] {kv} KV: {rec['requests']} requests at "
+            f"{VLLM_RATE:g}/s, {rec['tokens']} tokens in "
+            f"{rec['seconds']:.2f} s = {rec['tok_s']:.1f} tok/s, "
+            f"{rec['req_s']:.2f} req/s ({card}); TTFT p50 "
+            f"{rec['ttft_p50_ms']:.0f} / p99 {rec['ttft_p99_ms']:.0f} ms, "
+            f"latency p50 {rec['latency_p50_ms']:.0f} / p99 "
+            f"{rec['latency_p99_ms']:.0f} ms, acceptance "
+            f"{rec['acceptance']:.3f}; {paged} {counts[paged]} over "
+            f"{paged_forwards} paged forwards, K1b {counts['K1b']}, K1a "
+            f"{counts['K1a']}; {b.preemptions} preemptions; {ar_equal} of "
+            f"{len(prompts)} requests == batched greedy AR, the rest parting "
+            f"first at a bf16 tie (tokens {ties}); every token of every "
+            f"request the target's argmax over its prefix in a replay: "
+            f"{forced[1]} of {forced[0]} not, the largest gap "
+            f"{forced[2]:.2f} bf16 ulps (at most 2)")
+        del mgr, b, target
+        torch.cuda.empty_cache()
+    return summary, by_kv
+
+
+def phase_harness(device, card, root, target):
+    """Phases 9-9d in a git-ignored working directory, removed after."""
+    import shutil
+
+    workdir = os.path.join(root, "build", "smoke_bench")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    t0 = time.perf_counter()
+    try:
+        cli, cli_launches = phase_cli(device, card, root, workdir)
+        say(f"[time] 9 CLI and harness in {time.perf_counter() - t0:.1f} s")
+        stream, stream_launches = phase_stream(device, card, root, target)
+        say(f"[time] 9b streamed checkpoint done at "
+            f"{time.perf_counter() - t0:.1f} s")
+        big, big_launches, big_records = phase_8b(device, card, workdir)
+        say(f"[time] 9c 8B preset done at {time.perf_counter() - t0:.1f} s")
+        vllm, vllm_launches = phase_vllm(device, card)
+        say(f"[time] 9d serving facade done at "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    summary = {"cli_and_runner": cli, "streamed_checkpoint": stream,
+               "llama_8b": big, "vllm": vllm, "card": card}
+    by_path = {**{f"harness_{k}": v for k, v in cli_launches.items()},
+               "stream_greedy": stream_launches, "llama_8b": big_launches,
+               "vllm_serving": vllm_launches["none"],
+               "vllm_serving_kvint8": vllm_launches["int8"]}
+    return summary, by_path, big_records
+
+
 def with_config(pair, **cfg_kw):
     """The pair with both configs changed (the weights do not depend on the
     KV format or the attention kernel): what ``bench.build_pair(device,
@@ -2786,6 +3632,9 @@ def main():
     summary["eagle_serving"], launches_eagle_serve = phase_eagle_serving(
         pair, head, device, card)
     stamp("8c EAGLE batched and serving")
+    summary["harness"], launches_harness, k1_8b = phase_harness(
+        device, card, root, pair[2])
+    stamp("9-9d benchmark entry point, loaders, serving facade")
     summary["trees"]["card"] = summary["eagle"]["card"] = card
     summary["nasd"] = {"bf16 KV": nasd, "int8 KV, flash": nasd_int8,
                        "serving": nasd_serving, "card": card}
@@ -2821,7 +3670,10 @@ def main():
              "eagle": launches_eagle["damp 0.08"][key],
              "eagle_kvint8_flash": launches_eagle["int8 KV, flash"][key],
              "eagle_batch": launches_eagle_serve["eagle_batch"][key],
-             "eagle_serving": launches_eagle_serve["eagle_serving"][key]}))
+             "eagle_serving": launches_eagle_serve["eagle_serving"][key],
+             **{path: c[key] for path, c in launches_harness.items()
+                if path != "harness_cli_int8"}},
+            k1_8b=[r for r in k1_8b if (r["layer"] is None) == (key == "K1a")]))
     # K6: one kernel for both codecs; the top-level times are NF4's (the
     # JAX package's default codec), FP4's beside them
     for key, name, line in (("K6b", "q4_halfplane_matmul (stacked layer)",
@@ -2850,7 +3702,9 @@ def main():
          + fmt_launches["int8"]["K7a"],
          "serving_int8": serve_launches_w8["K7b"] + serve_launches_w8["K7a"],
          "trees_int8": launches_trees["int8 weights"]["K7b"]
-         + launches_trees["int8 weights"]["K7a"]},
+         + launches_trees["int8 weights"]["K7a"],
+         "cli_int8": launches_harness["harness_cli_int8"]["K7b"]
+         + launches_harness["harness_cli_int8"]["K7a"]},
         lm_head=step_times(stacked_records(w8, False))))
 
     def top(rows, name):
@@ -2868,7 +3722,8 @@ def main():
         "serving verify: B=8, T=9, Hq=32, Hk=4, Dh=64, page 64, MP=9, bf16",
         {"serving": serve_launches["K8a"] + serve_launches["K2"],
          "serving_int8": serve_launches_w8["K8a"] + serve_launches_w8["K2"],
-         "serving_nf4": serve_launches_nf4["K8a"] + serve_launches_nf4["K2"]},
+         "serving_nf4": serve_launches_nf4["K8a"] + serve_launches_nf4["K2"],
+         "vllm_serving": launches_harness["vllm_serving"]["K8a"]},
         also_replaces="specdec_tpu/ops/paged_attention.py:26"))
     entries.append(kernel_entry(
         "paged_decode_attention_quant (K8b stacked layer; K5 4D pool)",
@@ -2878,7 +3733,8 @@ def main():
         "serving verify: B=8, T=9, Hq=32, Hk=4, Dh=64, page 64, MP=9, int8 "
         "pools, bf16 q",
         {"serving_kvint8_flash": serve_launches_int8["K8b"]
-         + serve_launches_int8["K5"]},
+         + serve_launches_int8["K5"],
+         "vllm_serving_kvint8": launches_harness["vllm_serving_kvint8"]["K8b"]},
         also_replaces="specdec_tpu/ops/paged_attention.py:136"))
     # the flash-decode kernel: K3 (K/V of q's type) and K4 (int8 K/V); the
     # top-level times are one single-sequence decode step's call

@@ -49,7 +49,6 @@ per_sec``, ``serve_int4_kvint8_flash_tokens_per_sec``) and the line gains
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import sys
 import time
@@ -60,8 +59,8 @@ import torch
 
 from specdec_tpu_torch import resolve_device
 from specdec_tpu_torch.core.config import ModelConfig
-from specdec_tpu_torch.core.model import init_params
-from specdec_tpu_torch.quant.core import QUANTIZED, quantize_params
+from specdec_tpu_torch.core.model import init_params, layer_views
+from specdec_tpu_torch.quant.core import quantize_params
 from specdec_tpu_torch.sampling.base_decoding import autoregressive_generate
 from specdec_tpu_torch.sampling.processors import (
     LogitsProcessor, MultinomialProcessor,
@@ -102,15 +101,6 @@ def target_config(num_layers: int = 22, dtype: torch.dtype = torch.bfloat16,
         num_layers=num_layers, num_heads=32, num_kv_heads=4, head_dim=64,
         max_position_embeddings=2048, rope_theta=10000.0, dtype=dtype,
         kv_quant=kv_quant, attention_impl=attention_impl)
-
-
-def layer_views(layers: dict, n: int) -> dict:
-    """The first ``n`` layers of a stacked layer dict, as views (each field
-    of a quantized container sliced)."""
-    return {k: type(v)(**{f.name: getattr(v, f.name)[:n]
-                          for f in dataclasses.fields(v)})
-            if isinstance(v, QUANTIZED) else v[:n]
-            for k, v in layers.items()}
 
 
 def build_pair(device=None, kv_quant: str = "none",

@@ -26,6 +26,7 @@ reads layer ``i`` in place.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Dict, Optional, Tuple
 
@@ -469,20 +470,24 @@ def forward_full(cfg: ModelConfig, params: Params,
     return logits
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, scale: float = 0.02,
-                device=None, generator: Optional[torch.Generator] = None,
-                ) -> Params:
-    """Random init (normal * scale, drawn in f32 then cast to cfg.dtype),
-    made on ``device`` (``None``: the card) from ``generator`` or ``seed``.
-    The numbers differ from the JAX package's init; tests carry JAX params
-    over with ``bridge.params_from_numpy`` instead."""
-    device = resolve_device(device)
-    if generator is None:
-        generator = torch.Generator(device=device).manual_seed(seed)
+def normal_init(shape, scale: float, dtype: torch.dtype, device,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+    """A weight of the random init: normal * scale drawn from ``generator``
+    in f32, then cast to ``dtype`` (scaled in place: no second f32 copy of
+    a vocab-sized draw)."""
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=device).mul_(scale).to(dtype)
 
-    def w(shape, s=scale):
-        return (torch.randn(shape, generator=generator, dtype=torch.float32,
-                            device=device) * s).to(cfg.dtype)
+
+def init_layer_params(cfg: ModelConfig, scale: float = 0.02, device=None,
+                      generator: Optional[torch.Generator] = None) -> Params:
+    """The stacked layer dict of ``init_params``, drawn from ``generator``
+    in ``init_params``'s order (``quant/core.py::init_quantized_params``
+    draws one layer at a time through it)."""
+    device = resolve_device(device)
+
+    def w(shape):
+        return normal_init(shape, scale, cfg.dtype, device, generator)
 
     def ones(shape):
         return torch.ones(shape, dtype=cfg.dtype, device=device)
@@ -521,14 +526,45 @@ def init_params(cfg: ModelConfig, seed: int = 0, scale: float = 0.02,
     if cfg.qk_norm:
         layers["q_norm_w"] = ones((L, Dh))
         layers["k_norm_w"] = ones((L, Dh))
+    return layers
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, scale: float = 0.02,
+                device=None, generator: Optional[torch.Generator] = None,
+                ) -> Params:
+    """Random init (normal * scale, drawn in f32 then cast to cfg.dtype),
+    made on ``device`` (``None``: the card) from ``generator`` or ``seed``:
+    the layers (``init_layer_params``), then the embedding, then the
+    untied ``lm_head``. The numbers differ from the JAX package's init;
+    tests carry JAX params over with ``bridge.params_from_numpy``
+    instead."""
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(seed)
+    D = cfg.hidden_size
+    layers = init_layer_params(cfg, scale, device, generator)
+
+    def w(shape):
+        return normal_init(shape, scale, cfg.dtype, device, generator)
 
     params: Params = {
         "embed": w((cfg.vocab_size, D)),
         "layers": layers,
-        "final_norm_w": ones((D,)),
+        "final_norm_w": torch.ones((D,), dtype=cfg.dtype, device=device),
     }
     if cfg.norm_type == "layernorm":
-        params["final_norm_b"] = zeros((D,))
+        params["final_norm_b"] = torch.zeros((D,), dtype=cfg.dtype,
+                                             device=device)
     if not cfg.tie_embeddings:
         params["lm_head"] = w((D, cfg.vocab_size))
     return params
+
+
+def layer_views(layers: Params, n: int) -> Params:
+    """The first ``n`` layers of a stacked layer dict, as views (each field
+    of a quantized container sliced): a LayerSkip drafter shares the
+    target's storage."""
+    return {k: type(v)(**{f.name: getattr(v, f.name)[:n]
+                          for f in dataclasses.fields(v)})
+            if isinstance(v, QUANTIZED) else v[:n]
+            for k, v in layers.items()}

@@ -1,0 +1,301 @@
+"""Model and tokenizer loading for the benchmark harness (counterpart of
+``specdec_tpu/engine/model_loader.py``).
+
+A model spec is one of:
+
+- ``synthetic:<preset>``: a model of a public model's shape
+  (``SYNTHETIC_PRESETS``) with random weights seeded by ``zlib.crc32`` of
+  the preset's name, and the byte-level ``SyntheticTokenizer``;
+  ``synthetic:<preset>-ls<k>`` damps the residual outputs of layers >= k
+  to 0.08, the LayerSkip structure ``bench.py`` measures; a quantized
+  preset, damped or not, is built directly in quantized form one layer at
+  a time (``quant/core.py::init_quantized_params``);
+- a local checkpoint directory: its ``config.json`` decides the family;
+  llama-lineage safetensors checkpoints stream layer by layer
+  (``core/stream_loader.py``, no ``transformers``), others load whole
+  through ``transformers`` (``core/hf_loader.py::load_hf_model``); the
+  tokenizer of a checkpoint directory is ``transformers.AutoTokenizer``'s;
+- drafter only: ``layerskip:<k>``, the target's first k layers as views of
+  its (quantized) containers, sharing its embedding, final norm and head;
+  ``eagle:<depth>``, an untrained EAGLE head (``core/eagle.py``) seeded by
+  ``crc32("eagle:<target>:<depth>")``.
+
+Specs that need a later slice of the port raise NotImplementedError naming
+their ``ROADMAP.md`` item: ``trained:<preset>``, ``eagle:<depth>@<steps>``
+and ``eagle:<dir>`` (training and checkpoints, §1 item 5), T5 checkpoints
+(the encoder-decoder, §1 item 2). There is no mesh: the port runs on one
+card (``parallel/``, §1 item 6). ``device=None`` means the card.
+"""
+from __future__ import annotations
+
+import os
+import zlib
+from typing import Any, Dict, Optional
+
+import torch
+
+from specdec_tpu_torch import resolve_device
+from specdec_tpu_torch.core.config import ModelConfig
+from specdec_tpu_torch.core.model import init_params, layer_views
+from specdec_tpu_torch.quant.core import (
+    check_kernel_shapes, init_quantized_params, quantize_params,
+)
+
+# shapes of public models (weights random: used where no checkpoint is)
+SYNTHETIC_PRESETS: Dict[str, dict] = {
+    "llama-1b": dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
+                     num_layers=22, num_heads=32, num_kv_heads=4, head_dim=64,
+                     max_position_embeddings=2048),
+    "llama-8b": dict(vocab_size=128256, hidden_size=4096,
+                     intermediate_size=14336, num_layers=32, num_heads=32,
+                     num_kv_heads=8, head_dim=128,
+                     max_position_embeddings=8192, rope_theta=500000.0),
+    "llama-160m": dict(vocab_size=32000, hidden_size=768, intermediate_size=2048,
+                       num_layers=12, num_heads=12, num_kv_heads=12, head_dim=64,
+                       max_position_embeddings=2048),
+    "llama-70m": dict(vocab_size=32000, hidden_size=512, intermediate_size=1376,
+                      num_layers=6, num_heads=8, num_kv_heads=8, head_dim=64,
+                      max_position_embeddings=2048),
+    "pythia-70m": dict(vocab_size=50304, hidden_size=512, intermediate_size=2048,
+                       num_layers=6, num_heads=8, num_kv_heads=8, head_dim=64,
+                       max_position_embeddings=2048, norm_type="layernorm",
+                       act="gelu", gated_mlp=False, parallel_residual=True,
+                       rotary_pct=0.25, attn_qkv_bias=True, attn_out_bias=True,
+                       mlp_bias=True),
+    "pythia-410m": dict(vocab_size=50304, hidden_size=1024,
+                        intermediate_size=4096, num_layers=24, num_heads=16,
+                        num_kv_heads=16, head_dim=64,
+                        max_position_embeddings=2048, norm_type="layernorm",
+                        act="gelu", gated_mlp=False, parallel_residual=True,
+                        rotary_pct=0.25, attn_qkv_bias=True,
+                        attn_out_bias=True, mlp_bias=True),
+    "tiny": dict(vocab_size=2048, hidden_size=256, intermediate_size=704,
+                 num_layers=4, num_heads=8, num_kv_heads=4, head_dim=32,
+                 max_position_embeddings=1024),
+}
+
+LAYERSKIP_DAMP = 0.08
+
+
+def _todo(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to specdec_tpu_torch yet (ROADMAP.md §1 "
+        f"item {item})")
+
+
+def _seed(text: str) -> int:
+    # zlib.crc32, not hash(): str hashes change per process
+    return zlib.crc32(text.encode()) % (2 ** 31)
+
+
+class SyntheticTokenizer:
+    """Deterministic byte-level tokenizer for synthetic models: token id =
+    byte value + 3 (0 = pad, 1 = eos, 2 = bos)."""
+
+    PAD, EOS, BOS = 0, 1, 2
+
+    def __init__(self, vocab_size: int):
+        self.vocab_size = vocab_size
+        self.pad_token_id = self.PAD
+        self.eos_token_id = self.EOS
+        self.chat_template = None
+
+    def encode(self, text: str):
+        return [self.BOS] + [3 + b for b in text.encode("utf-8")][:2000]
+
+    def decode(self, ids, skip_special_tokens: bool = True):
+        data = bytes(max(0, min(255, int(t) - 3)) for t in ids if int(t) >= 3)
+        return data.decode("utf-8", errors="replace")
+
+    def __call__(self, text, **kw):
+        return {"input_ids": self.encode(text)}
+
+
+def _synthetic(name: str, dtype, quantization: str = "none",
+               device=None) -> Dict[str, Any]:
+    """A ``synthetic:<preset>[-ls<k>]`` bundle on ``device``."""
+    device = resolve_device(device)
+    preset = name.split(":", 1)[1] if ":" in name else name
+    damp_from = None
+    base = preset
+    if "-ls" in preset:
+        base, _, k = preset.rpartition("-ls")
+        damp_from = int(k)
+    if base not in SYNTHETIC_PRESETS:
+        raise ValueError(f"unknown synthetic preset {base!r}; "
+                         f"choose from {sorted(SYNTHETIC_PRESETS)}")
+    cfg = ModelConfig(dtype=dtype, **SYNTHETIC_PRESETS[base])
+    seed = _seed(base)
+    scales = None
+    if damp_from is not None:
+        if not 0 < damp_from < cfg.num_layers:
+            raise ValueError(
+                f"-ls{damp_from} needs 1..{cfg.num_layers - 1} for "
+                f"{base!r} ({cfg.num_layers} layers)")
+        scales = [1.0 if i < damp_from else LAYERSKIP_DAMP
+                  for i in range(cfg.num_layers)]
+    if quantization != "none":
+        # one layer at a time: an 8B bf16 stack would be 16 GB dense
+        return {"cfg": cfg, "quantized": quantization,
+                "params": init_quantized_params(
+                    cfg, seed=seed, kind=quantization, scale=0.02,
+                    layer_out_scales=scales, device=device)}
+    params = init_params(cfg, seed=seed, scale=0.02, device=device)
+    if scales is not None:
+        sv = torch.tensor(scales, dtype=torch.float32, device=device)
+        layers = dict(params["layers"])
+        for nm in ("wo", "w_down"):
+            layers[nm] = (layers[nm].to(torch.float32)
+                          * sv[:, None, None]).to(cfg.dtype)
+        params = dict(params, layers=layers)
+    return {"cfg": cfg, "params": params}
+
+
+def _load_tokenizer(path: str):
+    """A checkpoint directory's tokenizer (``transformers``), with the pad
+    token falling back to EOS."""
+    from specdec_tpu_torch.core.hf_loader import import_transformers
+
+    tokenizer = import_transformers().AutoTokenizer.from_pretrained(path)
+    if tokenizer.pad_token is None:
+        tokenizer.pad_token = tokenizer.eos_token
+    return tokenizer
+
+
+def _end_tokens(tokenizer) -> list:
+    """EOS plus the chat-turn terminators in the vocabulary: Qwen's
+    ``<|im_end|>`` and gemma's ``<end_of_turn>``."""
+    end_tokens = []
+    if tokenizer.eos_token_id is not None:
+        end_tokens.append(int(tokenizer.eos_token_id))
+    for turn_end in ("<|im_end|>", "<end_of_turn>"):
+        try:
+            tid = tokenizer.convert_tokens_to_ids(turn_end)
+            # unknown tokens map to unk on many tokenizers: require real
+            # vocabulary membership
+            if (tid is not None and tid >= 0 and tid not in end_tokens
+                    and turn_end in tokenizer.get_vocab()):
+                end_tokens.append(int(tid))
+        except Exception:
+            pass
+    return end_tokens
+
+
+def load_models(
+    target_model_path: str,
+    drafter_model_path: Optional[str] = None,
+    dtype=torch.bfloat16,
+    quantization: str = "none",          # none | int8 | int4 | nf4 | fp4
+    drafter_quantization: str = "none",
+    kv_quant: str = "none",              # none | int8 (KV-cache format)
+    device=None,
+) -> Dict[str, Any]:
+    """Load the target (and the drafter, if any) and the tokenizer onto
+    ``device`` (``None``: the card). Returns the JAX loader's bundle:
+    ``{"target", "drafter", "tokenizer", "end_tokens", "pad_token_id"}``,
+    each model a dict with ``cfg`` and ``params`` (``quantized`` for a
+    quantized one, ``eagle`` for an EAGLE head)."""
+    device = resolve_device(device)
+
+    def load_one(path, quant="none"):
+        if path.startswith("synthetic"):
+            return _synthetic(path, dtype, quant, device), None
+        if path.startswith("trained"):
+            raise _todo(f"{path!r} (a preset pretrained at load)",
+                        "5, training")
+        from specdec_tpu_torch.core.stream_loader import (
+            STREAMED_TYPES, load_hf_streamed, read_config,
+        )
+        mt = read_config(path).get("model_type", "")
+        if mt in ("t5", "mt5"):
+            raise _todo(f"{path!r} ({mt}, encoder-decoder)",
+                        "2, encoder-decoder")
+        tokenizer = _load_tokenizer(path)
+        if mt in STREAMED_TYPES and any(os.path.exists(os.path.join(
+                path, f)) for f in ("model.safetensors",
+                                    "model.safetensors.index.json")):
+            cfg, params = load_hf_streamed(path, dtype=dtype,
+                                           quantization=quant, fuse=True,
+                                           device=device)
+            out = {"cfg": cfg, "params": params}
+            if quant != "none":
+                out["quantized"] = quant
+            return out, tokenizer
+        from specdec_tpu_torch.core.hf_loader import load_hf_model
+        cfg, params = load_hf_model(path, dtype=dtype, device=device)
+        if quant != "none":
+            check_kernel_shapes(cfg, quant, device)
+        return {"cfg": cfg, "params": params}, tokenizer
+
+    drafter_spec = drafter_model_path or ""
+    layerskip = drafter_spec.startswith("layerskip:")
+    eagle = drafter_spec.startswith("eagle:")
+    if eagle:
+        spec = drafter_spec.split(":", 1)[1]
+        if "/" in spec or os.path.isdir(spec):
+            raise _todo(f"an EAGLE head from a checkpoint ({drafter_spec!r})",
+                        "5, training and checkpoints")
+        depth, _, steps = spec.partition("@")
+        if int(steps or 0) > 0:
+            raise _todo(f"EAGLE head training at load ({drafter_spec!r})",
+                        "5, training")
+
+    target, tokenizer = load_one(target_model_path, quant=quantization)
+    if kv_quant != "none":
+        # reaches every decode loop and scheduler through init_cache(cfg)
+        target["cfg"] = target["cfg"].replace(kv_quant=kv_quant)
+    drafter = None
+    if drafter_model_path and not (layerskip or eagle):
+        drafter, d_tokenizer = load_one(drafter_model_path,
+                                        quant=drafter_quantization)
+        if kv_quant != "none":
+            drafter["cfg"] = drafter["cfg"].replace(kv_quant=kv_quant)
+        tokenizer = tokenizer or d_tokenizer
+    if tokenizer is None:
+        tokenizer = SyntheticTokenizer(target["cfg"].vocab_size)
+
+    # synthetic models are built quantized; checkpoints loaded whole
+    # quantize here
+    if quantization != "none" and "quantized" not in target:
+        target["params"] = quantize_params(target["params"],
+                                           kind=quantization, fuse=True)
+    if (drafter is not None and drafter_quantization != "none"
+            and "quantized" not in drafter):
+        drafter["params"] = quantize_params(drafter["params"],
+                                            kind=drafter_quantization,
+                                            fuse=True)
+
+    t_cfg = target["cfg"]
+    if layerskip:
+        # self-speculative drafting: the target's first k layers (views of
+        # its containers, taken after quantization) and its final norm and
+        # head, the pair bench.py measures
+        k = int(drafter_spec.split(":", 1)[1])
+        if not 0 < k < t_cfg.num_layers:
+            raise ValueError(f"layerskip:{k} needs 1..{t_cfg.num_layers - 1}"
+                             " layers")
+        drafter = {"cfg": t_cfg.replace(num_layers=k),
+                   "params": dict(target["params"], layers=layer_views(
+                       target["params"]["layers"], k))}
+        if "quantized" in target:
+            drafter["quantized"] = target["quantized"]
+    if eagle:
+        from specdec_tpu_torch.core.eagle import init_eagle_params
+        depth = int(depth)
+        if not 0 < depth < t_cfg.num_layers:
+            raise ValueError(
+                f"eagle:{depth} needs 1..{t_cfg.num_layers - 1} layers")
+        e_cfg = t_cfg.replace(num_layers=depth)
+        drafter = {"cfg": e_cfg, "eagle": True, "params": init_eagle_params(
+            e_cfg, seed=_seed(f"eagle:{target_model_path}:{depth}"),
+            device=device)}
+
+    if drafter is not None and drafter["cfg"].vocab_size != t_cfg.vocab_size:
+        raise ValueError("drafter and target must share a vocabulary")
+    return {
+        "target": target,
+        "drafter": drafter,
+        "tokenizer": tokenizer,
+        "end_tokens": _end_tokens(tokenizer),
+        "pad_token_id": int(getattr(tokenizer, "pad_token_id", 0) or 0),
+    }

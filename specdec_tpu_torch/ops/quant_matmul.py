@@ -54,6 +54,12 @@ _CODECS = {NF4Weight: ("nf4", 0), FP4Weight: ("fp4", 1)}
 _DECODERS = {"nf4": _nf4_decode_bits, "fp4": _fp4_decode_bits}
 
 
+def four_bit_takes(K: int) -> bool:
+    """Whether K1 and K6 take a 4-bit weight of input width K: they read
+    the absmax block-major, which needs K/64 % 4 == 0."""
+    return K % (4 * NF4_BLOCK) == 0
+
+
 def int4_matmul_reference(x: torch.Tensor, packed: torch.Tensor,
                           absmax: torch.Tensor) -> torch.Tensor:
     """Plain version of K1. x: [M, K]; packed: [K/8, N] int32; absmax:
@@ -131,7 +137,7 @@ def _check_kernel_args(w: Any, x2: torch.Tensor, a: torch.Tensor,
             raise ValueError(f"{what}: N={N} is not a multiple of 4, or q "
                              "is not 4-byte aligned")
     else:
-        if K % 256 != 0:
+        if not four_bit_takes(K):
             raise ValueError(f"{what}: K={K} is not a multiple of 256 (the "
                              "block-major absmax layout needs K/64 % 4 == 0)")
         if a.shape[-2] * 8 != K or b.shape[-2] * NF4_BLOCK != K:

@@ -16,13 +16,15 @@ bit:
 
 ``qmatmul`` hands every container to ``ops/quant_matmul.py``, whose CUDA
 kernels (K1 for INT4, K6 for NF4/FP4, K7 for INT8) read the weights as
-stored. The numpy quantizers of ``specdec_tpu/quant/host.py`` and
-``init_quantized_params`` belong to the loaders and are not ported.
+stored. ``init_quantized_params`` builds a random model directly in
+quantized form, one layer at a time; ``check_kernel_shapes`` refuses, on
+the card, 4-bit shapes those kernels do not take. The loaders' host
+quantizers are in ``quant/host.py``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -358,3 +360,156 @@ def quantize_params(params: dict, kind: str = "int8",
     if quantize_lm_head and "lm_head" in params:
         out["lm_head"] = fn(params["lm_head"])
     return out
+
+
+FOUR_BIT = ("int4", "nf4", "fp4")
+
+
+def check_kernel_shapes(cfg, kind: str, device) -> None:
+    """Refuse, before any launch, a model whose ``kind`` weights the card's
+    kernels cannot take: on a CUDA device, 4-bit weights need every
+    projection's K (its input width) to be one K1 and K6 take
+    (``ops/quant_matmul.py::four_bit_takes``). The JAX
+    package sends such shapes to an XLA dequant instead; the port's plain
+    path takes any K on the CPU, so nothing is refused there. Raises
+    ValueError naming the tensor (as the fused loaders store it), its K,
+    and the formats that load it."""
+    from specdec_tpu_torch.ops.quant_matmul import four_bit_takes
+
+    if kind not in FOUR_BIT or torch.device(device).type != "cuda":
+        return
+    D = cfg.hidden_size
+    shapes = [("wqkv", D), ("wo", cfg.num_heads * cfg.head_dim),
+              ("w_gateup" if cfg.gated_mlp else "w_up", D),
+              ("w_down", cfg.intermediate_size)]
+    if not cfg.tie_embeddings:
+        shapes.append(("lm_head", D))
+    for name, K in shapes:
+        if not four_bit_takes(K):
+            raise ValueError(
+                f"{kind} weights on {device}: {name} has K={K}, which the "
+                "4-bit kernels do not take (they read the absmax "
+                "block-major: K must be a multiple of 256); load this model "
+                "with quantization 'int8' or 'none'")
+
+
+def concat_columns(parts: list):
+    """Concatenate dense tensors or quantized containers along the output
+    (last) axis, field by field; every container field ends in N."""
+    first = parts[0]
+    if isinstance(first, QUANTIZED):
+        return type(first)(**{f.name: torch.cat(
+            [getattr(p, f.name) for p in parts], dim=-1)
+            for f in dataclasses.fields(first)})
+    return torch.cat(parts, dim=-1)
+
+
+# weights quantized at once by quantize_chunked (16 MiB of f32; a 4-bit
+# quantizer holds a few such intermediates and twice that in int64)
+CHUNK_ELEMS = 1 << 22
+
+
+def quantize_chunked(fn, w: torch.Tensor, chunk_cols: Optional[int] = None):
+    """``fn(w)`` computed in output-column slices of ``chunk_cols``
+    (default: as many columns as keep a slice of one layer within
+    CHUNK_ELEMS weights): every quantizer is independent per output column
+    (INT8's absmax reduces over K per column; the 4-bit formats block along
+    K per column), so the result is bit-identical to the whole-matrix call
+    while each intermediate stays a slice's."""
+    N = w.shape[-1]
+    if chunk_cols is None:
+        chunk_cols = max(1, CHUNK_ELEMS // w.shape[-2])
+    if N <= chunk_cols:
+        return fn(w)
+    return concat_columns([fn(w[..., s:s + chunk_cols])
+                           for s in range(0, N, chunk_cols)])
+
+
+def _empty_stack(v, L: int):
+    """Zeros of ``v``'s kind with a leading axis of L for its L=1 axis."""
+    if isinstance(v, QUANTIZED):
+        return type(v)(**{f.name: _empty_stack(getattr(v, f.name), L)
+                          for f in dataclasses.fields(v)})
+    return torch.zeros((L,) + tuple(v.shape[1:]), dtype=v.dtype,
+                       device=v.device)
+
+
+def _write_layer(stacked: dict, layer: dict, i: int) -> None:
+    """Copy a one-layer dict (leading axis 1) into layer ``i`` of
+    ``stacked`` in place."""
+    for k, v in layer.items():
+        if isinstance(v, QUANTIZED):
+            for f in dataclasses.fields(v):
+                getattr(stacked[k], f.name)[i].copy_(getattr(v, f.name)[0])
+        else:
+            stacked[k][i].copy_(v[0])
+
+
+def stack_layers(layer_dicts, L: int) -> dict:
+    """Write an iterable of L one-layer dicts into a stack allocated from
+    the first, one at a time: peak memory is the stack plus one layer."""
+    stacked = None
+    for i, lay in enumerate(layer_dicts):
+        if stacked is None:
+            stacked = {k: _empty_stack(v, L) for k, v in lay.items()}
+        _write_layer(stacked, lay, i)
+    return stacked
+
+
+def init_quantized_params(cfg, seed: int = 0, kind: str = "int8",
+                          scale: float = 0.02, fuse: bool = True,
+                          layer_out_scales=None, device=None,
+                          generator=None) -> dict:
+    """Random-init a model directly in quantized form, one layer at a time
+    (counterpart of the JAX package's ``init_quantized_params``).
+
+    ``init_params`` + ``quantize_params`` holds the whole dense stack
+    first (16 GB at 8B in bf16); here each layer is drawn on ``device``
+    (``None``: the card) from ``generator`` (or ``seed``), its ``wo`` and
+    ``w_down`` multiplied by ``layer_out_scales[i]`` when given (the
+    LayerSkip damped tail), quantized in column chunks and written into a
+    preallocated stack: peak memory is the quantized stack plus one dense
+    layer. Then the embedding (dense) and the untied ``lm_head``
+    (quantized) are drawn, in that order. The draws are
+    ``init_layer_params``'s for each layer, so drawing the same stream
+    again into dense layers and calling ``quantize_params(kind,
+    fuse=fuse)`` gives the same bits. Refuses shapes the card's kernels do
+    not take first (``check_kernel_shapes``)."""
+    from functools import partial
+
+    from specdec_tpu_torch import resolve_device
+    from specdec_tpu_torch.core.model import init_layer_params, normal_init
+
+    device = resolve_device(device)
+    check_kernel_shapes(cfg, kind, device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(seed)
+    fn = partial(quantize_chunked, _QUANTIZERS[kind])
+    one = cfg.replace(num_layers=1)
+
+    def layers():
+        for i in range(cfg.num_layers):
+            lay = init_layer_params(one, scale, device, generator)
+            s = 1.0 if layer_out_scales is None else float(
+                layer_out_scales[i])
+            for name in ("wo", "w_down"):
+                lay[name] = (lay[name].to(torch.float32) * s).to(cfg.dtype)
+            lay = _quantize_layer_dict(lay, fn, fuse)
+            yield lay
+            del lay  # the next layer is drawn with none of this one left
+
+    stacked = stack_layers(layers(), cfg.num_layers)
+    D = cfg.hidden_size
+
+    def w(shape):
+        return normal_init(shape, scale, cfg.dtype, device, generator)
+
+    params = {"embed": w((cfg.vocab_size, D)), "layers": stacked,
+              "final_norm_w": torch.ones((D,), dtype=cfg.dtype,
+                                         device=device)}
+    if cfg.norm_type == "layernorm":
+        params["final_norm_b"] = torch.zeros((D,), dtype=cfg.dtype,
+                                             device=device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = fn(w((D, cfg.vocab_size)))
+    return params

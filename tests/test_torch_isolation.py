@@ -1,6 +1,8 @@
 """The port stands alone: neither ``specdec_tpu_torch`` nor ``chip_smoke.py``
 imports JAX, ml_dtypes or the JAX package (the machine with the card has
-none of them)."""
+none of them); importing the port's modules loads neither those nor
+``transformers``, ``safetensors`` or ``tokenizers`` (the loaders import
+``transformers`` only where a caller needs it)."""
 import ast
 import os
 import subprocess
@@ -11,6 +13,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "specdec_tpu")
+# not loaded by importing the port either
+UNLOADED = FORBIDDEN + ("transformers", "safetensors", "tokenizers")
 SOURCES = sorted((ROOT / "specdec_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -45,9 +49,21 @@ def test_import_leaves_jax_unloaded():
             "specdec_tpu_torch.serve.nasd_scheduler, "
             "specdec_tpu_torch.engine.infer_engine, "
             "specdec_tpu_torch.engine.metrics, "
-            "specdec_tpu_torch.sampling.base_decoding; "
+            "specdec_tpu_torch.sampling.base_decoding, "
+            "specdec_tpu_torch.quant.host, specdec_tpu_torch.core.hf_loader, "
+            "specdec_tpu_torch.core.stream_loader, "
+            "specdec_tpu_torch.engine.model_loader, "
+            "specdec_tpu_torch.engine.dataset, "
+            "specdec_tpu_torch.engine.monitor, "
+            "specdec_tpu_torch.engine.benchmark_executor, "
+            "specdec_tpu_torch.engine.benchmark_runner, "
+            "specdec_tpu_torch.engine.server_benchmark, "
+            "specdec_tpu_torch.engine.vllm_compat, "
+            "specdec_tpu_torch.utils.printing, "
+            "specdec_tpu_torch.utils.profiling, "
+            "specdec_tpu_torch.cli.benchmark; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            f"{FORBIDDEN!r}]; "
+            f"{UNLOADED!r}]; "
             "assert not bad, bad; print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
