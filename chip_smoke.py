@@ -38,7 +38,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    the serving drafter B=8, T = 1, 2 over the batcher's S; the admission
    prefill T=256), at qwen3-family heads (decode and verify, Dh=128) and
    at S=2048 (8 spans of 4 tiles), and EAGLE's int8 + flash catch-ups
-   and verify (T = 5, 6 over S = 199, 209), offsets up to S; a row's
+   and verify (T = 5, 6 over S = 145, 135), offsets up to S; a row's
    result must
    not depend on T (at S=334 and 2048), nor a sequence's on the rest of its
    batch (each alone at B=1, bit for bit); over the same keys laid out in
@@ -116,7 +116,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    limit; again under int8 KV + flash (K4 in every verify) for the
    carried C++ store at B=1 and the table at B=4;
 7b. NASD serving: ``NasdContinuousBatcher`` with 8 slots, gamma 5, the 16
-   prompts of phase 6, 128 tokens each, at 1 and 4 windows per host sync:
+   prompts of phase 6, 64 tokens each, at 1 and 4 windows per host sync:
    every request equal to greedy AR, a parted one replayed as in phase 7,
    both settings the same tokens; tok/s, TTFT, acceptance, windows and K1
    launches;
@@ -131,14 +131,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    where the launches show K4 (K3) on every sequential forward and on no
    tree forward;
 8. trees at full depth, tools/bench_tree.py's protocol on the pair of
-   phase 5 (a 60-token prompt from default_rng(0), 128 tokens, greedy):
+   phase 5 (a 60-token prompt from default_rng(0), 64 tokens, greedy):
    (2, 2, 2), (3, 2, 1) and (4, 2) at tail damp 0.08 and 0.35, (2, 2, 2)
    under INT8 weights (K7) and under int8 KV + flash, a warm and a timed
    call each; a sampled (2, 2, 2) call twice from one seed gives the same
    tokens; tok/s, chain-depth acceptance, windows, launches as implied;
    every greedy output equal to greedy AR up to a first tie, a parted one
    replayed in the engine's shape;
-8b. EAGLE on the same target (tools/bench_eagle.py's protocol, 128
+8b. EAGLE on the same target (tools/bench_eagle.py's protocol, 64
    tokens), an untrained depth-1 head made on the card from a seed: chain
    gamma 3, 5, 8 sampled, chain gamma 5 greedy (GreedyProcessor at
    temperature 1e-4, where acceptance is exact-match), the greedy trees
@@ -146,7 +146,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    to a tie (replayed); chain gamma 5 and tree (2, 2, 2) under int8 KV +
    flash; K1a on every head forward, K4 on every sequential forward;
 8c. EAGLE batched and served: ``batch_eagle_generate`` at B=8 on the
-   serving phase's prompts, 128 tokens, greedy, gamma 5, and
+   serving phase's prompts, 64 tokens, greedy, gamma 5, and
    ``EagleContinuousBatcher`` (8 slots) on all 16 at 1 and 4 windows per
    sync: the same tokens, each request equal to the batch engine's (and
    that to greedy AR) up to a tie; tok/s, TTFT, acceptance, windows, K1
@@ -187,6 +187,35 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    arriving at 4 per second, 128 tokens each, greedy at temperature 1e-4:
    every request equal to the batched AR engine's output up to a tie;
    req/s, tok/s, TTFT and latency p50/p99.
+
+10a. gradients through the weight kernels: K1 (INT4), K6 (NF4) and K7
+   (INT8) on the pair's weights (layer 0's projections and the lm_head)
+   at M = 1024 and 1016 (a teacher forward of 8 x 128 tokens, the EAGLE
+   head's first rollout pass): the forward through the wrappers' autograd
+   Function against the plain version (phase 3's tolerances), x's gradient
+   against autograd of the plain version (relative Frobenius 1e-2, never
+   None or zero); at M = 1024 the forward's, the backward's (dy @
+   dequantize(w)^T) and torch.matmul's times; every attention wrapper
+   raises under grad and launches nothing;
+10c. convergence at tests/test_pretrain.py's width on the card: a 4-layer
+   D=128 target 450 steps on the order-1 stream (NLL under the floor +
+   0.35, a fresh batch + 0.4), a depth-1 EAGLE head 250 steps (proxy at
+   least 0.5, lifted by more than 0.3), and the trained head accepting more
+   than the untrained one in ``eagle_generate``;
+10b. full-width pretraining through ``load_models``: ``trained:llama-1b@100``
+   in bf16 (seconds a step, tokens/s, 6 N tokens/s against the bf16 peak,
+   peak memory, the NLL at the first and last step, which must fall by
+   0.4 nats), quantized to INT4; greedy AR of the INT4 target equal to the
+   dense one's up to a top-two bf16 tie;
+10d. in the same load, ``eagle:1@2`` trained on the INT4 target (batch 8 x
+   128, rollout 3; each step's time split into sampler, teacher, loss and
+   backward, optimizer; K1 launches a step exactly as its forwards imply)
+   and saved through EAGLE_SAVE, ``eagle:<dir>`` reloading it bit for bit;
+   three ``distill_drafter`` steps of a dense 4-layer drafter against the
+   INT4 target; the perplexity of the dense and INT4 targets on 16 stream
+   sequences (INT4 within 5%); the CLI with ``TARGET_MODEL=trained:llama-
+   1b@100 DRAFTER_MODEL=eagle:<dir>``, its result files checked as phase 9
+   checks them and its K1 launches whole forwards.
 
 Any failed phase exits 1 (without a CUDA device, or outside a checkout,
 too, before any result is printed). Standard output ends with the card's
@@ -325,7 +354,7 @@ BF16_U = 2.0 ** -8
 # its S = 64 + TREE_GEN + 5 + 2, the (2, 2, 2) tree's catch-up (T = 5) over
 # S = 64 + TREE_GEN + 15 + 2. Offsets reach S - T.
 SINGLE_S, SERVE_S, LONG_S = 334, 394, 2048
-EAGLE_S, EAGLE_TREE_S = 167, 177
+EAGLE_S, EAGLE_TREE_S = 135, 145
 FLASH_SHAPES = [
     ("decode", 1, SINGLE_S, 1, [333], PAIR_HEADS),
     ("catch-up", 1, SINGLE_S, 2, [150], PAIR_HEADS),
@@ -340,9 +369,9 @@ FLASH_SHAPES = [
     ("qwen3-verify", 1, SINGLE_S, 13, [321], QWEN3_HEADS),
     ("long-verify", 1, LONG_S, 13, [2030], PAIR_HEADS),
     ("long-prefill", 1, LONG_S, 64, [1900], PAIR_HEADS),
-    ("eagle-catch-up", 1, EAGLE_S, 6, [148], PAIR_HEADS),
-    ("eagle-verify", 1, EAGLE_S, 6, [161], PAIR_HEADS),
-    ("eagle-tree-catch-up", 1, EAGLE_TREE_S, 5, [172], PAIR_HEADS),
+    ("eagle-catch-up", 1, EAGLE_S, 6, [116], PAIR_HEADS),
+    ("eagle-verify", 1, EAGLE_S, 6, [129], PAIR_HEADS),
+    ("eagle-tree-catch-up", 1, EAGLE_TREE_S, 5, [140], PAIR_HEADS),
 ]
 # row independence: the rows of a T=64 call at one offset against the same
 # rows of calls at smaller T, over a cache of each capacity (S, offset)
@@ -1688,8 +1717,12 @@ NASD_BATCHES = (1, 4, 8)
 NASD_TIMED = 1
 # under int8 KV + flash (K4 in every verify): these variants only
 NASD_INT8_VARIANTS = ("host native B=1 carried", "device table B=4")
-# NASD serving: the serving phase's 16 prompts and 128 tokens, 8 slots
+# NASD serving: the serving phase's 16 prompts, 8 slots
 NASD_SLOTS = 8
+# phases 7b and 8c (NASD and EAGLE serving): SERVE_SHORT_GEN tokens a
+# request (the serving phase decodes 128), so that the run holds phase 10
+# within its time
+SERVE_SHORT_GEN = 64
 BEAM_GEN, BEAM_WIDE = 32, 4
 ATTENTION_KERNELS = ("K2", "K8a", "K5", "K8b", "K3", "K4")
 
@@ -2050,8 +2083,8 @@ def phase_nasd(pair, device, card, label="bf16 KV", variants=None):
 
 def phase_nasd_serving(pair, device, card):
     """``NasdContinuousBatcher`` on the INT4 target: 8 slots, gamma 5, the
-    serving phase's 16 prompts, 128 tokens each, greedy, at 1 and 4 windows
-    per host sync; every request equals its greedy AR tokens (the batched
+    serving phase's 16 prompts, SERVE_SHORT_GEN tokens each, greedy, at 1
+    and 4 windows per host sync; every request equals its greedy AR tokens (the batched
     AR engine over the same prompts; a first parting only at a top-two bf16
     tie), and both settings give the same tokens. Launches: K1 per target
     forward (an admission prefill or a window's verify). Returns (summary,
@@ -2066,7 +2099,7 @@ def phase_nasd_serving(pair, device, card):
     prompts = bench.serving_prompts()
     t0 = time.perf_counter()
     refs = batch_autoregressive_generate(
-        prompts, cfg, target, gen_len=bench.SERVE_GEN, eos_tokens_id=(),
+        prompts, cfg, target, gen_len=SERVE_SHORT_GEN, eos_tokens_id=(),
         device=device)
     say(f"[time] NASD serving: greedy AR references (batched) in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -2076,10 +2109,10 @@ def phase_nasd_serving(pair, device, card):
         b = NasdContinuousBatcher(
             cfg, target, num_slots=NASD_SLOTS, gamma=NASD_GAMMA, n=NASD_N,
             max_prompt_len=bench.SERVE_MAX_PROMPT,
-            max_new_tokens=bench.SERVE_GEN, eos_tokens_id=(),
+            max_new_tokens=SERVE_SHORT_GEN, eos_tokens_id=(),
             windows_per_sync=wps, device=device)
         reset_launches()
-        rec = bench.serve_pass(b, prompts)
+        rec = bench.serve_pass(b, prompts, SERVE_SHORT_GEN)
         counts = launches()
         what = f"NASD serving (windows_per_sync {wps})"
         forwards = forward_launches(what, counts, cfg, target)
@@ -2110,7 +2143,7 @@ def phase_nasd_serving(pair, device, card):
     # batcher's cache; a window verifies gamma + 1 rows a slot
     P = bench.SERVE_MAX_PROMPT
     forced = check_parted("NASD serving", cfg, target, parted, device,
-                          (P, P + bench.SERVE_GEN + NASD_GAMMA + 2,
+                          (P, P + SERVE_SHORT_GEN + NASD_GAMMA + 2,
                            NASD_GAMMA + 1, True))
     summary["parted_replay"] = forced
     say(f"[7b nasd serve] {len(parted)} distinct outputs parted from AR; "
@@ -2187,11 +2220,11 @@ ORACLE_TREES = ((2, 2, 1, 1), (3, 2, 1), (4, 2))
 ORACLE_GEN = 64
 # phase 8, tools/bench_tree.py's protocol: a 60-token prompt from
 # default_rng(0) (bench.bench_prompt()), greedy, at its two tail damps (the
-# drafter strong and weak); 96 tokens (the benchmark decodes 256), so
-# that the run holds phases 9-9d well within its time
+# drafter strong and weak); 64 tokens (the benchmark decodes 256), so
+# that the run holds phases 9-10 within its time
 TREES = ((2, 2, 2), (3, 2, 1), (4, 2))
 TREE_DAMPS = (0.08, 0.35)
-TREE_GEN = 96
+TREE_GEN = 64
 # the replay's tie rule for the tree engines. A tree verify sums each
 # node's attention over its ancestors at their tree slots, with the
 # other nodes' slots masked in between; the replay sums over contiguous
@@ -2210,7 +2243,8 @@ EAGLE_SEED = 7
 # and a rejection commits the argmax, whatever the acceptance draws (at
 # temperature 1 the draws decide, and the tokens are not greedy AR's)
 GREEDY_T = 1e-4
-# phase 8c: the serving phase's prompts and tokens, 8 slots, gamma 5
+# phase 8c: the serving phase's prompts, SERVE_SHORT_GEN tokens, 8 slots,
+# gamma 5
 EAGLE_SLOTS = 8
 
 
@@ -2558,7 +2592,8 @@ def phase_eagle(pair, device, card, refs):
 
 def phase_eagle_serving(pair, head, device, card):
     """Batched and served EAGLE on the 22-layer INT4 target, greedy (at
-    GREEDY_T), gamma 5, the serving phase's 16 prompts and 128 tokens:
+    GREEDY_T), gamma 5, the serving phase's 16 prompts and SERVE_SHORT_GEN
+    tokens:
     ``batch_eagle_generate`` on prompts 0-7 (the B=8 measurement) and 8-15,
     then ``EagleContinuousBatcher`` with 8 slots at 1 and 4 windows per
     host sync. Every output equals the batched AR engine's tokens up to a
@@ -2577,7 +2612,7 @@ def phase_eagle_serving(pair, head, device, card):
 
     t_cfg, _, target, _ = pair
     e_cfg = t_cfg.replace(num_layers=1)
-    L, gamma, gen = t_cfg.num_layers, EAGLE_GAMMA, bench.SERVE_GEN
+    L, gamma, gen = t_cfg.num_layers, EAGLE_GAMMA, SERVE_SHORT_GEN
     proc = GreedyProcessor(temperature=GREEDY_T)
     prompts = bench.serving_prompts()
     t0 = time.perf_counter()
@@ -2629,7 +2664,7 @@ def phase_eagle_serving(pair, head, device, card):
             logits_processor=proc, eos_tokens_id=(), windows_per_sync=wps,
             device=device)
         reset_launches()
-        rec = bench.serve_pass(b, prompts)
+        rec = bench.serve_pass(b, prompts, gen)
         counts = launches()
         totals.setdefault("eagle_serving", {k: 0 for k in kernel_wrappers()})
         for k in counts:
@@ -2930,6 +2965,19 @@ def greedy_ar_outputs(what, runner, calls, device):
     return ties
 
 
+def eagle_forwards(what, counts, L):
+    """(target forwards, head forwards) of an EAGLE run on an INT4 target
+    of L layers from its launches: 4 L K1b and one K1a a target forward,
+    one K1a a head forward, nothing else."""
+    T, rest = divmod(counts["K1b"], 4 * L)
+    heads = counts["K1a"] - T
+    if rest or T <= 0 or heads <= 0 or any(
+            n for k, n in counts.items() if k not in ("K1b", "K1a")):
+        fail(f"{what}: launches {counts} are not {4 * L} K1b and one K1a "
+             "per target forward plus one K1a per head forward")
+    return T, heads
+
+
 def harness_run(name, env, device, workdir, limit, calls=None):
     """One in-process BenchmarkRunner run (its console output to
     ``workdir/<name>.log``), launches counted from 0. Returns (runner,
@@ -3011,12 +3059,7 @@ def phase_cli(device, card, root, workdir):
                          f" but for bf16 ties at tokens {rec['ties']}"
                          if rec["ties"] else ""))
         elif name == "eagle":
-            T, rest = divmod(counts["K1b"], 4 * L)
-            heads = counts["K1a"] - T
-            if rest or T <= 0 or heads <= 0 or any(
-                    n for k, n in counts.items() if k not in ("K1b", "K1a")):
-                fail(f"{what}: launches {counts} are not 88 K1b and one K1a "
-                     "per target forward plus one K1a per head forward")
+            T, heads = eagle_forwards(what, counts, L)
             rec["target_forwards"], rec["head_forwards"] = T, heads
             extra = f"; {T} target forwards, {heads} head forwards"
         else:
@@ -3447,6 +3490,504 @@ def phase_vllm(device, card):
     return summary, by_kv
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training
+# ---------------------------------------------------------------------------
+
+# 10a: the weight kernels forward and backward at the training row counts:
+# a teacher forward or a perplexity batch (M = B L = 8 x 128) and the EAGLE
+# head's logits in its first rollout pass (M = 8 x 127)
+GRAD_ROWS = (1024, 1016)
+GRAD_FORMATS = ("int4", "nf4", "int8")
+# 10b and 10d: the llama-1b preset pretrained at load (batch 32 of 128
+# tokens, the JAX loader's settings), INT4, with an EAGLE head trained
+# EAGLE_STEPS on-policy steps on it (batch 8 of 128, rollout 3): each step
+# samples its batch with 127 eager decode steps of the target
+TRAIN_STEPS = 100
+TRAINED_SPEC = f"trained:llama-1b@{TRAIN_STEPS}"
+TRAIN_BATCH, TRAIN_SEQ = 32, 128
+EAGLE_STEPS, EAGLE_BATCH, EAGLE_SEQ, EAGLE_ROLLOUT = 2, 8, 128, 3
+DISTILL_STEPS = 3
+# greedy AR of the trained targets; the perplexity's stream sequences
+TRAINED_GEN = 32
+PPL_SEQS, PPL_LEN = 16, 128
+# the CLI on the trained target with the saved head
+TRAINED_CLI_ENV = dict(TARGET_MODEL=TRAINED_SPEC, QUANTIZATION="int4",
+                       NUM_PROMPTS="4", GENERATION_LENGTH="64",
+                       GAMMA_VALUE="5", INFERENCE_METHOD="speculative")
+# 10c: tests/test_pretrain.py's configuration
+CONV_STEPS, CONV_LR, CONV_EAGLE_STEPS, CONV_EAGLE_LR = 450, 3e-3, 250, 2e-3
+
+
+def phase_grad(pairs, device):
+    """10a: K1 (INT4), K6 (NF4) and K7 (INT8) on the 22-layer pair's own
+    weights (layer 0's four projections and the lm_head) at M = 1024 and
+    1016: the forward through the autograd Function against the plain
+    version (phase 3's tolerances and bit-equal share) and x's gradient
+    through it against autograd of the plain version on the card (relative
+    Frobenius REL_FRO_TOL; None or all zeros fails); at M = 1024 the
+    forward's, the backward's (dy @ dequantize(w)^T, the Function's) and
+    torch.matmul's time over the bf16-dequantized weight, with the bound
+    of that work. Then every attention wrapper must raise under grad and
+    launch nothing. These launches are comparisons: no path counts them.
+    Returns the records by format."""
+    from specdec_tpu_torch.ops import quant_matmul as qm
+    from specdec_tpu_torch.quant.core import dequantize
+
+    gen = torch.Generator(device=device).manual_seed(4321)
+    flush = torch.zeros(256 * 2 ** 20, dtype=torch.uint8, device=device)
+    out = {}
+    for fmt in GRAD_FORMATS:
+        target = pairs[fmt][2]
+        _, plain_fn = weight_format(target["lm_head"])
+        recs = []
+        for name, K, N, layer in [s + (0,) for s in STACKED] + [
+                LM_HEAD + (None,)]:
+            w = target["lm_head"] if layer is None else \
+                target["layers"][name]
+            lw = layer_of(w, layer)
+            a, b = (lw.q, lw.scale) if fmt == "int8" else (lw.packed,
+                                                           lw.absmax)
+
+            def kern(x, w=w, layer=layer):
+                return (qm.quant_matmul(x, w) if layer is None
+                        else qm.quant_matmul_stacked(x, w, layer))
+            x_all = torch.randn((max(GRAD_ROWS), K), generator=gen,
+                                device=device).to(torch.bfloat16)
+            dy_all = torch.randn((max(GRAD_ROWS), N), generator=gen,
+                                 device=device).to(torch.bfloat16)
+            for M in GRAD_ROWS:
+                x, dy = x_all[:M].clone().requires_grad_(True), dy_all[:M]
+                y = kern(x)
+                if y.grad_fn is None:
+                    fail(f"10a {fmt} {name} M={M}: the wrapper's output "
+                         "carries no graph")
+                dx, = torch.autograd.grad(y, x, dy)
+                xp = x.detach().clone().requires_grad_(True)
+                yp = plain_fn(xp, a, b)
+                dxp, = torch.autograd.grad(yp, xp, dy)
+                got, plain = y.detach().float(), yp.detach().float()
+                err, rel, ok = kernel_vs_plain(got, plain)
+                bit = (got == plain).float().mean().item()
+                if not ok or bit < MIN_BIT_EQUAL:
+                    fail(f"10a {fmt} {name} M={M}: kernel vs plain max abs "
+                         f"err {err:.3g}, relative Frobenius {rel:.3g}, "
+                         f"{bit:.3%} bit-equal")
+                if dx is None or not torch.isfinite(dx).all() or \
+                        not dx.abs().max().item() > 0:
+                    fail(f"10a {fmt} {name} M={M}: the gradient is None, "
+                         "not finite or all zeros")
+                g_rel = ((dx.float() - dxp.float()).norm()
+                         / dxp.float().norm()).item()
+                if not g_rel <= REL_FRO_TOL:
+                    fail(f"10a {fmt} {name} M={M}: the gradient through the "
+                         f"kernel's Function is {g_rel:.3g} (relative "
+                         "Frobenius) from autograd of the plain version")
+                rec = {"name": name, "format": fmt, "M": M, "K": K, "N": N,
+                       "max_abs_err": err, "rel_fro_err": rel,
+                       "bit_equal": bit, "grad_rel_fro_err": g_rel}
+                if M == max(GRAD_ROWS):
+                    xd = x.detach()
+                    w_bf16 = dequantize(lw, torch.bfloat16)
+                    b_ms, by = bound_ms(M, K, N, bytes_per_weight(fmt, K))
+                    rec.update(
+                        ms=gpu_ms(lambda: kern(xd), flush),
+                        backward_ms=gpu_ms(
+                            lambda: dy @ dequantize(lw, dy.dtype).T, flush),
+                        plain_ms=gpu_ms(lambda: plain_fn(xd, a, b), flush),
+                        library_ms=gpu_ms(lambda: torch.matmul(xd, w_bf16),
+                                          flush),
+                        bound_ms=b_ms, bound_by=by)
+                    say(f"[10a grad] {fmt} {name:8s} M={M} K={K} N={N}: "
+                        f"forward {rec['ms'] * 1e3:8.1f} us, backward "
+                        f"(dequantize + matmul) {rec['backward_ms'] * 1e3:8.1f}"
+                        f" us, torch.matmul bf16 {rec['library_ms'] * 1e3:7.1f}"
+                        f" us, bound {b_ms * 1e3:6.1f} us ({by}) each; "
+                        f"forward bit-equal {bit:.3%}, gradient rel {g_rel:.2g}")
+                recs.append(rec)
+        out[fmt] = recs
+        say(f"[10a grad] {fmt}: {len(recs)} forwards within phase 3's "
+            f"tolerances, gradients within relative Frobenius {REL_FRO_TOL} "
+            f"of the plain version's (largest "
+            f"{max(r['grad_rel_fro_err'] for r in recs):.2g}), none zero")
+    # the attention kernels have no backward: every wrapper refuses
+    from specdec_tpu_torch.ops import decode_attention as da
+    from specdec_tpu_torch.ops import paged_attention as pa
+
+    Hq, Hk, Dh = PAIR_HEADS
+    q = torch.randn((1, 2, Hq, Dh), generator=gen, device=device).to(
+        torch.bfloat16).requires_grad_(True)
+    kv = torch.zeros((1, 64, Hk, Dh), dtype=torch.bfloat16, device=device)
+    kv8 = torch.zeros((1, 64, Hk, Dh), dtype=torch.int8, device=device)
+    sc = torch.ones((1, 64, Hk), device=device, requires_grad=True)
+    pool = torch.zeros((1, 1, Hk, PAGE, Dh), dtype=torch.bfloat16,
+                       device=device)
+    pool8 = pool.to(torch.int8)
+    psc = torch.ones((1, 1, Hk, PAGE), device=device)
+    table = torch.zeros((1, 1), dtype=torch.int32, device=device)
+    off = torch.tensor([5], dtype=torch.int32, device=device)
+    calls = {
+        "K3": lambda: da.flash_decode_attention(q, kv, kv, off),
+        "K4": lambda: da.flash_decode_attention_quant(q, kv8, sc, kv8, sc,
+                                                      off),
+        "K2": lambda: pa.paged_decode_attention(q, pool[0], pool[0], table,
+                                                off),
+        "K8a": lambda: pa.paged_decode_attention_stacked(q, pool, pool, 0,
+                                                         table, off),
+        "K5": lambda: pa.paged_decode_attention_quant(
+            q, pool8[0], psc[0], pool8[0], psc[0], table, off),
+        "K8b": lambda: pa.paged_decode_attention_quant_stacked(
+            q, pool8, psc, pool8, psc, 0, table, off)}
+    before = launches()
+    for key, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            if "no backward" not in str(e):
+                fail(f"10a {key}: raised {e!r}, not the refusal under grad")
+        else:
+            fail(f"10a {key}: the attention wrapper ran with an input that "
+                 "requires grad")
+    if launches() != before:
+        fail(f"10a: an attention wrapper launched under grad: {before} -> "
+             f"{launches()}")
+    say(f"[10a grad] attention wrappers {sorted(calls)}: each raises "
+        "ValueError under grad before any launch")
+    torch.cuda.synchronize()
+    return out
+
+
+class Spans:
+    """Device-synchronized wall time of wrapped callables, in call order:
+    (label, seconds, keep(result)). ``restore`` puts the originals back."""
+
+    def __init__(self):
+        self.calls, self._saved = [], []
+
+    def wrap(self, owner, name, label, keep=lambda out: None):
+        fn = getattr(owner, name)
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.calls.append((label, time.perf_counter() - t0, keep(out)))
+            return out
+        setattr(owner, name, timed)
+        self._saved.append((owner, name, fn))
+
+    def restore(self):
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+        self._saved = []
+
+    def of(self, label):
+        return [c for c in self.calls if c[0] == label]
+
+
+def phase_train(device, card, root):
+    """10b and 10d on the card, through ``load_models``: ``trained:llama-1b``
+    pretrained TRAIN_STEPS steps in bf16 (seconds a step, tokens/s, 6 N
+    tokens/s against the bf16 peak, peak memory, the NLL at the first and
+    last step, which must fall by 0.4 nats), quantized to INT4, with
+    ``eagle:1@EAGLE_STEPS`` trained on it (the step's time split four ways:
+    sampler, teacher, loss and backward, optimizer; K1 launches per step)
+    and saved through EAGLE_SAVE; greedy AR of the INT4 target equal to the
+    dense one's up to a top-two tie (``greedy_tie``); ``eagle:<dir>``
+    reloading the head bit for bit; DISTILL_STEPS distillation steps of a
+    dense 4-layer drafter of the preset's shapes against the INT4 target;
+    the perplexity of the dense and INT4 targets on stream sequences (INT4
+    within 5% of dense); the CLI on the trained target with the saved
+    head, its result files checked as phase 9 checks them. Returns
+    (summary, launches by path)."""
+    import shutil
+
+    from specdec_tpu_torch.core.model import layer_views
+    from specdec_tpu_torch.engine import distill, eagle_train, evaluate
+    from specdec_tpu_torch.engine import model_loader, optim, pretrain
+    from specdec_tpu_torch.sampling.base_decoding import (
+        autoregressive_generate,
+    )
+
+    workdir = os.path.join(root, "build", "smoke_train")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    head_dir = os.path.join(workdir, "eagle_head")
+    summary, by_path = {"card": card}, {}
+    try:
+        spans = Spans()
+        spans.wrap(pretrain, "build_trained_target", "pretrain",
+                   keep=lambda out: out[0])
+        spans.wrap(pretrain, "train_lm", "train_lm")
+        spans.wrap(pretrain, "_lm_grad", "lm loss and backward",
+                   keep=lambda out: float(out[0]))
+        spans.wrap(distill, "_sample_on_policy", "sampler")
+        spans.wrap(eagle_train, "teacher_feats_probs", "teacher")
+        spans.wrap(eagle_train, "_eagle_loss_and_grad", "loss and backward")
+        spans.wrap(optim.Adam, "step", "optimizer")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        held = torch.cuda.memory_allocated(device)
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with environ(EAGLE_SAVE=head_dir, EAGLE_TRAIN_BATCH=EAGLE_BATCH,
+                         EAGLE_TRAIN_SEQ=EAGLE_SEQ,
+                         EAGLE_ROLLOUT=EAGLE_ROLLOUT):
+                bundle = model_loader.load_models(
+                    TRAINED_SPEC, f"eagle:1@{EAGLE_STEPS}",
+                    quantization="int4", device=device)
+        finally:
+            spans.restore()
+        load_s = time.perf_counter() - t0
+        counts = launches()
+        peak = torch.cuda.max_memory_allocated(device) - held
+        t, head = bundle["target"], bundle["drafter"]
+        cfg, qparams = t["cfg"], t["params"]
+        dense = spans.of("pretrain")[0][2]
+        pre_s = spans.of("train_lm")[0][1]
+        nlls = [c[2] for c in spans.of("lm loss and backward")]
+        if len(nlls) != TRAIN_STEPS:
+            fail(f"10b: {len(nlls)} pretraining steps, asked {TRAIN_STEPS}")
+        if not nlls[0] - nlls[-1] >= 0.4:
+            fail(f"10b: the NLL fell from {nlls[0]:.3f} to {nlls[-1]:.3f} "
+                 f"nats in {TRAIN_STEPS} steps, less than 0.4")
+        if abs(t["pretrain_nll"] - nlls[-1]) > 1e-6:
+            fail(f"10b: pretrain_nll {t['pretrain_nll']} is not the last "
+                 f"step's {nlls[-1]}")
+        n_params = sum(p.numel() for p in optim.leaves(dense))
+        tok_s = TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ / pre_s
+        opt = spans.of("optimizer")
+        lb_s = sum(c[1] for c in spans.of("lm loss and backward"))
+        opt_s = sum(c[1] for c in opt[:TRAIN_STEPS])
+        pre = {"steps": TRAIN_STEPS, "seconds": pre_s,
+               "s_per_step": pre_s / TRAIN_STEPS, "tokens_per_s": tok_s,
+               "params": n_params,
+               "mfu_bf16": 6 * n_params * tok_s / BF16_OPS_PER_S,
+               "loss_and_backward_s": lb_s, "optimizer_s": opt_s,
+               "sampler_and_host_s": pre_s - lb_s - opt_s,
+               "nll_first": nlls[0], "nll_last": nlls[-1],
+               "entropy_floor": t["stream_spec"].entropy_nats,
+               "peak_memory_gib": peak / 2 ** 30}
+        summary["pretrain"] = pre
+        say(f"[10b train] {TRAINED_SPEC} in bf16 ({n_params / 1e9:.3f} B "
+            f"params, batch {TRAIN_BATCH} x {TRAIN_SEQ}): {TRAIN_STEPS} steps "
+            f"in {pre_s:.1f} s = {pre['s_per_step'] * 1e3:.1f} ms a step "
+            f"(loss and backward {lb_s / TRAIN_STEPS * 1e3:.1f} ms, optimizer "
+            f"{opt_s / TRAIN_STEPS * 1e3:.1f} ms, sampler and host "
+            f"{pre['sampler_and_host_s'] / TRAIN_STEPS * 1e3:.1f} ms), "
+            f"{tok_s:.0f} training tokens/s, 6 N tokens/s = "
+            f"{pre['mfu_bf16']:.1%} of {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s "
+            f"({card}); NLL {nlls[0]:.3f} -> {nlls[-1]:.3f} nats (floor "
+            f"{pre['entropy_floor']:.3f}); peak memory {pre['peak_memory_gib']:.2f}"
+            f" GiB above what the process held")
+
+        # the EAGLE head's training: EAGLE_STEPS steps and the final proxy
+        samp, teach = spans.of("sampler"), spans.of("teacher")
+        loss, eopt = spans.of("loss and backward"), opt[TRAIN_STEPS:]
+        if not (len(samp) == len(teach) == EAGLE_STEPS + 1
+                and len(loss) == len(eopt) == EAGLE_STEPS):
+            fail(f"10d: {len(samp)} sampler, {len(teach)} teacher, "
+                 f"{len(loss)} loss and {len(eopt)} optimizer calls for "
+                 f"{EAGLE_STEPS} steps")
+        L = cfg.num_layers
+        # target forwards: the sampler's EAGLE_SEQ - 1 decode steps and the
+        # teacher, each step and the final proxy; head forwards: the
+        # rollout passes of each step and the proxy's one
+        fw = EAGLE_SEQ * (EAGLE_STEPS + 1)
+        expect_launches("10d eagle:1 training", counts, qparams, cfg,
+                        [(fw, L, 1, 0),
+                         (EAGLE_ROLLOUT * EAGLE_STEPS + 1, 0, 1, 0)])
+        steps = [{"sampler_s": s[1], "teacher_s": te[1], "loss_backward_s":
+                  lo[1], "optimizer_s": o[1]}
+                 for s, te, lo, o in zip(samp, teach, loss, eopt)]
+        eagle = {"steps": EAGLE_STEPS, "load_s": load_s, "step_times": steps,
+                 "launches": counts, "K1_per_step": {
+                     "K1b": 4 * L * EAGLE_SEQ,
+                     "K1a": EAGLE_SEQ + EAGLE_ROLLOUT}}
+        summary["eagle_train"] = eagle
+        by_path["eagle_train"] = counts
+        for i, s in enumerate(steps):
+            say(f"[10d eagle] step {i}: sampler {s['sampler_s']:.2f} s, "
+                f"teacher {s['teacher_s'] * 1e3:.1f} ms, loss and backward "
+                f"{s['loss_backward_s'] * 1e3:.1f} ms, optimizer "
+                f"{s['optimizer_s'] * 1e3:.1f} ms")
+        say(f"[10d eagle] eagle:1@{EAGLE_STEPS} on the INT4 trained target "
+            f"(batch {EAGLE_BATCH} x {EAGLE_SEQ}, rollout {EAGLE_ROLLOUT}): "
+            f"K1b {counts['K1b']}, K1a {counts['K1a']} = {fw} target "
+            f"forwards (the sampler's {EAGLE_SEQ - 1} decode steps and the "
+            f"teacher, a step and the proxy) + {EAGLE_ROLLOUT} head forwards "
+            f"a step + 1; per step K1b {4 * L * EAGLE_SEQ}, K1a "
+            f"{EAGLE_SEQ + EAGLE_ROLLOUT}; the whole load {load_s:.1f} s")
+        if any(p.requires_grad for p in optim.leaves(head["params"])) or \
+                any(p.requires_grad for p in optim.leaves(dense)):
+            fail("10b: trained params require grad")
+
+        # greedy AR: the INT4 target against the dense one, a stream prompt
+        stream = t["stream_spec"]
+        prompt = pretrain.markov_sampler(stream, 1, 16, device)(
+            torch.Generator(device=device).manual_seed(0))[0].tolist()
+        ar_dense = autoregressive_generate(prompt, cfg, dense,
+                                           max_gen_len=TRAINED_GEN,
+                                           eos_tokens_id=(), device=device)
+        ar_q = autoregressive_generate(prompt, cfg, qparams,
+                                       max_gen_len=TRAINED_GEN,
+                                       eos_tokens_id=(), device=device)
+        if ar_q == ar_dense:
+            say(f"[10b train] greedy AR of the INT4 trained target == the "
+                f"dense one's over {TRAINED_GEN} tokens")
+        else:
+            i, gap, ulp = greedy_tie("10b INT4 against dense", cfg, dense,
+                                     prompt, ar_dense, ar_q, device)
+            say(f"[10b train] greedy AR of the INT4 trained target == the "
+                f"dense one's for the first {i} tokens; token {i} is a tie "
+                f"within two bf16 ulps (top-2 gap {gap:.3g}, ulp {ulp:.3g})")
+
+        # eagle:<dir> reloads the saved head bit for bit
+        again = model_loader._eagle(head_dir, TRAINED_SPEC, t, device)
+        same_bits("10d eagle:<dir>", again["params"], head["params"])
+        if again["cfg"] != head["cfg"]:
+            fail("10d eagle:<dir>: the reloaded head's config differs")
+        say(f"[10d eagle] eagle:{head_dir} reloads the saved head bit for "
+            "bit")
+
+        # distillation of a dense 4-layer drafter against the INT4 target
+        d_cfg = cfg.replace(num_layers=4)
+        drafter = dict(dense, layers=layer_views(dense["layers"], 4))
+        reset_launches()
+        t0 = time.perf_counter()
+        _, acc = distill.distill_drafter(cfg, qparams, d_cfg, drafter,
+                                         steps=DISTILL_STEPS, batch_size=8,
+                                         seq_len=128, seed=0, device=device)
+        torch.cuda.synchronize()
+        dist_s = time.perf_counter() - t0
+        counts = launches()
+        expect_launches("10d distill", counts, qparams, cfg,
+                        [(DISTILL_STEPS + 1, L, 1, 0)])
+        by_path["distill"] = counts
+        summary["distill"] = {"steps": DISTILL_STEPS, "seconds": dist_s,
+                              "acceptance_proxy": acc}
+        say(f"[10d distill] {DISTILL_STEPS} steps of a dense 4-layer drafter "
+            f"against the INT4 target (batch 8 x 128) and the proxy in "
+            f"{dist_s:.2f} s; acceptance proxy {acc:.3f}; K1 one teacher "
+            "forward a step and one for the proxy")
+
+        # perplexity, dense and INT4, on stream sequences
+        seqs = pretrain.markov_sampler(stream, PPL_SEQS, PPL_LEN, device)(
+            torch.Generator(device=device).manual_seed(1)).tolist()
+        ppl_dense = evaluate.perplexity(cfg, dense, seqs, device=device)
+        reset_launches()
+        t0 = time.perf_counter()
+        ppl_q = evaluate.perplexity(cfg, qparams, seqs, device=device)
+        ppl_s = time.perf_counter() - t0
+        counts = launches()
+        expect_launches("10d perplexity", counts, qparams, cfg,
+                        [(-(-PPL_SEQS // 8), L, 1, 0)])
+        by_path["perplexity"] = counts
+        rel = abs(ppl_q - ppl_dense) / ppl_dense
+        if not rel < 0.05:
+            fail(f"10d perplexity: INT4 {ppl_q:.3f} against dense "
+                 f"{ppl_dense:.3f}, {rel:.2%} apart (at most 5%)")
+        summary["perplexity"] = {"dense": ppl_dense, "int4": ppl_q,
+                                 "int4_seconds": ppl_s}
+        say(f"[10d ppl] {PPL_SEQS} stream sequences of {PPL_LEN}: dense "
+            f"{ppl_dense:.3f}, INT4 {ppl_q:.3f} ({rel:.2%} apart; exp of the "
+            f"floor {math.exp(stream.entropy_nats):.3f}); INT4 in "
+            f"{ppl_s * 1e3:.0f} ms, K1 at M = {8 * PPL_LEN}")
+        del bundle, t, head, qparams, dense, drafter, again
+        torch.cuda.empty_cache()
+
+        # the CLI: the trained target (trained again in the subprocess, the
+        # same seeds) with the head from its directory
+        write_sharegpt(os.path.join(workdir, "sharegpt_gpt4.jsonl"))
+        rec, counts = run_cli("cli_trained_eagle",
+                              dict(TRAINED_CLI_ENV,
+                                   DRAFTER_MODEL=f"eagle:{head_dir}"),
+                              root, workdir, power_limit_w(card), card)
+        T, heads = eagle_forwards("10d CLI", counts, L)
+        rec.update(target_forwards=T, head_forwards=heads,
+                   launches={k: n for k, n in counts.items() if n})
+        summary["cli_trained_eagle"] = rec
+        by_path["cli_trained_eagle"] = counts
+        say_run("10d cli", f"{TRAINED_SPEC} + eagle:<dir> (int4)", rec, card,
+                f"; {T} target forwards, {heads} head forwards; process "
+                f"{rec['process_seconds']:.1f} s (pretraining included)")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return summary, by_path
+
+
+def phase_convergence(device, card):
+    """10c: tests/test_pretrain.py's configuration on the card (V = 128, 64
+    states, order 1, a 4-layer D=128 f32 target, 450 steps at lr 3e-3):
+    the NLL under floor + 0.35, a fresh batch under floor + 0.4; a depth-1
+    head trained 250 steps at lr 2e-3 reaching a proxy of 0.5, more than
+    0.3 above the untrained head's; then the trained head accepting more
+    than the untrained one in ``eagle_generate`` (the same prompts and
+    seeds). Returns its summary."""
+    from specdec_tpu_torch.core.config import ModelConfig
+    from specdec_tpu_torch.core.eagle import init_eagle_params
+    from specdec_tpu_torch.engine.eagle_train import (
+        eagle_acceptance_proxy, train_eagle,
+    )
+    from specdec_tpu_torch.engine.pretrain import (
+        MarkovSpec, build_trained_target, lm_nll, markov_sampler,
+    )
+    from specdec_tpu_torch.sampling.eagle_speculative import eagle_generate
+
+    spec = MarkovSpec(vocab_size=128, num_states=64, branching=4,
+                      zipf_s=1.2, order=1, seed=3)
+    cfg = ModelConfig(vocab_size=128, hidden_size=128, intermediate_size=256,
+                      num_layers=4, num_heads=4, num_kv_heads=2, head_dim=32,
+                      max_position_embeddings=256, dtype=torch.float32)
+    floor = spec.entropy_nats
+    t0 = time.perf_counter()
+    target, nll = build_trained_target(cfg, spec, steps=CONV_STEPS,
+                                       batch_size=32, seq_len=64,
+                                       learning_rate=CONV_LR, seed=0,
+                                       device=device)
+    train_s = time.perf_counter() - t0
+    gen = torch.Generator(device=device)
+    eval_nll = float(lm_nll(cfg, target, markov_sampler(
+        spec, 16, 64, device)(gen.manual_seed(99))))
+    if not (nll < floor + 0.35 and eval_nll < floor + 0.4):
+        fail(f"10c: NLL {nll:.3f} (fresh batch {eval_nll:.3f}) against the "
+             f"floor {floor:.3f} + 0.35 (+ 0.4)")
+    e_cfg = cfg.replace(num_layers=1)
+    head = init_eagle_params(e_cfg, seed=7, device=device)
+    sampler = markov_sampler(spec, 16, 64, device)
+    acc0, _ = eagle_acceptance_proxy(cfg, e_cfg, head, target,
+                                     sampler(gen.manual_seed(10_007)))
+    t0 = time.perf_counter()
+    trained, acc = train_eagle(cfg, target, e_cfg, head,
+                               steps=CONV_EAGLE_STEPS, batch_sampler=sampler,
+                               learning_rate=CONV_EAGLE_LR, seed=8,
+                               device=device)
+    eagle_s = time.perf_counter() - t0
+    if not (acc >= 0.5 and acc - float(acc0) > 0.3):
+        fail(f"10c: EAGLE proxy {acc:.3f} from {float(acc0):.3f} (at least "
+             "0.5, a lift above 0.3)")
+    prompts = markov_sampler(spec, 4, 12, device)(
+        gen.manual_seed(5)).tolist()
+    rates = {name: float(np.mean([eagle_generate(
+        p, e_cfg, h, cfg, target, gamma=4, max_gen_len=24, eos_tokens_id=(),
+        seed=i, device=device)[1] for i, p in enumerate(prompts)]))
+        for name, h in (("untrained", head), ("trained", trained))}
+    if not rates["trained"] > rates["untrained"]:
+        fail(f"10c: eagle_generate acceptance {rates}: the trained head does "
+             "not accept more")
+    say(f"[10c converge] {CONV_STEPS} steps in {train_s:.1f} s: NLL "
+        f"{nll:.3f}, fresh batch {eval_nll:.3f} (floor {floor:.3f}); EAGLE "
+        f"{CONV_EAGLE_STEPS} steps in {eagle_s:.1f} s: proxy {float(acc0):.3f}"
+        f" -> {acc:.3f}; eagle_generate acceptance untrained "
+        f"{rates['untrained']:.3f}, trained {rates['trained']:.3f} ({card})")
+    return {"nll": nll, "eval_nll": eval_nll, "floor": floor,
+            "train_s": train_s, "proxy_untrained": float(acc0),
+            "proxy_trained": acc, "eagle_s": eagle_s,
+            "eagle_generate_acceptance": rates}
+
+
 def phase_harness(device, card, root, target):
     """Phases 9-9d in a git-ignored working directory, removed after."""
     import shutil
@@ -3635,6 +4176,13 @@ def main():
     summary["harness"], launches_harness, k1_8b = phase_harness(
         device, card, root, pair[2])
     stamp("9-9d benchmark entry point, loaders, serving facade")
+    grad_records = phase_grad(pairs, device)
+    stamp("10a gradients")
+    convergence = phase_convergence(device, card)
+    stamp("10c convergence")
+    summary["training"], launches_train = phase_train(device, card, root)
+    summary["training"]["convergence"] = convergence
+    stamp("10b and 10d training")
     summary["trees"]["card"] = summary["eagle"]["card"] = card
     summary["nasd"] = {"bf16 KV": nasd, "int8 KV, flash": nasd_int8,
                        "serving": nasd_serving, "card": card}
@@ -3672,8 +4220,11 @@ def main():
              "eagle_batch": launches_eagle_serve["eagle_batch"][key],
              "eagle_serving": launches_eagle_serve["eagle_serving"][key],
              **{path: c[key] for path, c in launches_harness.items()
-                if path != "harness_cli_int8"}},
-            k1_8b=[r for r in k1_8b if (r["layer"] is None) == (key == "K1a")]))
+                if path != "harness_cli_int8"},
+             **{path: c[key] for path, c in launches_train.items()}},
+            k1_8b=[r for r in k1_8b if (r["layer"] is None) == (key == "K1a")],
+            training=[r for r in grad_records["int4"]
+                      if (r["name"] == LM_HEAD[0]) == (key == "K1a")]))
     # K6: one kernel for both codecs; the top-level times are NF4's (the
     # JAX package's default codec), FP4's beside them
     for key, name, line in (("K6b", "q4_halfplane_matmul (stacked layer)",
@@ -3690,7 +4241,9 @@ def main():
             {**{f"spec_decode_{q}": fmt_launches[q][key]
                 for q in ("nf4", "fp4")},
              "serving_nf4": serve_launches_nf4[key]},
-            codecs="nf4 (top-level times), fp4", fp4=step_times(fp4)))
+            codecs="nf4 (top-level times), fp4", fp4=step_times(fp4),
+            training=[r for r in grad_records["nf4"]
+                      if (r["name"] == LM_HEAD[0]) == (key == "K6a")]))
     # K7: the stacked layer's and the lm_head's calls are one TPU kernel;
     # the top-level times are a layer's four projections, the lm_head's
     # beside them
@@ -3705,7 +4258,8 @@ def main():
          + launches_trees["int8 weights"]["K7a"],
          "cli_int8": launches_harness["harness_cli_int8"]["K7b"]
          + launches_harness["harness_cli_int8"]["K7a"]},
-        lm_head=step_times(stacked_records(w8, False))))
+        lm_head=step_times(stacked_records(w8, False)),
+        training=grad_records["int8"]))
 
     def top(rows, name):
         return next(r for r in rows if r["name"] == name and "ms" in r)

@@ -227,13 +227,14 @@ def make_batcher(paged: bool, pair, device):
                                   pool_tokens=(SERVE_SLOTS + 1) * S, **kw)
 
 
-def serve_pass(batcher, prompts: List[List[int]]) -> dict:
-    """Submit every prompt at once and drain the batcher; host clock
-    around the run, which ends in a host read. Returns {seconds, tokens,
-    tok_s, ttft_p50_ms, ttft_p99_ms (numpy percentiles over requests),
-    acceptance (mean over requests), outputs (per request, in submission
-    order)}."""
-    ids = [batcher.submit(p, max_new_tokens=SERVE_GEN) for p in prompts]
+def serve_pass(batcher, prompts: List[List[int]],
+               max_new_tokens: int = SERVE_GEN) -> dict:
+    """Submit every prompt at once, ``max_new_tokens`` each, and drain the
+    batcher; host clock around the run, which ends in a host read. Returns
+    {seconds, tokens, tok_s, ttft_p50_ms, ttft_p99_ms (numpy percentiles
+    over requests), acceptance (mean over requests), outputs (per request,
+    in submission order)}."""
+    ids = [batcher.submit(p, max_new_tokens=max_new_tokens) for p in prompts]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     done = batcher.run()

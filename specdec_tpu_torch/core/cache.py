@@ -15,9 +15,11 @@ so the int8 values are used exactly as stored.
 
 Unlike the JAX version, which returns new arrays, ``write_block`` (with
 its ``scales``, JAX's ``write_block_quant``) writes the new block IN
-PLACE. ``with_length`` and ``rolled_back`` return a new cache that shares
-the storage with the old one: after a forward, the old cache object sees
-the new entries too, and only its ``length`` differs. ``install_slot``
+PLACE (a block that wants a gradient is also attended through a written
+copy that carries its graph, ``_write_rows``). ``with_length`` and
+``rolled_back`` return a new cache that shares the storage with the old
+one: after a forward, the old cache object sees the new entries too, and
+only its ``length`` differs. ``install_slot``
 and ``zero_slot`` likewise edit the storage in place and return a cache
 with a new length tensor.
 """
@@ -107,14 +109,30 @@ def _write_rows(layers, blocks, offsets: torch.Tensor):
     """Write each [B, T, ...] block into its [B, S, ...] layer array at
     per-sequence ``offsets``, in place. As ``lax.dynamic_update_slice``
     does, an offset is clamped to ``S - T`` so the block always fits. The
-    offsets stay on the device: no host read."""
+    offsets stay on the device: no host read.
+
+    Returns the arrays to attend over: the layers themselves, or, for a
+    block that wants a gradient (grad mode on and the block requires
+    grad), a new array equal to the written layer that carries the block's
+    graph, while the layer takes the block's values detached. Training
+    forwards need this: the layers of one cache are views of one stack, so
+    an in-place write of layer i + 1 would change what layer i's attention
+    saved for its backward."""
     B, T = blocks[0].shape[:2]
     S = layers[0].shape[1]
     start = torch.clamp(offsets.to(torch.int64), 0, S - T)
     rows = torch.arange(B, device=start.device)[:, None].expand(B, T)
     cols = start[:, None] + torch.arange(T, device=start.device)[None, :]
+    out = []
     for layer, blk in zip(layers, blocks):
-        layer.index_put_((rows, cols), blk.to(layer.dtype))
+        blk = blk.to(layer.dtype)
+        if torch.is_grad_enabled() and blk.requires_grad:
+            out.append(layer.index_put((rows, cols), blk))
+            blk = blk.detach()
+        else:
+            out.append(layer)
+        layer.index_put_((rows, cols), blk)
+    return tuple(out)
 
 
 def write_block(layer_k: torch.Tensor, layer_v: torch.Tensor,
@@ -125,14 +143,17 @@ def write_block(layer_k: torch.Tensor, layer_v: torch.Tensor,
 
     ``scales``, the layer's (k_scale, v_scale) [B, S, Hk] of an int8 cache,
     makes this the JAX ``write_block_quant``: the blocks are quantized
-    (``quantize_kv_block``) and their scales written beside the values."""
+    (``quantize_kv_block``) and their scales written beside the values.
+
+    Returns the arrays to attend over, (k, v) plus the scales where given:
+    the layer's own arrays, or for a block that wants a gradient their
+    written copies carrying its graph (``_write_rows``)."""
     if not scales:
-        _write_rows((layer_k, layer_v), (new_k, new_v), offsets)
-        return
+        return _write_rows((layer_k, layer_v), (new_k, new_v), offsets)
     kq, ks = quantize_kv_block(new_k)
     vq, vs = quantize_kv_block(new_v)
-    _write_rows((layer_k, layer_v) + tuple(scales), (kq, vq, ks, vs),
-                offsets)
+    return _write_rows((layer_k, layer_v) + tuple(scales), (kq, vq, ks, vs),
+                       offsets)
 
 
 def storage_fields(cache):

@@ -317,14 +317,16 @@ def slotted_attend(cfg: ModelConfig, cache, q_pos: torch.Tensor,
     """``layer_attend`` over the slotted cache (``KVCache`` or
     ``QuantKVCache``): writes layer ``i``'s block at ``cache.length`` in
     place (quantized, for the int8 cache) and attends over layer ``i`` of
-    the cache through ``attention``, by ancestry where ``tree`` is given."""
+    the cache through ``attention``, by ancestry where ``tree`` is given
+    (under autograd, over the written copy that carries the block's graph:
+    ``core/cache.py::write_block``)."""
     quant = isinstance(cache, QuantKVCache)
 
     def attend(i, q, k, v):
         scales = (cache.k_scale[i], cache.v_scale[i]) if quant else ()
-        write_block(cache.k[i], cache.v[i], k, v, cache.length, scales)
-        return attention(cfg, q, cache.k[i], cache.v[i], q_pos, *scales,
-                         tree=tree)
+        k_all, v_all, *scales = write_block(cache.k[i], cache.v[i], k, v,
+                                            cache.length, scales)
+        return attention(cfg, q, k_all, v_all, q_pos, *scales, tree=tree)
     return attend
 
 

@@ -15,14 +15,24 @@ A model spec is one of:
   (``core/stream_loader.py``, no ``transformers``), others load whole
   through ``transformers`` (``core/hf_loader.py::load_hf_model``); the
   tokenizer of a checkpoint directory is ``transformers.AutoTokenizer``'s;
+- ``trained:<preset>[@<steps>]``: the preset's shapes PRETRAINED at load
+  on the order-1 Markov stream (``engine/pretrain.py``; 2000 steps by
+  default, batch 32 of 128 tokens, learning rate 1e-3, the stream and the
+  training seeded by ``crc32`` of the preset and of the spec as in JAX),
+  then quantized; the bundle carries ``stream_spec`` and
+  ``pretrain_nll``. A 4-bit format the card's kernels do not take is
+  refused on a CUDA device before training (``check_kernel_shapes``);
 - drafter only: ``layerskip:<k>``, the target's first k layers as views of
   its (quantized) containers, sharing its embedding, final norm and head;
-  ``eagle:<depth>``, an untrained EAGLE head (``core/eagle.py``) seeded by
-  ``crc32("eagle:<target>:<depth>")``.
+  ``eagle:<depth>[@<steps>]``, an EAGLE head (``core/eagle.py``) seeded by
+  ``crc32("eagle:<target>:<depth>")``, trained on the loaded target for
+  ``steps`` on-policy steps (``engine/eagle_train.py``; EAGLE_TRAIN_BATCH
+  8, EAGLE_TRAIN_SEQ 128, EAGLE_ROLLOUT 3) and saved to the directory
+  EAGLE_SAVE names, if set; ``eagle:<dir>``, a head saved by
+  ``engine/checkpoint.py`` (a spec holding ``/`` or naming a directory),
+  its depth read from ``layers.wo``'s leading axis.
 
-Specs that need a later slice of the port raise NotImplementedError naming
-their ``ROADMAP.md`` item: ``trained:<preset>``, ``eagle:<depth>@<steps>``
-and ``eagle:<dir>`` (training and checkpoints, §1 item 5), T5 checkpoints
+T5 checkpoints raise NotImplementedError naming their ``ROADMAP.md`` item
 (the encoder-decoder, §1 item 2). There is no mesh: the port runs on one
 card (``parallel/``, §1 item 6). ``device=None`` means the card.
 """
@@ -151,6 +161,77 @@ def _synthetic(name: str, dtype, quantization: str = "none",
     return {"cfg": cfg, "params": params}
 
 
+def _trained(name: str, dtype, quantization: str = "none",
+             device=None) -> Dict[str, Any]:
+    """A ``trained:<preset>[@<steps>]`` bundle on ``device``: the JAX
+    loader's stream and training settings, quantized after training."""
+    from specdec_tpu_torch.engine.pretrain import (
+        MarkovSpec, build_trained_target,
+    )
+
+    device = resolve_device(device)
+    preset, _, steps = name.split(":", 1)[1].partition("@")
+    if preset not in SYNTHETIC_PRESETS:
+        raise ValueError(f"unknown preset {preset!r} in {name!r}; "
+                         f"choose from {sorted(SYNTHETIC_PRESETS)}")
+    cfg = ModelConfig(dtype=dtype, **SYNTHETIC_PRESETS[preset])
+    if quantization != "none":
+        check_kernel_shapes(cfg, quantization, device)
+    stream = MarkovSpec(vocab_size=cfg.vocab_size,
+                        num_states=min(cfg.vocab_size, 8192), branching=8,
+                        zipf_s=1.2, order=1, seed=_seed(preset))
+    params, nll = build_trained_target(
+        cfg, stream, steps=int(steps or 2000), batch_size=32, seq_len=128,
+        learning_rate=1e-3, seed=_seed(name), device=device)
+    out = {"cfg": cfg, "params": params, "stream_spec": stream,
+           "pretrain_nll": nll}
+    if quantization != "none":
+        out["params"] = quantize_params(params, kind=quantization, fuse=True)
+        out["quantized"] = quantization
+    return out
+
+
+def _eagle(spec: str, target_path: str, target: Dict[str, Any],
+           device) -> Dict[str, Any]:
+    """The ``eagle:<...>`` drafter of ``spec`` (what follows ``eagle:``)
+    for the loaded ``target``."""
+    from specdec_tpu_torch.core.eagle import init_eagle_params
+    from specdec_tpu_torch.engine.checkpoint import load_params, save_params
+
+    t_cfg = target["cfg"]
+    if "/" in spec or os.path.isdir(spec):
+        e_params = load_params(spec, device)
+        e_cfg = t_cfg.replace(num_layers=int(e_params["layers"]["wo"]
+                                             .shape[0]))
+        return {"cfg": e_cfg, "params": e_params, "eagle": True}
+    depth, _, steps = spec.partition("@")
+    depth, steps = int(depth), int(steps or 0)
+    if not 0 < depth < t_cfg.num_layers:
+        raise ValueError(
+            f"eagle:{depth} needs 1..{t_cfg.num_layers - 1} layers")
+    e_cfg = t_cfg.replace(num_layers=depth)
+    seed = _seed(f"eagle:{target_path}:{depth}")
+    e_params = init_eagle_params(e_cfg, seed=seed, device=device)
+    if steps > 0:
+        from specdec_tpu_torch.engine.eagle_train import train_eagle
+
+        e_params, acc = train_eagle(
+            t_cfg, target["params"], e_cfg, e_params, steps=steps,
+            batch_size=int(os.getenv("EAGLE_TRAIN_BATCH", "8")),
+            seq_len=int(os.getenv("EAGLE_TRAIN_SEQ", "128")),
+            # HASS-style multi-step alignment: deployed acceptance is
+            # rollout acceptance
+            rollout_steps=int(os.getenv("EAGLE_ROLLOUT", "3")),
+            seed=seed + 1, device=device)
+        print(f"eagle drafter trained {steps} steps: teacher-forced "
+              f"acceptance proxy {acc:.3f}")
+        save_dir = os.getenv("EAGLE_SAVE", "")
+        if save_dir:
+            print("eagle drafter saved to "
+                  f"{save_params(save_dir, e_params, overwrite=True)}")
+    return {"cfg": e_cfg, "params": e_params, "eagle": True}
+
+
 def _load_tokenizer(path: str):
     """A checkpoint directory's tokenizer (``transformers``), with the pad
     token falling back to EOS."""
@@ -201,8 +282,7 @@ def load_models(
         if path.startswith("synthetic"):
             return _synthetic(path, dtype, quant, device), None
         if path.startswith("trained"):
-            raise _todo(f"{path!r} (a preset pretrained at load)",
-                        "5, training")
+            return _trained(path, dtype, quant, device), None
         from specdec_tpu_torch.core.stream_loader import (
             STREAMED_TYPES, load_hf_streamed, read_config,
         )
@@ -230,15 +310,6 @@ def load_models(
     drafter_spec = drafter_model_path or ""
     layerskip = drafter_spec.startswith("layerskip:")
     eagle = drafter_spec.startswith("eagle:")
-    if eagle:
-        spec = drafter_spec.split(":", 1)[1]
-        if "/" in spec or os.path.isdir(spec):
-            raise _todo(f"an EAGLE head from a checkpoint ({drafter_spec!r})",
-                        "5, training and checkpoints")
-        depth, _, steps = spec.partition("@")
-        if int(steps or 0) > 0:
-            raise _todo(f"EAGLE head training at load ({drafter_spec!r})",
-                        "5, training")
 
     target, tokenizer = load_one(target_model_path, quant=quantization)
     if kv_quant != "none":
@@ -280,15 +351,8 @@ def load_models(
         if "quantized" in target:
             drafter["quantized"] = target["quantized"]
     if eagle:
-        from specdec_tpu_torch.core.eagle import init_eagle_params
-        depth = int(depth)
-        if not 0 < depth < t_cfg.num_layers:
-            raise ValueError(
-                f"eagle:{depth} needs 1..{t_cfg.num_layers - 1} layers")
-        e_cfg = t_cfg.replace(num_layers=depth)
-        drafter = {"cfg": e_cfg, "eagle": True, "params": init_eagle_params(
-            e_cfg, seed=_seed(f"eagle:{target_model_path}:{depth}"),
-            device=device)}
+        drafter = _eagle(drafter_spec.split(":", 1)[1], target_model_path,
+                         target, device)
 
     if drafter is not None and drafter["cfg"].vocab_size != t_cfg.vocab_size:
         raise ValueError("drafter and target must share a vocabulary")

@@ -4,7 +4,11 @@ constants and shared memory of the kernel body both launch,
 ``csrc/flash_decode.cuh``.
 
 A wrapper raises on anything the kernel does not take; there is no
-fallback to the plain version for a CUDA tensor. The model's dispatch asks
+fallback to the plain version for a CUDA tensor. The kernels have no
+backward (nor have the JAX package's Pallas attention kernels), so a
+wrapper refuses, on either device, inputs that want a gradient
+(``refuse_grad``): the kernel's output would carry none, silently. The
+trainers attend through the plain attention. The model's dispatch asks
 ``kernel_takes`` first, from the config, and sends a head_dim the kernel
 does not take to the plain attention before any launch.
 """
@@ -52,6 +56,17 @@ def kernel_takes(head_dim: int, q_dtype: torch.dtype, quant: bool) -> bool:
     return (q_dtype in DTYPE_CODE and head_dim <= MAX_HEAD_DIM
             and head_dim % vec == 0
             and shared_bytes(head_dim, q_dtype, quant) <= MAX_SHARED_BYTES)
+
+
+def refuse_grad(name: str, *arrays) -> None:
+    """Raise, before any launch, where grad mode is on and an input
+    requires grad."""
+    if torch.is_grad_enabled() and any(
+            a is not None and a.requires_grad for a in arrays):
+        raise ValueError(f"{name}: the kernel has no backward, and an input "
+                         "requires grad; attend through the plain attention "
+                         "(attention_impl='xla') to train, or run under "
+                         "torch.no_grad()")
 
 
 def check_kv_args(name: str, q, k, v, k_scale, v_scale, smem: int):

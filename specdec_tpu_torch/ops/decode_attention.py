@@ -21,7 +21,9 @@ the JAX dispatch sends T*G > 1024 to the XLA path only because of the TPU's
 VMEM, so the dense admission prefills (T = 64 or 256) attend through this
 kernel too.
 
-On a CPU tensor a wrapper computes the plain version,
+A wrapper refuses inputs that want a gradient (the kernel has no
+backward; ``attention_args.refuse_grad``). On a CPU tensor it computes the
+plain version,
 ``decode_attention_reference`` (the dense ``masked_attention`` of
 ``core/model.py``, the JAX package's XLA path); on a CUDA tensor it
 launches the kernel or raises. Each wrapper counts its kernel launches in a
@@ -36,7 +38,7 @@ import torch
 
 from specdec_tpu_torch.core.model import masked_attention
 from specdec_tpu_torch.ops.attention_args import (
-    DTYPE_CODE, check_kv_args, shared_bytes,
+    DTYPE_CODE, check_kv_args, refuse_grad, shared_bytes,
 )
 
 
@@ -100,6 +102,7 @@ def flash_decode_attention(q: torch.Tensor, k_all: torch.Tensor,
     """q: [B, T, Hq, Dh]; k_all/v_all: [B, S, Hk, Dh] of q's dtype (one
     layer of the slotted cache); offsets: [B] (query t of sequence b sits
     at position offsets[b] + t). Returns [B, T, Hq, Dh] in q's dtype."""
+    refuse_grad("flash-decode kernel", q, k_all, v_all)
     if q.device.type == "cpu":
         return decode_attention_reference(q, k_all, v_all,
                                           offsets).to(q.dtype)
@@ -116,6 +119,7 @@ def flash_decode_attention_quant(q: torch.Tensor, k_all: torch.Tensor,
     """``flash_decode_attention`` over int8 K/V [B, S, Hk, Dh] with f32
     scales [B, S, Hk] (one layer of a ``QuantKVCache``); q float32 or
     bf16. Returns [B, T, Hq, Dh] in q's dtype."""
+    refuse_grad("int8 flash-decode kernel", q, k_scale, v_scale)
     if q.device.type == "cpu":
         return decode_attention_reference(q, k_all, v_all, offsets, k_scale,
                                           v_scale).to(q.dtype)

@@ -28,8 +28,10 @@ All compute flash-decode over K/V reached through the page table: query
 position ``offsets[b] + t`` attends every key position ``<=`` it, scores in
 f32 scaled by the f32 number 1/sqrt(Dh), grouped-query heads folded as T*G
 rows per KV head; for int8 pools the k-scale multiplies the score after the
-dot and the v-scale the probability before P.V. On a CPU tensor a wrapper
-computes the plain version, ``paged_attention_reference`` (``gather_pages``,
+dot and the v-scale the probability before P.V. A wrapper refuses inputs
+that want a gradient (the kernel has no backward;
+``attention_args.refuse_grad``). On a CPU tensor it computes the plain
+version, ``paged_attention_reference`` (``gather_pages``,
 ``gather_page_scales`` and the dense ``masked_attention`` of
 ``core/model.py``); on a CUDA tensor it launches the kernel or raises.
 
@@ -46,7 +48,7 @@ import torch
 from specdec_tpu_torch.core.model import masked_attention
 from specdec_tpu_torch.core.paged_cache import gather_page_scales, gather_pages
 from specdec_tpu_torch.ops.attention_args import (
-    DTYPE_CODE, check_kv_args, shared_bytes,
+    DTYPE_CODE, check_kv_args, refuse_grad, shared_bytes,
 )
 
 
@@ -129,6 +131,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            offsets: torch.Tensor) -> torch.Tensor:
     """q: [B, T, Hq, Dh]; pools: [NP, Hk, page, Dh] (head-major);
     page_table: [B, MP] int32; offsets: [B]. Returns [B, T, Hq, Dh]."""
+    refuse_grad("paged attention kernel", q, k_pool, v_pool)
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pool, v_pool, page_table,
                                          offsets).to(q.dtype)
@@ -145,6 +148,7 @@ def paged_decode_attention_stacked(q: torch.Tensor, k_stack: torch.Tensor,
                                    offsets: torch.Tensor) -> torch.Tensor:
     """``paged_decode_attention`` reading layer ``layer`` of stacked
     [L, NP, Hk, page, Dh] pools in place; nothing is copied."""
+    refuse_grad("paged attention kernel", q, k_stack, v_stack)
     layer = _layer_index(layer, k_stack)
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_stack[layer], v_stack[layer],
@@ -165,6 +169,7 @@ def paged_decode_attention_quant(q: torch.Tensor, k_pool: torch.Tensor,
     """``paged_decode_attention`` over int8 pools [NP, Hk, page, Dh] with
     f32 scales [NP, Hk, page]; q float32 or bf16. Returns [B, T, Hq, Dh] in
     q's dtype."""
+    refuse_grad("int8 paged attention kernel", q, k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pool, v_pool, page_table,
                                          offsets, k_scale, v_scale
@@ -184,6 +189,7 @@ def paged_decode_attention_quant_stacked(
     """``paged_decode_attention_quant`` reading layer ``layer`` of int8
     stacks [L, NP, Hk, page, Dh] and their scales [L, NP, Hk, page] in
     place; nothing is copied."""
+    refuse_grad("int8 paged attention kernel", q, k_scale, v_scale)
     layer = _layer_index(layer, k_stack)
     if q.device.type == "cpu":
         return paged_attention_reference(

@@ -34,6 +34,17 @@ Each kernel wrapper counts its launches in a plain integer attribute
 (``int4_matmul.launches`` and so on), so a run can show which kernels its
 path went through.
 
+Gradients: where grad mode is on and x requires grad, a wrapper runs as a
+``torch.autograd.Function`` (``_WeightMatmul``) whose forward is the same
+kernel launch (the plain version on the CPU) and whose backward gives x
+the plain product ``dy @ dequantize(w)ᵀ`` in dy's dtype, through
+``torch.matmul``; the packed fields get none. The JAX package takes the
+same gradient by XLA autodiff of its dequantize-then-matmul route
+(``specdec_tpu/ops/quant_matmul.py:583-601``): its Pallas kernels define
+no VJP, so there is no backward kernel to port. The kernel's raw output
+carries no graph, so without the Function a loss through a quantized
+projection would give x no gradient on the card and nothing would say so.
+
 The TPU tile policy (VMEM budget, tile fitting, row chunking) is not ported:
 it models v5e VMEM.
 """
@@ -46,6 +57,7 @@ import torch
 from specdec_tpu_torch.quant.core import (
     NF4_BLOCK, FP4Weight, Int4Weight, Int8Weight, NF4Weight, _am_unpack,
     _fp4_decode_bits, _int4_decode, _nf4_decode_bits, _unpack_nibbles,
+    dequantize,
 )
 
 # 4-bit codec of the half-plane kernel: the plain version's decode and the
@@ -182,27 +194,59 @@ def _launch(w: Any, x2: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return y
 
 
-def _matmul(wrapper, kinds, x: torch.Tensor, w: Any,
-            idx: Optional[int]) -> torch.Tensor:
-    """The body of every kernel wrapper: x [..., K] any float dtype, the
-    output's dtype follows x. ``idx`` None: a 2D weight; else layer ``idx``
-    of a stacked one."""
-    if not isinstance(w, kinds):
-        raise TypeError(f"{wrapper.__name__}: {type(w).__name__} weight")
-    lead, K = x.shape[:-1], x.shape[-1]
-    x2 = x.reshape(-1, K)
+def _forward(wrapper, w: Any, x2: torch.Tensor,
+             idx: Optional[int]) -> torch.Tensor:
+    """x2 [M, K] @ w (layer ``idx`` of a stack, or the 2D weight): the
+    plain version on the CPU, else the kernel, counted. Returns [M, N] in
+    x2's dtype."""
     a, b = _fields(w)
-    if idx is not None:
-        idx = int(idx)
-        if not 0 <= idx < a.shape[0]:
-            raise IndexError(f"layer {idx} of a {a.shape[0]}-layer stack")
     if x2.device.type == "cpu":
         out = _plain(w, x2, *((a, b) if idx is None else (a[idx], b[idx])))
     else:
         _check_kernel_args(w, x2, a, b, stacked=idx is not None)
         out = _launch(w, x2, a, b, idx or 0)
         wrapper.launches += 1
-    return out.to(x.dtype).reshape(*lead, out.shape[-1])
+    return out.to(x2.dtype)
+
+
+class _WeightMatmul(torch.autograd.Function):
+    """``_forward`` with a gradient for x: dy @ dequantize(w)ᵀ in dy's
+    dtype (the layer ``idx`` of a stack, or the 2D weight)."""
+
+    @staticmethod
+    def forward(ctx, x2, w, idx, wrapper):
+        ctx.w, ctx.idx = w, idx
+        return _forward(wrapper, w, x2, idx)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        w = ctx.w
+        if ctx.idx is not None:
+            w = type(w)(*(f[ctx.idx] for f in _fields(w)))
+        return dy @ dequantize(w, dy.dtype).T, None, None, None
+
+
+def _matmul(wrapper, kinds, x: torch.Tensor, w: Any,
+            idx: Optional[int]) -> torch.Tensor:
+    """The body of every kernel wrapper: x [..., K] any float dtype, the
+    output's dtype follows x. ``idx`` None: a 2D weight; else layer ``idx``
+    of a stacked one. The Function runs only where a gradient is wanted,
+    so the decode loops, host-bound, pay nothing for it."""
+    if not isinstance(w, kinds):
+        raise TypeError(f"{wrapper.__name__}: {type(w).__name__} weight")
+    lead, K = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, K)
+    if idx is not None:
+        idx = int(idx)
+        n = _fields(w)[0].shape[0]
+        if not 0 <= idx < n:
+            raise IndexError(f"layer {idx} of a {n}-layer stack")
+    if torch.is_grad_enabled() and x.requires_grad:
+        out = _WeightMatmul.apply(x2, w, idx, wrapper)
+    else:
+        out = _forward(wrapper, w, x2, idx)
+    return out.reshape(*lead, out.shape[-1])
 
 
 def int4_matmul(x: torch.Tensor, w: Int4Weight) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """The port stands alone: neither ``specdec_tpu_torch`` nor ``chip_smoke.py``
-imports JAX, ml_dtypes or the JAX package (the machine with the card has
-none of them); importing the port's modules loads neither those nor
+imports JAX, optax, orbax, ml_dtypes or the JAX package (the machine with
+the card has none of them); importing the port's modules loads neither those nor
 ``transformers``, ``safetensors`` or ``tokenizers`` (the loaders import
 ``transformers`` only where a caller needs it)."""
 import ast
@@ -12,7 +12,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "specdec_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "ml_dtypes", "specdec_tpu")
 # not loaded by importing the port either
 UNLOADED = FORBIDDEN + ("transformers", "safetensors", "tokenizers")
 SOURCES = sorted((ROOT / "specdec_tpu_torch").rglob("*.py")) + [
@@ -59,6 +59,12 @@ def test_import_leaves_jax_unloaded():
             "specdec_tpu_torch.engine.benchmark_runner, "
             "specdec_tpu_torch.engine.server_benchmark, "
             "specdec_tpu_torch.engine.vllm_compat, "
+            "specdec_tpu_torch.engine.optim, "
+            "specdec_tpu_torch.engine.pretrain, "
+            "specdec_tpu_torch.engine.distill, "
+            "specdec_tpu_torch.engine.evaluate, "
+            "specdec_tpu_torch.engine.eagle_train, "
+            "specdec_tpu_torch.engine.checkpoint, "
             "specdec_tpu_torch.utils.printing, "
             "specdec_tpu_torch.utils.profiling, "
             "specdec_tpu_torch.cli.benchmark; "

@@ -559,20 +559,13 @@ def _t5_dir(tmp_path):
     return str(d)
 
 
-@pytest.mark.parametrize("case", ["trained", "eagle_steps", "eagle_dir",
-                                  "t5", "mesh", "vllm_tp"])
+@pytest.mark.parametrize("case", ["t5", "mesh", "vllm_tp"])
 def test_later_slices_raise_not_implemented(case, tmp_path, monkeypatch):
     """Specs that need a later slice raise NotImplementedError naming
-    their ROADMAP.md item, before anything loads."""
+    their ROADMAP.md item, before anything loads (the training specs load:
+    tests/test_torch_checkpoint.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if case == "trained":
-            tml.load_models("trained:tiny@10", device="cpu")
-        elif case == "eagle_steps":
-            tml.load_models("synthetic:tiny", "eagle:1@10", device="cpu")
-        elif case == "eagle_dir":
-            tml.load_models("synthetic:tiny", f"eagle:{tmp_path}",
-                            device="cpu")
-        elif case == "t5":
+        if case == "t5":
             tml.load_models(_t5_dir(tmp_path), device="cpu")
         elif case == "mesh":
             from specdec_tpu_torch.engine.benchmark_runner import (
