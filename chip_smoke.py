@@ -217,6 +217,34 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    1b@100 DRAFTER_MODEL=eagle:<dir>``, its result files checked as phase 9
    checks them and its K1 launches whole forwards.
 
+11. the encoder-decoder at full width: Flan-T5-large's shape (target) and
+   Flan-T5-small's (drafter), from google/flan-t5-large and -small's
+   config.json, random weights from a seed at HF T5's initialization
+   scales (``t5_init_scales``: peaked logits), each written as an HF T5
+   checkpoint under ``build/`` (removed after; the large one BF16 in two
+   shards with an index, the small one F32 in one file, by the writer
+   phase 9b uses) and loaded by ``load_codec_checkpoint`` on the card in
+   bf16 and in f32, bit-equal to the weights as written (load time and
+   peak memory printed); ``rel_position_bucket`` on the card equal to the
+   CPU's over rel in [-1024, 1024]; bf16 decode_step logits within a
+   relative Frobenius CODEC_BF16_FRO of f32 at full width, and the card's
+   f32 within CODEC_CPU_FRO of the CPU's at 2 + 2 layers; on a 60-token
+   prompt from default_rng(0), 64 tokens: greedy AR, self-draft greedy
+   spec (gamma 5, GreedyProcessor at GREEDY_T) equal to AR up to a
+   top-two bf16 tie with acceptance 1.0 unless a tie parted them, the
+   small drafter likewise equal to AR, a seeded multinomial run twice the
+   same; the encoder's ms, AR ms a token and the card's busy share of it
+   (profiled), ms a window, tok/s and acceptance; no port kernel launched
+   (the codec has none);
+12. the REPL: ``python -m specdec_tpu_torch.cli.repl`` with its defaults
+   (synthetic:llama-1b over synthetic:llama-70m, dense bf16) in a
+   subprocess, phase 9's ShareGPT JSONL as SHAREGPT_DIR, over /gamma 4,
+   /length 32, /ngram, /drafter, a prompt, /set_ngramstorage onelevel 2,
+   /random, auto 2 and /quit: exit 0, every tag and throughput ratio for
+   each of the 4 prompts; then ``InferenceCLI._infer`` in process at
+   ``/processor greedy`` GREEDY_T: speculative and NASD tokens equal target
+   AR's up to a top-two bf16 tie.
+
 Any failed phase exits 1 (without a CUDA device, or outside a checkout,
 too, before any result is printed). Standard output ends with the card's
 name and power limit, a JSON line of the main paths' numbers, a JSON line
@@ -3083,45 +3111,32 @@ def phase_cli(device, card, root, workdir):
 # phase 9b: a local checkpoint, streamed
 # ---------------------------------------------------------------------------
 
-def write_llama_checkpoint(path, cfg, params, n_shards=2):
-    """The dense bf16 params of ``cfg`` as an HF llama checkpoint: its
-    config.json and ``n_shards`` safetensors files (layers split evenly,
-    the embedding in the first, the norm and head in the last) with an
-    index. The format written by hand: an 8-byte little-endian header
-    length, the JSON header padded to 8 bytes, the raw bytes."""
+SAFETENSORS_DTYPES = {"F32": torch.float32, "BF16": torch.bfloat16}
+
+
+def write_safetensors(path, tensors, dtype, n_shards=1):
+    """``tensors`` (name -> tensor, on any device, in order) written in
+    ``dtype`` ("F32" or "BF16") as HF safetensors under ``path``: one
+    ``model.safetensors``, or ``n_shards`` files holding contiguous runs of
+    the names of about equal bytes, with an index. The format written by
+    hand: an 8-byte little-endian header length, the JSON header padded to
+    8 bytes, the raw bytes. Returns the bytes written."""
     os.makedirs(path, exist_ok=True)
-    L = cfg.num_layers
-    lay = params["layers"]
-    names = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
-             "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
-             "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
-             "w_down": "mlp.down_proj"}
-
-    def layer_tensors(i):
-        p = f"model.layers.{i}."
-        out = [(p + "input_layernorm.weight", lay["attn_norm_w"][i]),
-               (p + "post_attention_layernorm.weight", lay["mlp_norm_w"][i])]
-        out += [(p + hf + ".weight", lay[k][i].t()) for k, hf in names.items()]
-        return out
-
-    per = -(-L // n_shards)
-    shards = []
-    for s in range(n_shards):
-        tensors = [("model.embed_tokens.weight", params["embed"])] if s == 0 \
-            else []
-        for i in range(s * per, min(L, (s + 1) * per)):
-            tensors += layer_tensors(i)
-        if s == n_shards - 1:
-            tensors += [("model.norm.weight", params["final_norm_w"]),
-                        ("lm_head.weight", params["lm_head"].t())]
-        shards.append(tensors)
-    weight_map = {}
-    for s, tensors in enumerate(shards):
-        fname = f"model-{s + 1:05d}-of-{n_shards:05d}.safetensors"
+    torch_dtype = SAFETENSORS_DTYPES[dtype]
+    size = torch.empty((), dtype=torch_dtype).element_size()
+    total = sum(t.numel() for t in tensors.values())
+    shards, before = [[] for _ in range(n_shards)], 0
+    for name, t in tensors.items():
+        shards[min(n_shards - 1, before * n_shards // total)].append(name)
+        before += t.numel()
+    weight_map, written = {}, 0
+    for s, names in enumerate(shards):
+        fname = ("model.safetensors" if n_shards == 1 else
+                 f"model-{s + 1:05d}-of-{n_shards:05d}.safetensors")
         header, offset = {"__metadata__": {"format": "pt"}}, 0
-        for name, t in tensors:
-            n = t.numel() * 2
-            header[name] = {"dtype": "BF16", "shape": list(t.shape),
+        for name in names:
+            n = tensors[name].numel() * size
+            header[name] = {"dtype": dtype, "shape": list(tensors[name].shape),
                             "data_offsets": [offset, offset + n]}
             offset += n
             weight_map[name] = fname
@@ -3130,11 +3145,38 @@ def write_llama_checkpoint(path, cfg, params, n_shards=2):
         with open(os.path.join(path, fname), "wb") as f:
             f.write(len(head).to_bytes(8, "little"))
             f.write(head)
-            for _, t in tensors:
-                f.write(t.to(torch.bfloat16).contiguous().cpu().view(
-                    torch.int16).numpy().tobytes())
-    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
-        json.dump({"metadata": {}, "weight_map": weight_map}, f)
+            for name in names:
+                f.write(tensors[name].to(torch_dtype).contiguous().cpu().view(
+                    torch.uint8).numpy().tobytes())
+        written += 8 + len(head) + offset
+    if n_shards > 1:
+        with open(os.path.join(path, "model.safetensors.index.json"),
+                  "w") as f:
+            json.dump({"metadata": {}, "weight_map": weight_map}, f)
+    return written
+
+
+def write_llama_checkpoint(path, cfg, params, n_shards=2):
+    """The dense bf16 params of ``cfg`` as an HF llama checkpoint: its
+    config.json and ``n_shards`` BF16 safetensors files with an index
+    (``write_safetensors``: the embedding first, the layers in order, the
+    norm and head last, so the layers split evenly)."""
+    L = cfg.num_layers
+    lay = params["layers"]
+    names = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+             "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+             "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+             "w_down": "mlp.down_proj"}
+    tensors = {"model.embed_tokens.weight": params["embed"]}
+    for i in range(L):
+        p = f"model.layers.{i}."
+        tensors[p + "input_layernorm.weight"] = lay["attn_norm_w"][i]
+        tensors[p + "post_attention_layernorm.weight"] = lay["mlp_norm_w"][i]
+        tensors.update({p + hf + ".weight": lay[k][i].t()
+                        for k, hf in names.items()})
+    tensors["model.norm.weight"] = params["final_norm_w"]
+    tensors["lm_head.weight"] = params["lm_head"].t()
+    write_safetensors(path, tensors, "BF16", n_shards)
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump({"model_type": "llama",
                    "architectures": ["LlamaForCausalLM"],
@@ -3174,7 +3216,7 @@ def same_bits(what, got, ref):
             same_bits(f"{what}.{f.name}", getattr(got, f.name),
                       getattr(ref, f.name))
     elif got.dtype != ref.dtype or got.shape != ref.shape or \
-            not torch.equal(got.cpu(), ref.cpu()):
+            not torch.equal(got, ref.to(got.device)):
         fail(f"{what}: not bit-identical")
 
 
@@ -4018,6 +4060,496 @@ def phase_harness(device, card, root, target):
     return summary, by_path, big_records
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the encoder-decoder at full width
+# ---------------------------------------------------------------------------
+
+# google/flan-t5-large and google/flan-t5-small, their config.json on the
+# Hugging Face hub: the fields that differ, then the shared ones
+FLAN_T5 = {
+    "large": dict(d_model=1024, d_kv=64, num_heads=16, d_ff=2816,
+                  num_layers=24, num_decoder_layers=24),
+    "small": dict(d_model=512, d_kv=64, num_heads=6, d_ff=1024,
+                  num_layers=8, num_decoder_layers=8),
+}
+FLAN_T5_SHARED = dict(
+    model_type="t5", architectures=["T5ForConditionalGeneration"],
+    vocab_size=32128, feed_forward_proj="gated-gelu", is_gated_act=True,
+    dense_act_fn="gelu_new", tie_word_embeddings=False,
+    relative_attention_num_buckets=32, relative_attention_max_distance=128,
+    layer_norm_epsilon=1e-6, n_positions=512, decoder_start_token_id=0,
+    eos_token_id=1, pad_token_id=0)
+# how each is written: the large one in BF16 as two shards with an index,
+# the small one in F32 as one file
+CODEC_FILES = {"large": ("BF16", 2), "small": ("F32", 1)}
+CODEC_SEED = 11
+CODEC_PROMPT = 60
+CODEC_GEN = 64
+CODEC_GAMMA = 5
+# the card's bf16 decode_step logits against its f32 on the same weights,
+# relative Frobenius error: bf16 rounds every activation (2^-9 relative)
+# through 48 layers, a few percent at most; a wiring fault gives order 1
+CODEC_BF16_FRO = 0.1
+# the card's f32 against the CPU's f32 at 2 + 2 layers (TF32 off): the
+# sums' order only
+CODEC_CPU_FRO = 1e-4
+
+
+def t5_init_scales(cfg):
+    """The standard deviation of each weight at HF T5's initialization
+    (``T5PreTrainedModel._init_weights``, factor 1): the embedding and the
+    untied lm_head 1; q 1/sqrt(d_model d_kv), which stands in for the
+    attention's missing 1/sqrt(d_kv); k, v, wi_0, wi_1 and the relative
+    bias 1/sqrt(d_model); o 1/sqrt(heads d_kv); the FFN's wo 1/sqrt(d_ff).
+    The logits (the final-normed state times the head) then have a
+    standard deviation near sqrt(d_model): peaked. Random weights at a
+    uniform small scale instead make a 48-layer stack chaotic: bf16 and f32
+    logits part by order 1 (0.70 relative Frobenius on the card at N(0,
+    0.02^2), 0.33 at 8 + 8 layers on the CPU), hiding any real fault."""
+    D, dkv, H = cfg.d_model, cfg.d_kv, cfg.num_heads
+    attn = {"wq": (D * dkv) ** -0.5, "wk": D ** -0.5, "wv": D ** -0.5,
+            "wo": (H * dkv) ** -0.5}
+    layer = dict(attn, **{f"cross_{k}": v for k, v in attn.items()},
+                 wi_0=D ** -0.5, wi_1=D ** -0.5, wo_ffn=cfg.d_ff ** -0.5)
+    return {"embed": 1.0, "lm_head": 1.0, "enc_rel_bias": D ** -0.5,
+            "dec_rel_bias": D ** -0.5, "enc_layers": layer,
+            "dec_layers": layer}
+
+
+def t5_tensors(cfg, params):
+    """The codec params of a gated-FFN model with an untied head as HF T5
+    state-dict names (the inverse of ``codec_params_from_hf``): [in, out]
+    stacks back to [out, in] per layer, the relative bias in block 0
+    only."""
+    out = {"shared.weight": params["embed"]}
+    for side, L, blocks in (
+            ("encoder", cfg.num_encoder_layers,
+             (("0.SelfAttention", ("q", "k", "v", "o"), ""),
+              ("1.DenseReluDense", ("wi_0", "wi_1", "wo"), "ffn"))),
+            ("decoder", cfg.num_decoder_layers,
+             (("0.SelfAttention", ("q", "k", "v", "o"), ""),
+              ("1.EncDecAttention", ("q", "k", "v", "o"), "cross"),
+              ("2.DenseReluDense", ("wi_0", "wi_1", "wo"), "ffn")))):
+        lay = params[f"{side[:3]}_layers"]
+        norms = (("attn_norm_w", "0"), ("ffn_norm_w", str(len(blocks) - 1)))
+        if side == "decoder":
+            norms += (("cross_norm_w", "1"),)
+        for i in range(L):
+            p = f"{side}.block.{i}.layer."
+            for key, j in norms:
+                out[f"{p}{j}.layer_norm.weight"] = lay[key][i]
+            for module, names, kind in blocks:
+                for n in names:
+                    key = {"": f"w{n}", "cross": f"cross_w{n}",
+                           "ffn": "wo_ffn" if n == "wo" else n}[kind]
+                    out[f"{p}{module}.{n}.weight"] = lay[key][i].t()
+        out[f"{side}.block.0.layer.0.SelfAttention.relative_attention_bias"
+            ".weight"] = params[f"{side[:3]}_rel_bias"]
+        out[f"{side}.final_layer_norm.weight"] = \
+            params[f"{side[:3]}_final_norm_w"]
+    out["lm_head.weight"] = params["lm_head"].t()
+    return out
+
+
+def map_tree(fn, tree):
+    """``fn`` on every tensor of a nested dict of params."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def codec_inputs(prompt, device):
+    """The padded [1, P] prompt and its mask, as the codec loops build
+    them."""
+    from specdec_tpu_torch.sampling.utils import pad_to_bucket
+
+    ids, n = pad_to_bucket(prompt, 0)
+    mask = (torch.arange(ids.shape[0]) < n).to(torch.int32)[None, :]
+    return ids[None, :].to(device), mask.to(device)
+
+
+def codec_logits(cfg, params, prompt, dec, device):
+    """decode_step's logits over the decoder block ``dec`` from an empty
+    cache, the encoder over ``prompt``."""
+    from specdec_tpu_torch.core import codec_model as cm
+
+    ids, mask = codec_inputs(prompt, device)
+    ck, cv = cm.init_cross_kv(cfg, params, cm.encode(cfg, params, ids, mask))
+    cache = cm.codec_cache(cfg, 1, len(dec) + 8, device)
+    logits, _ = cm.decode_step(cfg, params,
+                               torch.tensor([dec], device=device), cache, ck,
+                               cv, mask)
+    return logits[0]
+
+
+def codec_greedy_tie(what, cfg, params, prompt, ar, got, device):
+    """``greedy_tie`` for the codec: where ``got`` parts from greedy AR's
+    decoder ids ``ar``, the target's top two logits over ar's prefix
+    (decode_step teacher-forced as one block) must be tied within two bf16
+    ulps. Returns the position."""
+    i = next(j for j, (a, b) in enumerate(zip(ar, got)) if a != b)
+    top2 = codec_logits(cfg, params, prompt, ar[:i], device)[-1].topk(
+        2).values.tolist()
+    gap = top2[0] - top2[1]
+    ulp = 2.0 ** (math.floor(math.log2(abs(top2[0]))) - 7)
+    if gap > 2 * ulp:
+        fail(f"{what}: diverges from greedy AR at decoder position {i} where "
+             f"the target's top-2 logit gap {gap:.3g} exceeds two bf16 ulps "
+             f"({2 * ulp:.3g})")
+    return i
+
+
+def codec_models(device, workdir):
+    """Phase 11's checkpoints: each Flan-T5 shape made on the card from a
+    seed, written as an HF T5 checkpoint (CODEC_FILES), read back by
+    ``load_codec_checkpoint`` in bf16 and in f32, each bit-equal to the
+    weights as written. Returns ({name: (bf16 cfg, params, f32 cfg,
+    params)}, {name: load record})."""
+    from specdec_tpu_torch.core import codec_model as cm
+
+    models, loads = {}, {}
+    for i, name in enumerate(("large", "small")):
+        hf = dict(FLAN_T5_SHARED, **FLAN_T5[name])
+        cfg = cm.codec_config_from_hf(hf)
+        made = cm.init_codec_params(cfg, seed=CODEC_SEED + i, scale=1.0,
+                                    device=device)
+        for key, std in t5_init_scales(cfg).items():
+            if isinstance(std, dict):
+                for weight, w in made[key].items():
+                    w.mul_(std.get(weight, 1.0))   # norms stay 1
+            else:
+                made[key].mul_(std)
+        dtype, shards = CODEC_FILES[name]
+        path = os.path.join(workdir, f"flan-t5-{name}")
+        t0 = time.perf_counter()
+        disk = write_safetensors(path, t5_tensors(cfg, made), dtype, shards)
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump(dict(hf, torch_dtype={"BF16": "bfloat16",
+                                            "F32": "float32"}[dtype]), f)
+        t_write = time.perf_counter() - t0
+        written = map_tree(lambda t: t.to(SAFETENSORS_DTYPES[dtype]), made)
+        del made
+        got = {}
+        for want in (torch.bfloat16, torch.float32):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            lcfg, params = cm.load_codec_checkpoint(path, want, device)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - before
+            if lcfg != cfg.replace(dtype=want):
+                fail(f"11 codec: {name} config {lcfg} against {cfg}")
+            same_bits(f"11 codec {name} {want} load", params,
+                      map_tree(lambda t: t.to(want), written))
+            loaded = tree_bytes(params)
+            largest = max(t.numel() for t in t5_tensors(lcfg, params).values())
+            bound = loaded + 2 * largest * 4
+            if peak > bound:
+                fail(f"11 codec: loading {name} at {want} peaked at "
+                     f"{peak / 2**20:.0f} MiB, over the loaded params plus "
+                     f"two f32 copies of the largest tensor "
+                     f"({bound / 2**20:.0f} MiB)")
+            got[want] = (lcfg, params)
+            loads[f"{name}_{str(want).split('.')[-1]}"] = {
+                "file_dtype": dtype, "shards": shards, "disk_bytes": disk,
+                "write_s": t_write, "load_s": seconds, "peak_bytes": peak,
+                "loaded_bytes": loaded, "bound_bytes": bound}
+            say(f"[11 codec] Flan-T5-{name}: {disk / 1e9:.2f} GB of {dtype} "
+                f"({shards} file{'s' if shards > 1 else ''}) written in "
+                f"{t_write:.1f} s; load_codec_checkpoint at "
+                f"{str(want).split('.')[-1]} in {seconds:.2f} s, peak "
+                f"{peak / 2**20:.0f} MiB (params {loaded / 2**20:.0f} MiB, "
+                f"bound {bound / 2**20:.0f} MiB), bit-equal to the weights "
+                "as written")
+        del written
+        models[name] = got[torch.bfloat16] + got[torch.float32]
+    return models, loads
+
+
+def codec_spec_timed(prompt, d, t, processor, device, seed=0):
+    """One speculative call, timed, with its window count (the loop's own
+    debug line). Returns (tokens, rate, seconds, windows)."""
+    import io
+
+    from specdec_tpu_torch.sampling.codec_decoding import (
+        speculative_generate_encoder_decoder,
+    )
+
+    log = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        out, rate = speculative_generate_encoder_decoder(
+            prompt, d[0], d[1], t[0], t[1], gamma=CODEC_GAMMA,
+            logits_processor=processor, max_gen_len=CODEC_GEN,
+            eos_tokens_id=(), seed=seed, debug=True, device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    windows = int(re.search(r"windows=(\d+)", log.getvalue()).group(1))
+    return out, rate, seconds, windows
+
+
+def phase_codec(device, card, root):
+    """Phase 11: Flan-T5-large (target) and Flan-T5-small (drafter) at full
+    width through checkpoints, precision checks and the codec oracles.
+    Returns its summary."""
+    import shutil
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from specdec_tpu_torch.core import codec_model as cm
+    from specdec_tpu_torch.sampling.codec_decoding import (
+        autoregressive_generate_encoder_decoder,
+    )
+    from specdec_tpu_torch.sampling.processors import (
+        GreedyProcessor, MultinomialProcessor,
+    )
+
+    workdir = os.path.join(root, "build", "smoke_codec")
+    shutil.rmtree(workdir, ignore_errors=True)
+    try:
+        models, loads = codec_models(device, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    t_cfg, t16, t_cfg32, t32 = models["large"]
+    d_cfg, d16 = models["small"][:2]
+    target, drafter = (t_cfg, t16), (d_cfg, d16)
+    del models
+    reset_launches()
+
+    # --- precision: buckets, bf16 against f32, the card against the CPU --
+    rel = torch.arange(-1024, 1025)
+    for bidirectional in (True, False):
+        for nb, md in ((32, 128), (8, 32)):
+            on_card = cm.rel_position_bucket(rel.to(device), bidirectional,
+                                              nb, md).cpu()
+            if not torch.equal(on_card,
+                               cm.rel_position_bucket(rel, bidirectional,
+                                                      nb, md)):
+                fail(f"11 codec: rel_position_bucket({nb}, {md}, "
+                     f"bidirectional={bidirectional}) on the card differs "
+                     "from the CPU's over rel in [-1024, 1024]")
+    rng = np.random.default_rng(0)
+    prompt = [int(t) for t in rng.integers(2, t_cfg.vocab_size,
+                                           CODEC_PROMPT)]
+    dec = [0] + [int(t) for t in rng.integers(2, t_cfg.vocab_size, 15)]
+    bf16_err = kernel_vs_plain(
+        codec_logits(t_cfg, t16, prompt, dec, device),
+        codec_logits(t_cfg32, t32, prompt, dec, device))[1]
+    if not bf16_err <= CODEC_BF16_FRO:
+        fail(f"11 codec: bf16 decode_step logits at relative Frobenius "
+             f"{bf16_err:.3g} from f32 (limit {CODEC_BF16_FRO})")
+    short = t_cfg32.replace(num_encoder_layers=2, num_decoder_layers=2)
+    cut = dict(t32, **{k: map_tree(lambda w: w[:2], t32[k])
+                       for k in ("enc_layers", "dec_layers")})
+    cpu_err = kernel_vs_plain(
+        codec_logits(short, cut, prompt, dec, device).cpu(),
+        codec_logits(short, map_tree(torch.Tensor.cpu, cut), prompt, dec,
+                     "cpu"))[1]
+    del t32, cut
+    torch.cuda.empty_cache()
+    if not cpu_err <= CODEC_CPU_FRO:
+        fail(f"11 codec: f32 logits at 2 + 2 layers, the card against the "
+             f"CPU, at relative Frobenius {cpu_err:.3g} (limit "
+             f"{CODEC_CPU_FRO})")
+    say(f"[11 codec] rel_position_bucket on the card == the CPU's over rel "
+        f"in [-1024, 1024] (both directions, (32, 128) and (8, 32)); "
+        f"decode_step logits bf16 vs f32 at full width: relative Frobenius "
+        f"{bf16_err:.3g} (limit {CODEC_BF16_FRO}); f32 at 2 + 2 layers, card "
+        f"vs CPU: {cpu_err:.3g} (limit {CODEC_CPU_FRO})")
+
+    # --- the encoder alone, then the oracles ------------------------------
+    ids, mask = codec_inputs(prompt, device)
+
+    def encoder():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cm.init_cross_kv(t_cfg, t16, cm.encode(t_cfg, t16, ids, mask))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    encoder_ms = statistics.median(encoder() for _ in range(6))
+
+    def ar(gen):
+        return autoregressive_generate_encoder_decoder(
+            prompt, t_cfg, t16, max_gen_len=gen, eos_tokens_id=(),
+            device=device)
+
+    ar(4)   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = ar(CODEC_GEN)
+    torch.cuda.synchronize()
+    ar_s = time.perf_counter() - t0
+    if len(ref) != CODEC_GEN + 1 or ref[0] != t_cfg.decoder_start_token_id \
+            or not all(0 <= t < t_cfg.vocab_size for t in ref):
+        fail(f"11 codec: greedy AR gave {len(ref)} ids starting {ref[:4]}")
+
+    # the card's busy share of an AR token: device time of a 41-token call
+    # less a 9-token one (the encoder and the cache set-up cancel)
+    busy = {}
+    for gen in (9, 41):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ar(gen)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy[gen] = (sum(device_times(prof).values()) / 1e3, wall * 1e3)
+    device_ms = (busy[41][0] - busy[9][0]) / 32
+    wall_ms = (busy[41][1] - busy[9][1]) / 32
+
+    greedy = GreedyProcessor(temperature=GREEDY_T)
+    runs = {}
+    for label, d in (("self_draft", target), ("flan_t5_small", drafter)):
+        codec_spec_timed(prompt, d, target, greedy, device)   # warm
+        out, rate, seconds, windows = codec_spec_timed(prompt, d, target,
+                                                       greedy, device)
+        parted = None
+        if out != ref:
+            parted = codec_greedy_tie(f"11 codec {label}", t_cfg, t16,
+                                      prompt, ref, out, device)
+        if label == "self_draft" and parted is None and rate != 1.0:
+            fail(f"11 codec: self-draft acceptance {rate} without a tie")
+        runs[label] = {"acceptance": rate, "seconds": seconds,
+                       "windows": windows,
+                       "ms_per_window": seconds * 1e3 / windows,
+                       "tok_per_s": (len(out) - 1) / seconds,
+                       "parted_at_tie": parted}
+    sampled = [codec_spec_timed(prompt, drafter, target,
+                                MultinomialProcessor(temperature=1.0),
+                                device, seed=7) for _ in range(2)]
+    out = sampled[0][0]
+    if sampled[1][0] != out or not 2 <= len(out) <= CODEC_GEN + 1 or \
+            not all(0 <= t < t_cfg.vocab_size for t in out):
+        fail(f"11 codec: seeded multinomial runs gave {len(out)} and "
+             f"{len(sampled[1][0])} ids (equal: {sampled[1][0] == out})")
+    runs["sampled"] = {"acceptance": sampled[0][1], "seconds": sampled[0][2],
+                       "windows": sampled[0][3],
+                       "tok_per_s": (len(out) - 1) / sampled[0][2]}
+    counts = launches()
+    if any(counts.values()):
+        fail(f"11 codec: port kernels launched on the codec path: {counts}")
+
+    summary = {
+        **{role: f"Flan-T5-{name} shape ({c.num_encoder_layers} + "
+           f"{c.num_decoder_layers} layers, d_model {c.d_model})"
+           for role, name, c in (("target", "large", t_cfg),
+                                 ("drafter", "small", d_cfg))},
+        "dtype": "bfloat16", "prompt_tokens": CODEC_PROMPT,
+        "gen_tokens": CODEC_GEN, "gamma": CODEC_GAMMA, "loads": loads,
+        "bf16_vs_f32_rel_fro": bf16_err, "card_vs_cpu_rel_fro": cpu_err,
+        "encoder_ms": encoder_ms, "ar_ms_per_token": ar_s * 1e3 / CODEC_GEN,
+        "ar_device_ms_per_token": device_ms, "ar_wall_ms_per_token": wall_ms,
+        "ar_busy_share": device_ms / wall_ms, "spec": runs,
+        "launches": counts, "card": card}
+    say(f"[11 codec] encoder ({t_cfg.num_encoder_layers} layers, "
+        f"{ids.shape[1]} positions) {encoder_ms:.3f} ms; "
+        f"greedy AR {summary['ar_ms_per_token']:.2f} ms a token (device "
+        f"{device_ms:.3f} of {wall_ms:.2f} ms, busy "
+        f"{device_ms / wall_ms:.1%}); " + "; ".join(
+            f"{k} gamma {CODEC_GAMMA}: {r['ms_per_window']:.2f} ms a window, "
+            f"{r['tok_per_s']:.1f} tok/s, acceptance {r['acceptance']:.3f}"
+            + (f" (parted from AR at a tie, position {r['parted_at_tie']})"
+               if r["parted_at_tie"] is not None else ", == greedy AR")
+            for k, r in runs.items() if k != "sampled")
+        + f"; sampled: {runs['sampled']['tok_per_s']:.1f} tok/s, acceptance "
+        f"{runs['sampled']['acceptance']:.3f}, the same ids twice; port "
+        f"kernel launches {sum(counts.values())}; {card}")
+    del target, drafter, t16, d16
+    torch.cuda.empty_cache()
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the REPL
+# ---------------------------------------------------------------------------
+
+REPL_PROMPT = "Tell me how speculative decoding keeps the target's output"
+REPL_INPUT = ["/gamma 4", "/length 32", "/ngram", "/drafter", REPL_PROMPT,
+              "/set_ngramstorage onelevel 2", "/random", "auto 2", "/quit"]
+REPL_TAGS = ("[speculative]", "[ngram-assist]", "[target AR]",
+             "[drafter AR]")
+
+
+def phase_repl(device, card, root):
+    """Phase 12: ``python -m specdec_tpu_torch.cli.repl`` with its default
+    models in a subprocess over REPL_INPUT (phase 9's ShareGPT JSONL as
+    sharegpt_gpt4.jsonl), then ``InferenceCLI._infer`` in process, greedy
+    at GREEDY_T: speculative and NASD tokens equal target AR's up to a
+    top-two bf16 tie. Returns its summary."""
+    import shutil
+
+    from specdec_tpu_torch.cli.repl import InferenceCLI
+    from specdec_tpu_torch.engine.infer_engine import tokenize_batch
+
+    workdir = os.path.join(root, "build", "smoke_repl")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("TARGET_MODEL", "DRAFTER_MODEL", "GENERATION_LENGTH",
+                        "GAMMA_VALUE")}
+    env.update(SHAREGPT_DIR=workdir, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    try:
+        write_sharegpt(os.path.join(workdir, "sharegpt_gpt4.jsonl"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "specdec_tpu_torch.cli.repl"],
+            input="\n".join(REPL_INPUT) + "\n", cwd=root, env=env,
+            capture_output=True, text=True, timeout=300)
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    lines = proc.stdout.replace("> ", "\n").splitlines()
+    prompts = 4   # the typed one, /random and auto's two
+    tags = {tag: sum(line.startswith(tag) for line in lines)
+            for tag in REPL_TAGS}
+    ratios = {name: sum(f"throughput {name}/target:" in line
+                        for line in lines)
+              for name in ("speculative", "ngram", "drafter")}
+    if proc.returncode or "Goodbye!" not in lines or \
+            set(tags.values()) != {prompts} or \
+            set(ratios.values()) != {prompts}:
+        fail(f"12 REPL: exit {proc.returncode}, tags {tags}, throughput "
+             f"lines {ratios}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    say(f"[12 REPL] python -m specdec_tpu_torch.cli.repl (synthetic:llama-1b"
+        f" over synthetic:llama-70m, dense bf16) ran {len(REPL_INPUT)} "
+        f"inputs in {seconds:.1f} s, exit 0; every tag and throughput ratio "
+        f"for each of {prompts} prompts; " + "; ".join(
+            line.strip() for line in lines if "throughput" in line)[:400])
+
+    cli = InferenceCLI(device=device)
+    for command in ("/gamma 4", "/length 32", "/ngram",
+                    f"/processor greedy {GREEDY_T}"):
+        cli._perform_command(command)
+    results = cli._infer(REPL_PROMPT)
+    ids = tokenize_batch(cli.tokenizer, [REPL_PROMPT], 2048,
+                         chat=cli.chat)[0]
+    ref = results["target"][0]
+    parted = {}
+    for name in ("speculative", "ngram"):
+        got = results[name][0]
+        parted[name] = None
+        if got != ref:
+            parted[name] = greedy_tie(f"12 REPL {name}", cli.target_cfg,
+                                      cli.target_params, ids, ref, got,
+                                      device)[0]
+    say(f"[12 REPL] InferenceCLI._infer at /processor greedy {GREEDY_T}: "
+        "speculative and ngram-assist tokens == target AR's" + "".join(
+            f" ({k} parted at a top-two tie, token {v})"
+            for k, v in parted.items() if v is not None) + f"; {card}")
+    summary = {"subprocess_s": seconds, "prompts": prompts,
+               "in_process": {k: {"tokens": len(v[0]), "seconds": v[1]}
+                              for k, v in results.items()},
+               "parted_at_tie": parted, "card": card}
+    del cli
+    torch.cuda.empty_cache()
+    return summary
+
+
 def with_config(pair, **cfg_kw):
     """The pair with both configs changed (the weights do not depend on the
     KV format or the attention kernel): what ``bench.build_pair(device,
@@ -4183,6 +4715,10 @@ def main():
     summary["training"], launches_train = phase_train(device, card, root)
     summary["training"]["convergence"] = convergence
     stamp("10b and 10d training")
+    summary["codec"] = phase_codec(device, card, root)
+    stamp("11 encoder-decoder")
+    summary["repl"] = phase_repl(device, card, root)
+    stamp("12 REPL")
     summary["trees"]["card"] = summary["eagle"]["card"] = card
     summary["nasd"] = {"bf16 KV": nasd, "int8 KV, flash": nasd_int8,
                        "serving": nasd_serving, "card": card}

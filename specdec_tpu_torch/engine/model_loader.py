@@ -32,9 +32,14 @@ A model spec is one of:
   ``engine/checkpoint.py`` (a spec holding ``/`` or naming a directory),
   its depth read from ``layers.wo``'s leading axis.
 
-T5 checkpoints raise NotImplementedError naming their ``ROADMAP.md`` item
-(the encoder-decoder, §1 item 2). There is no mesh: the port runs on one
-card (``parallel/``, §1 item 6). ``device=None`` means the card.
+A T5 or mT5 checkpoint directory loads as a codec model
+(``core/codec_model.py::load_codec_checkpoint``, the port's own
+safetensors reader) into ``{"cfg", "params", "codec": True}``, dense at
+``dtype``: a codec target or drafter with a quantization, and a
+``layerskip:`` or ``eagle:`` drafter over a codec target, are refused
+before anything is read; ``kv_quant`` does not apply to it. There is no
+mesh: the port runs on one card (``parallel/``, ``ROADMAP.md`` §1 item 6).
+``device=None`` means the card.
 """
 from __future__ import annotations
 
@@ -85,12 +90,6 @@ SYNTHETIC_PRESETS: Dict[str, dict] = {
 }
 
 LAYERSKIP_DAMP = 0.08
-
-
-def _todo(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to specdec_tpu_torch yet (ROADMAP.md §1 "
-        f"item {item})")
 
 
 def _seed(text: str) -> int:
@@ -232,6 +231,45 @@ def _eagle(spec: str, target_path: str, target: Dict[str, Any],
     return {"cfg": e_cfg, "params": e_params, "eagle": True}
 
 
+CODEC_TYPES = ("t5", "mt5")
+
+
+def _is_codec(path: Optional[str]) -> bool:
+    """Whether ``path`` is a checkpoint directory of an encoder-decoder
+    (its ``config.json`` names a T5-family model type)."""
+    config = os.path.join(path or "", "config.json")
+    if not os.path.isfile(config):
+        return False
+    from specdec_tpu_torch.core.stream_loader import read_config
+    return read_config(path).get("model_type", "") in CODEC_TYPES
+
+
+def _refuse_for_codec(target_path, drafter_path, quantization,
+                      drafter_quantization):
+    """Raise ValueError for what a codec model cannot take, before any
+    weight is read: codec models load dense (neither package has a
+    quantized codec forward), and a ``layerskip:`` or ``eagle:`` drafter
+    needs a decoder-only target."""
+    drafter_path = drafter_path or ""
+    derived = drafter_path.startswith(("layerskip:", "eagle:"))
+    if _is_codec(target_path):
+        if quantization != "none":
+            raise ValueError(
+                f"{target_path!r} is an encoder-decoder (T5) checkpoint: "
+                f"codec models load dense, not quantization={quantization!r}")
+        if derived:
+            raise ValueError(
+                f"drafter {drafter_path!r} needs a decoder-only target; "
+                f"{target_path!r} is an encoder-decoder (T5) checkpoint "
+                "(codec models load dense, from their own checkpoints)")
+    if not derived and _is_codec(drafter_path) and \
+            drafter_quantization != "none":
+        raise ValueError(
+            f"{drafter_path!r} is an encoder-decoder (T5) checkpoint: codec "
+            f"models load dense, not drafter_quantization="
+            f"{drafter_quantization!r}")
+
+
 def _load_tokenizer(path: str):
     """A checkpoint directory's tokenizer (``transformers``), with the pad
     token falling back to EOS."""
@@ -275,8 +313,11 @@ def load_models(
     ``device`` (``None``: the card). Returns the JAX loader's bundle:
     ``{"target", "drafter", "tokenizer", "end_tokens", "pad_token_id"}``,
     each model a dict with ``cfg`` and ``params`` (``quantized`` for a
-    quantized one, ``eagle`` for an EAGLE head)."""
+    quantized one, ``eagle`` for an EAGLE head, ``codec`` for a T5-family
+    encoder-decoder)."""
     device = resolve_device(device)
+    _refuse_for_codec(target_model_path, drafter_model_path, quantization,
+                      drafter_quantization)
 
     def load_one(path, quant="none"):
         if path.startswith("synthetic"):
@@ -287,9 +328,14 @@ def load_models(
             STREAMED_TYPES, load_hf_streamed, read_config,
         )
         mt = read_config(path).get("model_type", "")
-        if mt in ("t5", "mt5"):
-            raise _todo(f"{path!r} ({mt}, encoder-decoder)",
-                        "2, encoder-decoder")
+        if mt in CODEC_TYPES:
+            from specdec_tpu_torch.core.codec_model import (
+                load_codec_checkpoint,
+            )
+            cfg, params = load_codec_checkpoint(path, dtype=dtype,
+                                                device=device)
+            return ({"cfg": cfg, "params": params, "codec": True},
+                    _load_tokenizer(path))
         tokenizer = _load_tokenizer(path)
         if mt in STREAMED_TYPES and any(os.path.exists(os.path.join(
                 path, f)) for f in ("model.safetensors",
@@ -312,14 +358,14 @@ def load_models(
     eagle = drafter_spec.startswith("eagle:")
 
     target, tokenizer = load_one(target_model_path, quant=quantization)
-    if kv_quant != "none":
+    if kv_quant != "none" and not target.get("codec"):
         # reaches every decode loop and scheduler through init_cache(cfg)
         target["cfg"] = target["cfg"].replace(kv_quant=kv_quant)
     drafter = None
     if drafter_model_path and not (layerskip or eagle):
         drafter, d_tokenizer = load_one(drafter_model_path,
                                         quant=drafter_quantization)
-        if kv_quant != "none":
+        if kv_quant != "none" and not drafter.get("codec"):
             drafter["cfg"] = drafter["cfg"].replace(kv_quant=kv_quant)
         tokenizer = tokenizer or d_tokenizer
     if tokenizer is None:
