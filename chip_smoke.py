@@ -179,7 +179,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 9c. ``synthetic:llama-8b`` (built by ``init_quantized_params``, INT4) with
    ``layerskip:4``, 4 prompts in one batch of 32 tokens, through the
    runner: its build time and peak memory; K1 at the preset's shapes
-   (M = 1, 4, 20, 256) against its plain version, with times;
+   (M = 1, 4, 20, 256) against its plain version, with times; then the
+   route of 4-bit weights whose K the kernels do not take: a
+   Qwen2-0.5B-width model (hidden 896, 2 layers) in INT4 and NF4, the
+   kernel wrappers refusing K=896 before any launch, wqkv, wo and
+   w_gateup on ``dequant_matmul`` and w_down on K1b / K6b (the counts
+   hold the split), greedy AR equal to the dequantized dense model's up
+   to a top-two bf16 tie;
 9d. the serving facade: ``VLLMEngineManager`` from the VLLM_* variables on
    the INT4 LayerSkip pair (max_model_len 512, 8 slots, gamma 5), the
    paged engine with bf16 KV (K8a) and with ``KV_QUANT=int8`` (K8b),
@@ -244,6 +250,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    each of the 4 prompts; then ``InferenceCLI._infer`` in process at
    ``/processor greedy`` GREEDY_T: speculative and NASD tokens equal target
    AR's up to a top-two bf16 tie.
+13a. tensor and data parallelism at world size 1: an NCCL world of one
+   rank (``parallel.init_distributed``), a tp=1 x dp=1 mesh; the INT4
+   pair of phase 5 through ``shard_params`` (the drafter replicated) in
+   ``batch_speculative_generate`` over PAR_PROMPTS prompts, and
+   ``load_models(mesh=...)`` of the INT4 llama-1b LayerSkip preset in the
+   paged engine over PAR_REQUESTS requests, greedy and sampled: tokens
+   and acceptance bit-equal to the unsharded runs, every all-reduce
+   issued; the single-sequence window's wall with and without the mesh,
+   PAR_WALL_TURNS turns of calls, every call reported, and one
+   all-reduce alone at the verify forward's shapes;
+13b. worlds of 2 and 4 ranks on the one card (``torch.multiprocessing``
+   spawned, gloo over CUDA tensors: NCCL takes one rank a card), at
+   TinyLlama's widths cut to PAR_LAYERS layers, INT4: tp=2, tp=4 and
+   tp=2 x dp=2, with bf16 KV and int8 KV under the flash kernel (K4);
+   greedy batched AR equal to the unsharded run's up to a top-two bf16
+   tie, logits within PAR_LOGIT_FRO (relative Frobenius) of the
+   unsharded forward while each planted fault of PAR_FAULTS (a dropped
+   all-reduce, a rank on the wrong KV heads) reads above it, and per
+   forward 2 all-reduces a layer plus 2, the
+   lm_head on K1a and every projection on K1b but, at tp=4, the w_down
+   shard (K = 1408) on ``dequant_matmul``.
 
 Any failed phase exits 1 (without a CUDA device, or outside a checkout,
 too, before any result is printed). Standard output ends with the card's
@@ -1367,13 +1394,14 @@ def slotted_attention_kernel(cfg):
     return "K4" if cfg.kv_quant == "int8" else "K3"
 
 
-def phase_main(pair, device, label="bf16 KV"):
+def phase_main(pair, device, label="bf16 KV", gen=None):
     """The main path with launch counts: every projection on the stacked
     kernel of the weight format (K1b for INT4, K6b for NF4/FP4, K7b for
     INT8) and the lm_head on its 2D kernel, and, under
     ``attention_impl="flash"``, every attention on K3 (bf16 KV) or K4 (int8
-    KV); no other kernel launches. Returns its summary and the launch
-    counts of this run."""
+    KV); no other kernel launches. ``gen``: tokens a timed call (default
+    ``bench.GEN``). Returns its summary and the launch counts of this
+    run."""
     from specdec_tpu_torch import bench
     from specdec_tpu_torch.sampling.processors import MultinomialProcessor
 
@@ -1390,7 +1418,7 @@ def phase_main(pair, device, label="bf16 KV"):
         per_draft[attn] = d_cfg.num_layers
 
     reset_launches()
-    gen, gamma = bench.GEN, bench.GAMMA
+    gen, gamma = gen or bench.GEN, bench.GAMMA
     ar = bench.measure_ar(t_cfg, target, prompt, gen, proc, device,
                           reps=reps)
     ar_counts = launches()
@@ -1572,7 +1600,8 @@ def serving_busy(batcher, device):
             "port": port_kernels(totals)}
 
 
-def phase_serve(pair, device, label="bf16 KV", engines=("paged", "slotted")):
+def phase_serve(pair, device, label="bf16 KV", engines=("paged", "slotted"),
+                profile=True):
     """The serving main path: the paged engine and (unless ``engines``
     leaves it out) the slotted one, each with the launch counts of its own
     passes. The paged engine's target attends through K8a (bf16 KV) or K8b
@@ -1581,7 +1610,8 @@ def phase_serve(pair, device, label="bf16 KV", engines=("paged", "slotted")):
     steps, the dense admissions, all of the slotted engine's forwards)
     attends through K3 or K4. Every forward runs its projections on the
     weight format's stacked kernel and its lm_head on the 2D one. Returns
-    (summary, launches summed over the engines)."""
+    (summary, launches summed over the engines). ``profile=False`` skips
+    the profiled pass."""
     from specdec_tpu_torch import bench
     from specdec_tpu_torch.core import model as tmodel
 
@@ -1709,7 +1739,7 @@ def phase_serve(pair, device, label="bf16 KV", engines=("paged", "slotted")):
     # a profiled pass of the paged engine (the default) only, to keep the
     # run's time near 8 minutes
     summary["profile"] = {}
-    for r in runs[:1]:
+    for r in runs[:1 if profile else 0]:
         t0 = time.perf_counter()
         busy = serving_busy(r["batcher"], device)
         say(f"[time] {label}, {r['engine']}: profiled pass in "
@@ -4046,6 +4076,8 @@ def phase_harness(device, card, root, target):
             f"{time.perf_counter() - t0:.1f} s")
         big, big_launches, big_records = phase_8b(device, card, workdir)
         say(f"[time] 9c 8B preset done at {time.perf_counter() - t0:.1f} s")
+        route_launches = phase_route(device, card)
+        say(f"[time] 9c route done at {time.perf_counter() - t0:.1f} s")
         vllm, vllm_launches = phase_vllm(device, card)
         say(f"[time] 9d serving facade done at "
             f"{time.perf_counter() - t0:.1f} s")
@@ -4056,7 +4088,8 @@ def phase_harness(device, card, root, target):
     by_path = {**{f"harness_{k}": v for k, v in cli_launches.items()},
                "stream_greedy": stream_launches, "llama_8b": big_launches,
                "vllm_serving": vllm_launches["none"],
-               "vllm_serving_kvint8": vllm_launches["int8"]}
+               "vllm_serving_kvint8": vllm_launches["int8"],
+               **{f"loader_route_{k}": v for k, v in route_launches.items()}}
     return summary, by_path, big_records
 
 
@@ -4550,6 +4583,517 @@ def phase_repl(device, card, root):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 13: tensor and data parallelism
+# ---------------------------------------------------------------------------
+
+# 13a: the pair of phase 5 at world size 1 (NCCL): 4 prompts batched and 8
+# serving requests, PAR_GEN tokens each
+PAR_PROMPTS, PAR_REQUESTS, PAR_GEN = 4, 8, 64
+# turns of (plain, mesh, mesh, plain) single-sequence calls of 13a's walls
+PAR_WALL_TURNS = 3
+# 13b: TinyLlama's widths (the pair's target) cut to PAR_LAYERS layers, INT4,
+# over gloo with CUDA tensors, every rank on the one card; greedy batched AR
+# over PAR_PROMPTS prompts of PAR_PROMPT_LEN tokens, PAR_B_GEN tokens each
+PAR_LAYERS, PAR_PROMPT_LEN, PAR_B_GEN = 4, 48, 32
+# (world size, [(tp, dp), ...]) of each spawn
+PAR_WORLDS = ((2, ((2, 1),)), (4, ((4, 1), (2, 2))))
+PAR_KV = {"bf16 KV": {}, "int8 KV, flash": KVINT8_FLASH}
+# the sharded bf16 logits against the unsharded ones, relative Frobenius:
+# each rank rounds its row-parallel partial sums to bf16 where the unsharded
+# product rounds the whole sum (2^-9 relative a rounding, over 4 layers).
+# The faults of PAR_FAULTS, planted in every layout, must read above it
+PAR_LOGIT_FRO = 0.05
+PAR_FAULTS = ("w_down all-reduce dropped in layer 0",
+              "KV heads of rank 0 on the last model rank")
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def par_prompts(n, length, seed):
+    from specdec_tpu_torch import bench
+
+    rng = np.random.default_rng(seed)
+    return [[int(t) for t in rng.integers(1, bench.V, size=length)]
+            for _ in range(n)]
+
+
+def par_counts():
+    """The launch counts of the paths phase 13 runs, with the dequant
+    route's calls and the all-reduces over 'model' groups."""
+    from specdec_tpu_torch.ops import quant_matmul as qm
+    from specdec_tpu_torch.parallel.mesh import model_all_reduce
+
+    return dict(launches(), route=qm.dequant_matmul.calls,
+                all_reduce=model_all_reduce.calls)
+
+
+def par_reset():
+    from specdec_tpu_torch.ops import quant_matmul as qm
+    from specdec_tpu_torch.parallel.mesh import model_all_reduce
+
+    reset_launches()
+    qm.dequant_matmul.calls = 0
+    model_all_reduce.calls = 0
+
+
+def par_serve(models, prompts, proc, device):
+    """``prompts`` through the paged engine on ``models`` (d_cfg, drafter,
+    t_cfg, target), one slot each: (outputs, acceptances) in submission
+    order."""
+    from specdec_tpu_torch.serve import PagedContinuousBatcher
+
+    b = PagedContinuousBatcher(*models, num_slots=len(prompts), gamma=8,
+                               max_prompt_len=256, max_new_tokens=PAR_GEN,
+                               logits_processor=proc, eos_tokens_id=(),
+                               device=device)
+    ids = [b.submit(p) for p in prompts]
+    done = b.run()
+    return ([done[i].output_ids for i in ids],
+            [done[i].metrics.acceptance_rate for i in ids])
+
+
+def all_reduce_us(mesh, shape, dtype, device, reps=200):
+    """One ``mesh.all_reduce`` of a ``shape`` tensor of ``dtype`` (the f32
+    casts included): {"wall": host µs a call over ``reps`` calls ended by
+    a synchronize, "device": µs a call between CUDA events}."""
+    x = torch.randn(shape, device=device).to(dtype)
+    for _ in range(10):
+        mesh.all_reduce(x)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        mesh.all_reduce(x)
+    end.record()
+    torch.cuda.synchronize()
+    return {"wall": (time.perf_counter() - t0) / reps * 1e6,
+            "device": start.elapsed_time(end) / reps * 1e3}
+
+
+def bundle_models(bundle):
+    return (bundle["drafter"]["cfg"], bundle["drafter"]["params"],
+            bundle["target"]["cfg"], bundle["target"]["params"])
+
+
+def phase_parallel_nccl(pair, device, card):
+    """Phase 13a: a world of one rank over NCCL, a tp=1 x dp=1 mesh. The
+    phase-5 pair through ``shard_params`` (replicated drafter) runs
+    batch_speculative_generate over PAR_PROMPTS prompts, and
+    ``load_models(mesh=...)`` of the INT4 llama-1b LayerSkip preset serves
+    PAR_REQUESTS requests on the paged engine: greedy and sampled, tokens
+    and acceptance bit-equal to the unsharded runs, with every all-reduce
+    issued (one rank). Then the single-sequence window's wall with and
+    without the mesh, in turns (the gap of the medians is what the
+    collectives cost at world size 1), and one all-reduce timed alone.
+    Returns (summary, launch counts of the sharded runs)."""
+    import torch.distributed as dist
+
+    from specdec_tpu_torch import bench
+    from specdec_tpu_torch.engine.batch_engine import (
+        batch_speculative_generate,
+    )
+    from specdec_tpu_torch.engine.model_loader import load_models
+    from specdec_tpu_torch.parallel import (
+        build_mesh, init_distributed, local_config, shard_params,
+    )
+    from specdec_tpu_torch.sampling.processors import (
+        GreedyProcessor, MultinomialProcessor,
+    )
+
+    if not init_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                            device=device):
+        fail("13a: init_distributed did not join a world of one rank")
+    if dist.get_backend() != "nccl":
+        fail(f"13a: backend {dist.get_backend()}, not nccl")
+    try:
+        mesh = build_mesh(tp=1, dp=1)
+        t_cfg, d_cfg, target, drafter = pair
+        plain = (d_cfg, drafter, t_cfg, target)
+        sharded = (d_cfg, shard_params(drafter, d_cfg, mesh, replicated=True),
+                   local_config(t_cfg, mesh), shard_params(target, t_cfg,
+                                                           mesh))
+        procs = {"greedy": GreedyProcessor(),
+                 "sampled": MultinomialProcessor(1.0)}
+        prompts = par_prompts(PAR_PROMPTS, bench.PROMPT_LEN, seed=13)
+        out, counts = {}, {}
+
+        def both(name, run, plain_models, mesh_models):
+            """run(models) unsharded, then sharded (counted): equal."""
+            plain = run(plain_models)
+            par_reset()
+            got = run(mesh_models)
+            counts[name] = par_counts()
+            if got != plain:
+                fail(f"13a {name}: the tp=1 x dp=1 mesh's tokens or "
+                     "acceptance differ from the unsharded run's")
+            if counts[name]["all_reduce"] == 0:
+                fail(f"13a {name}: no all-reduce was issued")
+            return got[1]
+
+        for kind, proc in procs.items():
+            out[f"batch_{kind}_acceptance"] = both(
+                f"batch {kind}", lambda m, p=proc: batch_speculative_generate(
+                    prompts, *m, gamma=bench.GAMMA, gen_len=PAR_GEN,
+                    logits_processor=p, eos_tokens_id=(), seed=5,
+                    device=device), plain, sharded)
+        plain_b = load_models("synthetic:llama-1b-ls4", "layerskip:4",
+                              quantization="int4", device=device)
+        mesh_b = load_models("synthetic:llama-1b-ls4", "layerskip:4",
+                             quantization="int4", device=device, mesh=mesh)
+        if mesh_b["target"]["params"].get("mesh") is not mesh:
+            fail("13a: load_models(mesh=...) returned params without the "
+                 "mesh")
+        requests = bench.serving_prompts()[:PAR_REQUESTS]
+        for kind, proc in procs.items():
+            out[f"serving_{kind}_acceptance"] = both(
+                f"serving {kind}", lambda m, p=proc: par_serve(
+                    m, requests, p, device), bundle_models(plain_b),
+                bundle_models(mesh_b))
+        del plain_b, mesh_b
+
+        # the wall of a window, single sequence, in turns: (plain, mesh,
+        # mesh, plain) x PAR_WALL_TURNS; every call is reported
+        prompt, proc = bench.bench_prompt(), procs["sampled"]
+        walls = {"plain": [], "mesh": []}
+        for which in ("plain", "mesh", "mesh", "plain") * PAR_WALL_TURNS:
+            models = plain if which == "plain" else sharded
+            r = bench.measure_spec(*models, prompt, bench.GEN // 4,
+                                   bench.GAMMA, proc, device, reps=1)["runs"][1]
+            walls[which].append(r["seconds"] / r["windows"] * 1e3)
+        out["window_ms_runs"] = walls
+        out["window_ms_median"] = {k: float(np.median(v))
+                                   for k, v in walls.items()}
+        out["collectives_ms_per_window"] = (out["window_ms_median"]["mesh"]
+                                            - out["window_ms_median"]["plain"])
+        # one all-reduce alone, at the verify forward's shapes, in turns:
+        # the residual's [1, gamma + 1, D] bf16 partial sums and the head's
+        # [1, gamma + 1, V] f32 logits
+        T = bench.GAMMA + 1
+        shapes = {"activation": ((1, T, t_cfg.hidden_size), torch.bfloat16),
+                  "logits": ((1, T, t_cfg.vocab_size), torch.float32)}
+        out["all_reduce_us"] = {k: [] for k in shapes}
+        for k in ("activation", "logits", "logits", "activation"):
+            out["all_reduce_us"][k].append(all_reduce_us(mesh, *shapes[k],
+                                                         device))
+    finally:
+        dist.destroy_process_group()
+    total = {}
+    for c in counts.values():
+        for k, n in c.items():
+            total[k] = total.get(k, 0) + n
+    for k in ("K1b", "K1a", "K8a"):
+        if total[k] == 0:
+            fail(f"13a: no {k} launch on the sharded paths")
+    out["counts"] = counts
+    out["card"] = card
+    say(f"[13a parallel] NCCL world of 1, tp=1 x dp=1: batched spec over "
+        f"{PAR_PROMPTS} prompts and the paged engine over {PAR_REQUESTS} "
+        f"requests from load_models(mesh=...), greedy and sampled, tokens "
+        f"and acceptance == unsharded; {total['all_reduce']} all-reduces; "
+        f"window ms with the mesh {walls['mesh']}, without {walls['plain']} "
+        f"(medians {out['window_ms_median']['mesh']:.2f} and "
+        f"{out['window_ms_median']['plain']:.2f}); one all-reduce "
+        f"{out['all_reduce_us']} ({card}); launches "
+        f"{ {k: n for k, n in total.items() if n} }")
+    return out, total
+
+
+def par_model(cfg, device):
+    """The INT4 model of phase 13b, the same bits on every rank."""
+    from specdec_tpu_torch.core.model import init_params
+    from specdec_tpu_torch.quant.core import quantize_params
+
+    gen = torch.Generator(device=device).manual_seed(13)
+    return quantize_params(init_params(cfg, scale=0.02, device=device,
+                                       generator=gen), kind="int4", fuse=True)
+
+
+def planted_faults(params, base, mesh, local, tokens, rows):
+    """The sharded forward's logits (data rows gathered) under each fault
+    of PAR_FAULTS, planted at run time on every rank alike (the code is
+    not changed): the first skips the third all-reduce of a forward on
+    ``local`` (the embedding's, layer 0's wo, layer 0's w_down), so each
+    rank keeps its own partial sum; the second builds the last model
+    rank's shard on rank 0's KV heads."""
+    from specdec_tpu_torch.core.model import forward_full
+    from specdec_tpu_torch.parallel import local_config, shard_params
+    from specdec_tpu_torch.parallel import mesh as mesh_mod
+
+    lc = local_config(base, mesh)
+    out = {}
+    reduce, calls = mesh_mod.Mesh.all_reduce, [0]
+
+    def dropping(self, x):
+        calls[0] += 1
+        return x if calls[0] == 3 else reduce(self, x)
+
+    mesh_mod.Mesh.all_reduce = dropping
+    try:
+        out[PAR_FAULTS[0]] = torch.cat(mesh.gather_rows(
+            forward_full(lc, local, tokens[rows]).cpu()))
+    finally:
+        mesh_mod.Mesh.all_reduce = reduce
+    kv_heads = mesh_mod._kv_heads
+
+    def wrong(cfg, tp, r):
+        return kv_heads(cfg, tp, 0 if r == tp - 1 else r)
+
+    mesh_mod._kv_heads = wrong
+    try:
+        local = shard_params(params, base, mesh)
+    finally:
+        mesh_mod._kv_heads = kv_heads
+    out[PAR_FAULTS[1]] = torch.cat(mesh.gather_rows(
+        forward_full(lc, local, tokens[rows]).cpu()))
+    return out
+
+
+def parallel_rank(rank, world, address, root, device, layouts, refs, out):
+    """One rank of phase 13b (spawned): joins a gloo world (named: NCCL
+    takes one rank a card) whose tensors are CUDA tensors on the one card,
+    builds the model, and for each (tp, dp) of ``layouts`` and each KV
+    format shards it, runs batched greedy AR and a forward over the
+    prompts, and reads the forward under each planted fault
+    (``planted_faults``, bf16 KV); rank 0 holds them against ``refs``
+    (the unsharded run's tokens) and its own unsharded forward, and writes
+    ``out``. ``device``: the card every rank runs on."""
+    sys.path.insert(0, root)
+    import torch.distributed as dist
+
+    from specdec_tpu_torch import bench
+    from specdec_tpu_torch.core.model import forward_full
+    from specdec_tpu_torch.engine.batch_engine import (
+        batch_autoregressive_generate,
+    )
+    from specdec_tpu_torch.parallel import (
+        batch_state_pspecs, build_mesh, init_distributed, local_config,
+        shard_params,
+    )
+
+    device = torch.device(device)
+    torch.cuda.set_device(device)
+    init_distributed(address, world, rank, backend="gloo", device=device)
+    base = bench.target_config(num_layers=PAR_LAYERS)
+    params = par_model(base, device)
+    prompts = refs["prompts"]
+    tokens = torch.tensor(prompts, device=device)
+    full = forward_full(base, params, tokens).cpu() if rank == 0 else None
+
+    def rel_fro(logits, cfg_full):
+        return float((logits - cfg_full).norm() / cfg_full.norm())
+
+    results = []
+    for tp, dp in layouts:
+        mesh = build_mesh(tp=tp, dp=dp, device=device)
+        local = shard_params(params, base, mesh)
+        rows = batch_state_pspecs(mesh, len(prompts))
+        for label, kw in PAR_KV.items():
+            cfg = base.replace(**kw)
+            lc = local_config(cfg, mesh)
+            logits = torch.cat(mesh.gather_rows(
+                forward_full(lc, local, tokens[rows]).cpu()))
+            par_reset()
+            got = batch_autoregressive_generate(
+                prompts, lc, local, gen_len=PAR_B_GEN, eos_tokens_id=(),
+                device=device)
+            rec = {"tp": tp, "dp": dp, "kv": label, "counts": par_counts(),
+                   "local_cfg": [lc.num_heads, lc.num_kv_heads,
+                                 lc.intermediate_size]}
+            if rank == 0:
+                cfg_full = (full if not kw
+                            else forward_full(cfg, params, tokens).cpu())
+                rec["logit_rel_fro"] = rel_fro(logits, cfg_full)
+                rec["parted"] = [
+                    list(greedy_tie(f"13b tp={tp} x dp={dp}, {label}", cfg,
+                                    params, p, ref, o, device))
+                    for p, ref, o in zip(prompts, refs[label], got)
+                    if o != ref]
+                rec["equal"] = sum(o == r for o, r in zip(got, refs[label]))
+            results.append(rec)
+        faults = planted_faults(params, base, mesh, local, tokens, rows)
+        if rank == 0:
+            results[-len(PAR_KV)]["faults"] = {
+                k: rel_fro(v, full) for k, v in faults.items()}
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(results, f)
+    dist.destroy_process_group()
+
+
+def phase_parallel_gloo(device, card, root):
+    """Phase 13b: worlds of 2 and 4 ranks on the one card (NCCL takes one
+    rank per GPU, so the transport here is gloo, named explicitly, over
+    CUDA tensors), at TinyLlama's widths cut to PAR_LAYERS layers, INT4:
+    tp=2, tp=4 and tp=2 x dp=2, with bf16 KV and with int8 KV under the
+    flash kernel (K4). Greedy batched AR equals the unsharded run's up to
+    ``greedy_tie``; the logits' relative error against the unsharded
+    forward stays within PAR_LOGIT_FRO, and each planted fault reads
+    above it; at tp=4 the row-parallel w_down
+    (K = 5632 / 4 = 1408) takes the dequant route and every other
+    projection K1b, at tp=2 (K = 2816) all take K1b. Returns (summary,
+    launches of rank 0 summed)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from specdec_tpu_torch import bench
+    from specdec_tpu_torch.engine.batch_engine import (
+        batch_autoregressive_generate,
+    )
+
+    prompts = par_prompts(PAR_PROMPTS, PAR_PROMPT_LEN, seed=14)
+    refs = {"prompts": prompts}
+    base = bench.target_config(num_layers=PAR_LAYERS)
+    params = par_model(base, device)
+    for label, kw in PAR_KV.items():
+        refs[label] = batch_autoregressive_generate(
+            prompts, base.replace(**kw), params, gen_len=PAR_B_GEN,
+            eos_tokens_id=(), device=device)
+    del params
+    torch.cuda.synchronize()
+    records, total = [], {}
+    for world, layouts in PAR_WORLDS:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as d:
+            out = os.path.join(d, "rank0.json")
+            mp.spawn(parallel_rank, args=(world, f"127.0.0.1:{free_port()}",
+                                          root, str(device), layouts, refs,
+                                          out), nprocs=world)
+            with open(out) as f:
+                got = json.load(f)
+        say(f"[time] 13b world of {world} in {time.perf_counter() - t0:.1f} s")
+        records += got
+    L = PAR_LAYERS
+    for rec in records:
+        what = f"13b tp={rec['tp']} x dp={rec['dp']}, {rec['kv']}"
+        c = rec["counts"]
+        if rec["logit_rel_fro"] > PAR_LOGIT_FRO:
+            fail(f"{what}: logits {rec['logit_rel_fro']:.3g} relative "
+                 f"Frobenius from the unsharded forward's (limit "
+                 f"{PAR_LOGIT_FRO})")
+        for fault, err in rec.get("faults", {}).items():
+            # the limit must tell a wiring fault from the rounding
+            if err <= PAR_LOGIT_FRO:
+                fail(f"{what}: planted fault '{fault}' reads {err:.3g}, "
+                     f"within the limit {PAR_LOGIT_FRO}")
+        forwards = c["K1a"]  # the lm_head: once a forward
+        routed = L if rec["tp"] == 4 else 0  # w_down at K = 1408
+        if (forwards == 0 or c["route"] != forwards * routed
+                or c["K1b"] != forwards * (4 * L - routed)):
+            fail(f"{what}: launches {c}: expected per forward {L} w_down "
+                 f"on the {'route' if routed else 'K1b'} and the rest of "
+                 f"the {4 * L} projections on K1b")
+        if rec["kv"] != "bf16 KV" and c["K4"] != forwards * L:
+            fail(f"{what}: {c['K4']} K4 launches for {forwards} forwards")
+        if c["all_reduce"] != forwards * (2 * L + 2):
+            fail(f"{what}: {c['all_reduce']} all-reduces for {forwards} "
+                 "forwards")
+        for k, n in c.items():
+            total[k] = total.get(k, 0) + n
+        say(f"[13b parallel] {what} (gloo, CUDA tensors, one card): local "
+            f"heads/KV heads/F {rec['local_cfg']}; logits {rec['logit_rel_fro']:.3g} "
+            f"relative Frobenius from unsharded (planted faults: "
+            f"{ {k: round(v, 4) for k, v in rec.get('faults', {}).items()} }); "
+            f"greedy AR {rec['equal']}/"
+            f"{PAR_PROMPTS} equal, parted at a bf16 tie "
+            f"{[p[0] for p in rec['parted']]}; per forward {c['K1b'] // forwards} "
+            f"K1b, {c['route'] // forwards} routed, {c['all_reduce'] // forwards} "
+            f"all-reduces ({card})")
+    return {"records": records, "card": card}, total
+
+
+# Qwen/Qwen2-0.5B's config.json on the Hugging Face hub, cut to ROUTE_LAYERS
+# layers: hidden 896 (K % 256 = 128), so its 4-bit wqkv, wo and w_gateup
+# take the dequant route and w_down (K = 4864 = 19 x 256) its kernel; the
+# head is the tied embedding
+QWEN2_05B = dict(vocab_size=151936, hidden_size=896, intermediate_size=4864,
+                 num_heads=14, num_kv_heads=2, head_dim=64,
+                 max_position_embeddings=32768, rope_theta=1000000.0,
+                 norm_eps=1e-6, attn_qkv_bias=True, tie_embeddings=True)
+ROUTE_LAYERS, ROUTE_GEN = 2, 32
+
+
+def phase_route(device, card):
+    """Phase 9c (route): 4-bit weights whose K the kernels do not take, on
+    the card. A Qwen2-0.5B-width model (2 layers, random weights) in INT4
+    and NF4: the kernel wrappers refuse its K=896 before any launch, the
+    model runs with its wqkv, wo and w_gateup on the dequant route and its
+    w_down on K1b / K6b (the counts hold that split exactly), and its greedy
+    AR tokens equal those of the dense model of the dequantized weights up
+    to ``greedy_tie`` (the route computes that model's products; the
+    kernel's w_down rounds its own way). Returns launches by format."""
+    from specdec_tpu_torch import bench
+    from specdec_tpu_torch.core.config import ModelConfig
+    from specdec_tpu_torch.core.model import init_params
+    from specdec_tpu_torch.ops import quant_matmul as qm
+    from specdec_tpu_torch.quant.core import (
+        QUANTIZED, check_kernel_shapes, dequantize, quantize_params,
+    )
+    from specdec_tpu_torch.sampling.base_decoding import (
+        autoregressive_generate,
+    )
+
+    cfg = ModelConfig(num_layers=ROUTE_LAYERS, dtype=torch.bfloat16,
+                      **QWEN2_05B)
+    gen = torch.Generator(device=device).manual_seed(9)
+    dense = init_params(cfg, scale=0.02, device=device, generator=gen)
+    prompt = bench.bench_prompt(seed=9)
+    by_kind = {}
+    for kind, (stacked, wrapper) in (("int4", ("K1b", qm.int4_matmul_stacked)),
+                                     ("nf4", ("K6b",
+                                              qm.q4_halfplane_matmul_stacked))):
+        params = quantize_params(dense, kind=kind, fuse=True)
+        routes = check_kernel_shapes(cfg, kind)
+        if routes != {"wqkv": "dequant", "wo": "dequant",
+                      "w_gateup": "dequant", "w_down": "kernel"}:
+            fail(f"9c route ({kind}): routes {routes}")
+        x = torch.zeros((1, cfg.hidden_size), dtype=torch.bfloat16,
+                        device=device)
+        try:
+            wrapper(x, params["layers"]["wqkv"], 0)
+            fail(f"9c route ({kind}): the kernel wrapper took K=896")
+        except ValueError as e:
+            if "K=896" not in str(e):
+                raise
+        deq = dict(params, layers={
+            k: dequantize(v, torch.bfloat16) if isinstance(v, QUANTIZED)
+            else v for k, v in params["layers"].items()})
+        ref = autoregressive_generate(prompt, cfg, deq, max_gen_len=ROUTE_GEN,
+                                      eos_tokens_id=(), device=device)
+        par_reset()
+        got = autoregressive_generate(prompt, cfg, params,
+                                      max_gen_len=ROUTE_GEN, eos_tokens_id=(),
+                                      device=device)
+        c = par_counts()
+        L = ROUTE_LAYERS
+        forwards = c[stacked] // L
+        if (forwards == 0 or c[stacked] != forwards * L
+                or c["route"] != forwards * 3 * L):
+            fail(f"9c route ({kind}): {c[stacked]} {stacked} launches and "
+                 f"{c['route']} routed products; expected {L} and {3 * L} "
+                 "a forward")
+        parted = None
+        if got != ref:
+            parted = greedy_tie(f"9c route ({kind})", cfg, deq, prompt, ref,
+                                got, device)[0]
+        by_kind[kind] = {k: n for k, n in c.items() if n}
+        say(f"[9c route] {kind} at Qwen2-0.5B widths ({L} layers): the "
+            f"kernel wrapper refused K=896; per forward {3 * L} products on "
+            f"the dequant route and {L} on {stacked}; greedy AR over "
+            f"{ROUTE_GEN} tokens == the dequantized dense model's"
+            + ("" if parted is None else f" up to a bf16 tie at token "
+               f"{parted}") + f" ({card})")
+    return by_kind
+
+
 def with_config(pair, **cfg_kw):
     """The pair with both configs changed (the weights do not depend on the
     KV format or the attention kernel): what ``bench.build_pair(device,
@@ -4674,16 +5218,21 @@ def main():
                                             device, "bf16 KV, flash")
     fmt_main, fmt_launches = {}, {}
     for quant in QUANTS:
+        # half the tokens a call (phase 13's time): the launch counts and
+        # kernels are the same, one timed call each
         fmt_main[quant], fmt_launches[quant] = phase_main(
-            pairs[quant], device, f"{quant} weights")
+            pairs[quant], device, f"{quant} weights", gen=bench.GEN // 2)
     stamp("5 single sequence")
     summary["serving"], serve_launches = phase_serve(pair, device)
     int8_serving, serve_launches_int8 = phase_serve(int8_pair, device,
                                                     "int8 KV, flash")
+    # the weight formats' serving passes go unprofiled (phase 13's time)
     fmt_main["int8"]["serving"], serve_launches_w8 = phase_serve(
-        pairs["int8"], device, "int8 weights", engines=("paged",))
+        pairs["int8"], device, "int8 weights", engines=("paged",),
+        profile=False)
     fmt_main["nf4"]["serving"], serve_launches_nf4 = phase_serve(
-        pairs["nf4"], device, "nf4 weights", engines=("paged",))
+        pairs["nf4"], device, "nf4 weights", engines=("paged",),
+        profile=False)
     stamp("6 serving")
     nasd, launches_nasd = phase_nasd(pair, device, card)
     nasd_int8, launches_nasd_int8 = phase_nasd(
@@ -4719,6 +5268,12 @@ def main():
     stamp("11 encoder-decoder")
     summary["repl"] = phase_repl(device, card, root)
     stamp("12 REPL")
+    summary["parallel_nccl"], launches_13a = phase_parallel_nccl(pair, device,
+                                                                 card)
+    stamp("13a parallel, NCCL world of 1")
+    summary["parallel_gloo"], launches_13b = phase_parallel_gloo(device, card,
+                                                                 root)
+    stamp("13b parallel, gloo worlds of 2 and 4 on one card")
     summary["trees"]["card"] = summary["eagle"]["card"] = card
     summary["nasd"] = {"bf16 KV": nasd, "int8 KV, flash": nasd_int8,
                        "serving": nasd_serving, "card": card}
@@ -4755,8 +5310,10 @@ def main():
              "eagle_kvint8_flash": launches_eagle["int8 KV, flash"][key],
              "eagle_batch": launches_eagle_serve["eagle_batch"][key],
              "eagle_serving": launches_eagle_serve["eagle_serving"][key],
-             **{path: c[key] for path, c in launches_harness.items()
-                if path != "harness_cli_int8"},
+             **{path: c.get(key, 0) for path, c in launches_harness.items()
+                if path not in ("harness_cli_int8", "loader_route_nf4")},
+             "parallel_nccl": launches_13a[key],
+             "parallel_gloo": launches_13b[key],
              **{path: c[key] for path, c in launches_train.items()}},
             k1_8b=[r for r in k1_8b if (r["layer"] is None) == (key == "K1a")],
             training=[r for r in grad_records["int4"]
@@ -4776,7 +5333,9 @@ def main():
             name, "q4_halfplane_matmul.cu", line, nf4 + fp4 + ragged, nf4,
             {**{f"spec_decode_{q}": fmt_launches[q][key]
                 for q in ("nf4", "fp4")},
-             "serving_nf4": serve_launches_nf4[key]},
+             "serving_nf4": serve_launches_nf4[key],
+             "loader_route_nf4": launches_harness["loader_route_nf4"].get(
+                 key, 0)},
             codecs="nf4 (top-level times), fp4", fp4=step_times(fp4),
             training=[r for r in grad_records["nf4"]
                       if (r["name"] == LM_HEAD[0]) == (key == "K6a")]))
@@ -4813,7 +5372,8 @@ def main():
         {"serving": serve_launches["K8a"] + serve_launches["K2"],
          "serving_int8": serve_launches_w8["K8a"] + serve_launches_w8["K2"],
          "serving_nf4": serve_launches_nf4["K8a"] + serve_launches_nf4["K2"],
-         "vllm_serving": launches_harness["vllm_serving"]["K8a"]},
+         "vllm_serving": launches_harness["vllm_serving"]["K8a"],
+         "parallel_nccl_serving": launches_13a["K8a"]},
         also_replaces="specdec_tpu/ops/paged_attention.py:26"))
     entries.append(kernel_entry(
         "paged_decode_attention_quant (K8b stacked layer; K5 4D pool)",
@@ -4846,7 +5406,8 @@ def main():
          "nasd_kvint8_flash": launches_nasd_int8["K4"],
          "tree_oracle_kvint8_flash": tree_oracle["int8 KV, flash"]["K4"],
          "trees_kvint8_flash": launches_trees["int8 KV, flash"]["K4"],
-         "eagle_kvint8_flash": launches_eagle["int8 KV, flash"]["K4"]}))
+         "eagle_kvint8_flash": launches_eagle["int8 KV, flash"]["K4"],
+         "parallel_gloo_kvint8_flash": launches_13b["K4"]}))
     say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; "
         f"largest kernel-vs-plain abs error {max_err:.3g} (INT4), "
         + ", ".join(f"{fmt_records[q][1]:.3g} ({q})" for q in QUANTS) + ", "

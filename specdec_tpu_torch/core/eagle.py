@@ -29,7 +29,8 @@ import torch
 from specdec_tpu_torch import resolve_device
 from specdec_tpu_torch.core.config import ModelConfig
 from specdec_tpu_torch.core.model import (
-    _head, _layers, _positions, _tree_positions, init_params, slotted_attend,
+    _embed, _head, _layers, _positions, _tree_positions, init_params,
+    slotted_attend,
 )
 from specdec_tpu_torch.quant.core import qmatmul
 
@@ -68,7 +69,7 @@ def _eagle_common(cfg: ModelConfig, eagle_params: Params,
     """The drafter body shared by the sequential and tree forwards: fc
     fusion over (embed, feature) pairs, the block stack over the slotted
     cache (written in place), and the target's final norm and head."""
-    emb = target_params["embed"][tokens].to(cfg.dtype)
+    emb = _embed(cfg, target_params, tokens)
     x = torch.cat([emb, feats.to(cfg.dtype)], dim=-1)
     x = qmatmul(x, eagle_params["fc_w"]) + eagle_params["fc_b"]
     f_hat = _layers(cfg, eagle_params["layers"], x, q_pos,

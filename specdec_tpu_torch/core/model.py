@@ -45,6 +45,7 @@ from specdec_tpu_torch.core.paged_cache import (
 )
 from specdec_tpu_torch.core.rope import apply_rope, rope_cos_sin
 from specdec_tpu_torch.ops.attention_args import kernel_takes
+from specdec_tpu_torch.parallel.mesh import model_all_reduce
 from specdec_tpu_torch.quant.core import QUANTIZED, StackedSlice, qmatmul
 
 Params = Dict[str, Any]
@@ -219,10 +220,13 @@ def _mlp_up(cfg: ModelConfig, lp: Params, m):
     return _act(cfg, up)
 
 
-def _block(cfg: ModelConfig, lp: Params, x, cos, sin, attend):
+def _block(cfg: ModelConfig, lp: Params, x, cos, sin, attend, mesh=None):
     """One transformer block over a [B, T, D] activation block.
     ``attend(q, k, v)`` stores the block's K/V in the layer's cache (in
-    place) and returns the attention output [B, T, Hq * Dh]."""
+    place) and returns the attention output [B, T, Hq * Dh]. Under a
+    ``mesh`` (shard-local params) the row-parallel ``wo`` and ``w_down``
+    products are partial sums: they are all-reduced over the 'model' group
+    before the replicated ``bo`` / ``b_down`` are added."""
     B, T, D = x.shape
     Hq, Hk, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
@@ -238,7 +242,7 @@ def _block(cfg: ModelConfig, lp: Params, x, cos, sin, attend):
     q = apply_rope(q, cos, sin, rd)
     k = apply_rope(k, cos, sin, rd)
 
-    attn = qmatmul(attend(q, k, v), lp["wo"])
+    attn = model_all_reduce(mesh, qmatmul(attend(q, k, v), lp["wo"]))
     if cfg.attn_out_bias:
         attn = attn + lp["bo"]
 
@@ -248,7 +252,7 @@ def _block(cfg: ModelConfig, lp: Params, x, cos, sin, attend):
         x = x + attn
         m = _norm(cfg, x, lp["mlp_norm_w"], lp.get("mlp_norm_b"))
 
-    mlp = qmatmul(_mlp_up(cfg, lp, m), lp["w_down"])
+    mlp = model_all_reduce(mesh, qmatmul(_mlp_up(cfg, lp, m), lp["w_down"]))
     if cfg.mlp_bias:
         mlp = mlp + lp["b_down"]
 
@@ -264,27 +268,57 @@ def _layer_params(layers: Params, i: int) -> Params:
             for name, v in layers.items()}
 
 
+def _embed(cfg: ModelConfig, params: Params,
+           tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens`` in cfg.dtype. Under a mesh the
+    embedding is vocab-parallel: each rank looks up the tokens in its
+    vocabulary range, writes zeros elsewhere, and the all-reduce over the
+    'model' group (exact: one rank holds each row) gives every rank the
+    rows."""
+    embed, mesh = params["embed"], params.get("mesh")
+    if mesh is None:
+        return embed[tokens].to(cfg.dtype)
+    n = embed.shape[0]
+    local = tokens - mesh.tp_index * n
+    mine = (local >= 0) & (local < n)
+    rows = embed[local.clamp(0, n - 1)].to(torch.float32)
+    return model_all_reduce(mesh, torch.where(mine[..., None], rows, 0.0)
+                            ).to(cfg.dtype)
+
+
 def _head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     """final norm -> logits (f32), with the logit softcap: the target's
-    head, which the EAGLE drafter shares (``core/eagle.py``)."""
+    head, which the EAGLE drafter shares (``core/eagle.py``). Under a mesh
+    the head is vocab-parallel: each rank scores its V/tp columns of the
+    ``lm_head`` (or rows of a tied embedding), and an all-reduce into a
+    zero-filled full-vocab buffer gathers them exactly, so every rank holds
+    the same [B, T, V] logits before the softcap."""
     x = _norm(cfg, x, params["final_norm_w"], params.get("final_norm_b"))
     if cfg.tie_embeddings:
         logits = torch.einsum("btd,vd->btv", x.to(torch.float32),
                               params["embed"].to(torch.float32))
     else:
         logits = qmatmul(x, params["lm_head"]).to(torch.float32)
+    mesh = params.get("mesh")
+    if mesh is not None:
+        n = logits.shape[-1]
+        full = logits.new_zeros(logits.shape[:-1] + (n * mesh.tp,))
+        full[..., mesh.tp_index * n:(mesh.tp_index + 1) * n] = logits
+        logits = model_all_reduce(mesh, full)
     if cfg.logit_softcap > 0.0:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits
 
 
-def _layers(cfg: ModelConfig, layers: Params, x, q_pos, layer_attend):
-    """The block stack over x [B, T, D], rope at positions q_pos."""
+def _layers(cfg: ModelConfig, layers: Params, x, q_pos, layer_attend,
+            mesh=None):
+    """The block stack over x [B, T, D], rope at positions q_pos; ``mesh``
+    is the params' (shard-local layers) or None."""
     cos, sin = rope_cos_sin(q_pos, cfg.rotary_dim, cfg.rope_theta,
                             scaling=cfg.rope_scaling)
     for i in range(cfg.num_layers):
         x = _block(cfg, _layer_params(layers, i), x, cos, sin,
-                   functools.partial(layer_attend, i))
+                   functools.partial(layer_attend, i), mesh)
     return x
 
 
@@ -297,12 +331,13 @@ def _forward_common(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     residual stream after the layers and before the final norm, which
     EAGLE drafts on. ``head=False`` skips the final norm and the lm_head
     (logits None)."""
-    x = params["embed"][tokens].to(cfg.dtype)
+    x = _embed(cfg, params, tokens)
     if cfg.embed_scale != 1.0:  # gemma: sqrt(hidden) on the embedding only
         # a CPU 0-dim tensor is a scalar operand: rounded to cfg.dtype first,
         # as jnp.asarray(embed_scale, dtype) is, and never copied to the card
         x = x * torch.tensor(cfg.embed_scale, dtype=cfg.dtype)
-    x = _layers(cfg, params["layers"], x, q_pos, layer_attend)
+    x = _layers(cfg, params["layers"], x, q_pos, layer_attend,
+                params.get("mesh"))
     return (_head(cfg, params, x) if head else None), x
 
 

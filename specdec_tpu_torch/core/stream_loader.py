@@ -223,9 +223,10 @@ def load_hf_streamed(path: str, dtype=torch.bfloat16,
     Returns (cfg, params) like ``hf_loader.load_hf_model``; with
     ``quantization != "none"`` the layers carry fused quantized containers
     and the untied ``lm_head`` a quantized one, the layout and bits of
-    ``quantize_params(dense, quantization, fuse=fuse)``. On the card, a
-    4-bit format whose kernels do not take a projection's K is refused
-    before anything is read (``quant/core.py::check_kernel_shapes``)."""
+    ``quantize_params(dense, quantization, fuse=fuse)``. A 4-bit
+    projection whose K the kernels do not take runs through the dequant
+    route; a 4-bit K that no container holds is refused before anything is
+    read (``quant/core.py::check_kernel_shapes``)."""
     device = resolve_device(device)
     hf_cfg = read_config(path)
     mt = hf_cfg.get("model_type", "llama")
@@ -234,8 +235,7 @@ def load_hf_streamed(path: str, dtype=torch.bfloat16,
             f"the streaming loader takes the llama lineage only (got {mt!r}); "
             "use core.hf_loader.load_hf_model")
     cfg = config_from_hf(hf_cfg, dtype=dtype)
-    if quantization != "none":
-        check_kernel_shapes(cfg, quantization, device)
+    check_kernel_shapes(cfg, quantization)
     qfn = (None if quantization == "none"
            else partial(quantize_chunked, _QUANTIZERS[quantization]))
     read = ShardReader(path)

@@ -21,6 +21,13 @@ storage with the one returned and must not be used again.
 
 The window runs eagerly on the device; ``batch_spec_windows`` reads the
 host at most once per window, to exit when every row is finished.
+
+Under a data-parallel mesh (target params sharded by
+``parallel/mesh.py::shard_params`` with dp > 1) each data rank runs its
+rows of the padded batch (``batch_state_pspecs``), drawing the whole
+batch's uniforms and keeping its rows (``DataRowsGenerator``), so the
+outputs equal the unsharded run's for the same seed; the generate functions
+gather every rank's outputs and counts with one ``all_gather_object``.
 """
 from __future__ import annotations
 
@@ -38,8 +45,9 @@ from specdec_tpu_torch.core.model import forward_step_paged
 from specdec_tpu_torch.core.paged_cache import (
     PagedKVCache, QuantPagedKVCache,
 )
+from specdec_tpu_torch.parallel.mesh import batch_state_pspecs
 from specdec_tpu_torch.sampling.processors import (
-    GreedyProcessor, LogitsProcessor,
+    DataRowsGenerator, GreedyProcessor, LogitsProcessor, uniform,
 )
 from specdec_tpu_torch.sampling.speculative import accept_step, commit_step
 from specdec_tpu_torch.sampling.utils import eos_mask, normalize_eos
@@ -198,7 +206,7 @@ def _spec_window_body(drafter_cfg: ModelConfig, drafter_params,
     p_all = processor.batched(t_logits, samp)                    # [B, g+1, V]
 
     # --- accept / residual, then commit ------------------------------------
-    r = torch.rand((B, gamma), generator=generator, device=state.buf.device)
+    r = uniform((B, gamma), generator, state.buf.device)
     n, next_tok = accept_step(p_all, q_all, drafts, r, processor, generator,
                               skip_sample_adjustment, samp)
     remaining = (state.total_len - pos).to(n.dtype)
@@ -284,6 +292,46 @@ def _pad_batch(prompt_ids: Sequence[Sequence[int]], pad_id: int, device,
             torch.tensor(lens, dtype=torch.int32, device=device))
 
 
+def data_split(target_params, prompts: torch.Tensor, lens: torch.Tensor,
+               generator: torch.Generator):
+    """(mesh, prompts, lens, generator) of this data rank: under a mesh of
+    dp > 1 its rows of the padded batch and a ``DataRowsGenerator`` in the
+    state of ``generator``; else None and the arguments unchanged. A batch that does not split evenly over the
+    data ranks (a single request) runs whole on each of them, as the JAX
+    package's replicated batch does."""
+    mesh = target_params.get("mesh")
+    if mesh is None or mesh.dp == 1 or prompts.shape[0] % mesh.dp:
+        return None, prompts, lens, generator
+    rows = batch_state_pspecs(mesh, prompts.shape[0])
+    g = DataRowsGenerator(prompts.device, prompts.shape[0], rows.start)
+    g.set_state(generator.get_state())
+    return mesh, prompts[rows], lens[rows], g
+
+
+def stamp_first_tokens(callback, state, n_rows: int) -> None:
+    """Call ``callback(i)`` for every row of the caller's batch once this
+    rank's first window has completed (a host read waits for it). Under a
+    data-parallel mesh the other data ranks run their first windows at the
+    same time, so every row's first token is stamped here, on one clock:
+    TTFT keeps one definition for all rows."""
+    if callback is None:
+        return
+    state.pos.tolist()
+    for i in range(n_rows):
+        callback(i)
+
+
+def gather_rows(mesh, *per_row):
+    """Each argument (a per-row list of this data rank) concatenated over
+    the data ranks, in data-index order; unchanged without a mesh."""
+    if mesh is None:
+        return per_row if len(per_row) > 1 else per_row[0]
+    parts = mesh.gather_rows(per_row)
+    out = tuple([x for p in parts for x in p[i]]
+                for i in range(len(per_row)))
+    return out if len(out) > 1 else out[0]
+
+
 def _outputs(state: BatchState):
     buf, pos, plen, acc, spec, _ = _unpack_state(
         _pack_state(state).cpu().numpy())
@@ -316,6 +364,8 @@ def batch_speculative_generate(
     generator = generator or _new_generator(device, seed)
     eos_ids = normalize_eos(eos_tokens_id)
     prompts, lens = _pad_batch(prompt_ids, pad_token_id, device)
+    mesh, prompts, lens, generator = data_split(
+        target_params, prompts, lens, generator)
     B = prompts.shape[0]
 
     state = batch_prefill(drafter_cfg, drafter_params, target_cfg,
@@ -327,10 +377,7 @@ def batch_speculative_generate(
                               target_params, state, int(gamma), processor,
                               eos_ids, bool(skip_sample_adjustment),
                               generator)
-    if first_token_callback is not None:
-        state.pos.tolist()  # host read: the window has completed
-        for i in range(B):
-            first_token_callback(i)
+    stamp_first_tokens(first_token_callback, state, len(prompt_ids))
     # every window advances each unfinished row by >= 1 token
     state = batch_spec_windows(drafter_cfg, drafter_params, target_cfg,
                                target_params, state, int(gamma), processor,
@@ -339,7 +386,7 @@ def batch_speculative_generate(
     outs, acc, spec = _outputs(state)
     rates = [float(acc[i]) / float(spec[i]) if spec[i] > 0 else 0.0
              for i in range(B)]
-    return outs, rates
+    return gather_rows(mesh, outs, rates)
 
 
 def batch_autoregressive_generate(
@@ -362,19 +409,17 @@ def batch_autoregressive_generate(
     generator = generator or _new_generator(device, seed)
     eos_ids = normalize_eos(eos_tokens_id)
     prompts, lens = _pad_batch(prompt_ids, pad_token_id, device)
-    B = prompts.shape[0]
+    mesh, prompts, lens, generator = data_split(
+        target_params, prompts, lens, generator)
 
     state = batch_prefill(None, None, target_cfg, target_params, prompts,
                           lens, int(gen_len), 0, processor, True, False,
                           eos_ids, generator)
-    if first_token_callback is not None:
-        state.pos.tolist()
-        for i in range(B):
-            first_token_callback(i)
+    stamp_first_tokens(first_token_callback, state, len(prompt_ids))
     step = 0
     while step < gen_len + 1 and not bool(state.finished.all()):
         for _ in range(steps_per_host_sync):
             state = batch_ar_step(target_cfg, target_params, state,
                                   processor, eos_ids, generator)
             step += 1
-    return _outputs(state)[0]
+    return gather_rows(mesh, _outputs(state)[0])

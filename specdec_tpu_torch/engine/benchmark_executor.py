@@ -33,6 +33,19 @@ def execute_benchmark_loop(runner, spec_results, target_results) -> int:
                                 use_num_prompts)
 
 
+def _timed_out(runner, end_time) -> bool:
+    """Whether a timed run is over: rank 0's clock decides for every rank
+    of a mesh, so that all ranks run the same requests."""
+    over = time.time() >= end_time
+    if getattr(runner, "mesh", None) is None:
+        return over
+    import torch.distributed as dist
+
+    flag = [over]
+    dist.broadcast_object_list(flag, src=0)
+    return bool(flag[0])
+
+
 def _record(runner, spec_results, target_results, prompts, request_index):
     runner.set_request_index(request_index)
     spec_metrics, target_metrics = infer_batch(runner, prompts)
@@ -52,13 +65,12 @@ def _execute_batch_mode(runner, spec_results, target_results, start_time,
     total_requests = 0
 
     while True:
-        now = time.time()
         if use_num_prompts:
             if total_requests >= target_requests:
                 break
             if total_requests + prompts_per_iter > target_requests:
                 prompts_per_iter = target_requests - total_requests
-        elif now >= end_time:
+        elif _timed_out(runner, end_time):
             break
 
         batch_idx += 1
@@ -87,7 +99,7 @@ def _execute_single_mode(runner, spec_results, target_results, start_time,
         if use_num_prompts:
             if total_requests >= target_requests:
                 break
-        elif now >= end_time:
+        elif _timed_out(runner, end_time):
             break
 
         prompt = runner._get_random_prompt()

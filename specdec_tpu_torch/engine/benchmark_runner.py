@@ -11,9 +11,13 @@ NGRAM_DEVICE_CAPACITY, RESET_IN_BETWEEN, FILLER_TOP_K, BENCH_SEED; the same
 results files: ``<base>.json`` (every method's results and the telemetry),
 ``<base>_<method>.json`` (``_target`` for target_ar) and ``<base>_gpu.json``.
 
-The port runs on one card (``device``, ``None``: the card): TP_SIZE,
-DP_SIZE or VLLM_TENSOR_PARALLEL_SIZE above 1 raise NotImplementedError
-(``parallel/``, ``ROADMAP.md`` §1 item 6). A request's sampling draws come
+``device`` ``None`` means the card. TP_SIZE (or
+VLLM_TENSOR_PARALLEL_SIZE) and DP_SIZE build a ('data', 'model') mesh
+(``parallel/``) over a world of one process per card, joined from torchrun's
+or the JAX runner's variables (``parallel/distributed.py``); a process
+launched as one rank of a world with neither set builds a pure-TP mesh over
+the world. Every rank runs the same loop, the stop of a timed run is rank
+0's, and only rank 0 writes the results files. A request's sampling draws come
 from ``request_generator()``, a ``torch.Generator`` seeded from BENCH_SEED
 and the request index (the JAX runner folds the index into a key); its
 prompt is chosen by Python's ``random`` seeded with BENCH_SEED + index, so
@@ -114,11 +118,7 @@ class BenchmarkRunner:
         self.tp_size = int(os.getenv("TP_SIZE",
                                      os.getenv("VLLM_TENSOR_PARALLEL_SIZE", "0")))
         self.dp_size = int(os.getenv("DP_SIZE", "0"))
-        if self.tp_size > 1 or self.dp_size > 1:
-            raise NotImplementedError(
-                f"TP_SIZE={self.tp_size}, DP_SIZE={self.dp_size}: meshes are "
-                "not ported to specdec_tpu_torch yet (ROADMAP.md §1 item 6, "
-                "parallel); the port runs on one card")
+        self.mesh = None
 
         self.chat = True
         self.reset_in_between = os.getenv("RESET_IN_BETWEEN",
@@ -129,8 +129,34 @@ class BenchmarkRunner:
         self._request_index = 0
 
     # ------------------------------------------------------------------ models
+    def _build_mesh(self):
+        """The mesh TP_SIZE / DP_SIZE ask for, or pure TP over a launched
+        world; None for a single process."""
+        import torch.distributed as dist
+
+        from specdec_tpu_torch.parallel import build_mesh, init_distributed
+
+        launched = init_distributed(device=self.device)
+        if self.tp_size > 1 or self.dp_size > 1:
+            if not launched:
+                raise ValueError(
+                    f"TP_SIZE={self.tp_size}, DP_SIZE={self.dp_size}: a mesh "
+                    "runs one process per card; launch with torchrun "
+                    "--nproc-per-node N (or set COORDINATOR_ADDRESS, "
+                    "NUM_PROCESSES and PROCESS_ID)")
+            mesh = build_mesh(tp=self.tp_size or None,
+                              dp=self.dp_size or None, device=self.device)
+        elif launched and dist.get_world_size() > 1:
+            mesh = build_mesh(device=self.device)
+        else:
+            return None
+        print(f"mesh: {mesh.shape}, rank {mesh.rank}")
+        return mesh
+
     def _load_models(self):
         from specdec_tpu_torch.engine.model_loader import load_models
+
+        self.mesh = self._build_mesh()
 
         target_path = self.target_model_arg or os.getenv(
             "TARGET_MODEL", "synthetic:llama-1b")
@@ -141,7 +167,8 @@ class BenchmarkRunner:
 
         bundle = load_models(target_path, drafter_path, dtype=self.dtype,
                              quantization=self.quantization,
-                             kv_quant=self.kv_quant, device=self.device)
+                             kv_quant=self.kv_quant, device=self.device,
+                             mesh=self.mesh)
         self.target_cfg = bundle["target"]["cfg"]
         self.target_params = bundle["target"]["params"]
         if bundle["drafter"] is not None:
@@ -275,10 +302,13 @@ class BenchmarkRunner:
             combined["target_ar"] = target_results.to_dict()
         if monitor_results:
             print_power_summary(monitor_results)
-            monitor_results.save_json(
-                self._suffixed(self.base_output_file, "gpu"))
+            if self.mesh is None or self.mesh.rank == 0:
+                monitor_results.save_json(
+                    self._suffixed(self.base_output_file, "gpu"))
             combined["gpu_monitoring"] = monitor_results.to_dict()
 
+        if self.mesh is not None and self.mesh.rank != 0:
+            combined = method_results = None  # rank 0 writes the files
         if method_results:
             with open(self.output_file, "w") as f:
                 json.dump(method_results.to_dict(), f, indent=2)

@@ -40,9 +40,10 @@ from specdec_tpu_torch.core.eagle import eagle_forward
 from specdec_tpu_torch.core.model import forward_step_features
 from specdec_tpu_torch.engine.batch_engine import (
     _gather_at, _new_generator, _outputs, _pad_batch, _put_block,
+    data_split, gather_rows, stamp_first_tokens,
 )
 from specdec_tpu_torch.sampling.processors import (
-    GreedyProcessor, LogitsProcessor,
+    GreedyProcessor, LogitsProcessor, uniform,
 )
 from specdec_tpu_torch.sampling.speculative import accept_step, commit_step
 from specdec_tpu_torch.sampling.utils import eos_mask, normalize_eos
@@ -71,7 +72,7 @@ def _accept_uniforms(shape, generator: Optional[torch.Generator],
                      device) -> torch.Tensor:
     """The window's acceptance draws r ~ U[0, 1): the one place the batched
     EAGLE window draws them, so that a test can supply other draws."""
-    return torch.rand(shape, generator=generator, device=device)
+    return uniform(shape, generator, device)
 
 
 def _rows_at(arr: torch.Tensor, start: torch.Tensor, n: int) -> torch.Tensor:
@@ -273,6 +274,8 @@ def batch_eagle_generate(
     if not first_target and min(len(p) for p in prompt_ids) < 2:
         raise ValueError("first_target=False requires prompts of >= 2 tokens")
     prompts, lens = _pad_batch(prompt_ids, pad_token_id, device)
+    mesh, prompts, lens, generator = data_split(
+        target_params, prompts, lens, generator)
     B = prompts.shape[0]
     args = (eagle_cfg, eagle_params, target_cfg, target_params)
 
@@ -282,10 +285,7 @@ def batch_eagle_generate(
     # the first window alone: its end is the first verified tokens (TTFT)
     state = eagle_batch_window(*args, state, int(gamma), processor, eos_ids,
                                bool(skip_sample_adjustment), generator)
-    if first_token_callback is not None:
-        state.pos.tolist()  # host read: the window has completed
-        for i in range(B):
-            first_token_callback(i)
+    stamp_first_tokens(first_token_callback, state, len(prompt_ids))
     # every window advances each unfinished row by >= 1 token
     state = eagle_batch_windows(*args, state, int(gamma), processor, eos_ids,
                                 bool(skip_sample_adjustment), generator,
@@ -293,4 +293,4 @@ def batch_eagle_generate(
     outs, acc, spec = _outputs(state)
     rates = [float(acc[i]) / float(spec[i]) if spec[i] > 0 else 0.0
              for i in range(B)]
-    return outs, rates
+    return gather_rows(mesh, outs, rates)

@@ -20,8 +20,8 @@ A model spec is one of:
   default, batch 32 of 128 tokens, learning rate 1e-3, the stream and the
   training seeded by ``crc32`` of the preset and of the spec as in JAX),
   then quantized; the bundle carries ``stream_spec`` and
-  ``pretrain_nll``. A 4-bit format the card's kernels do not take is
-  refused on a CUDA device before training (``check_kernel_shapes``);
+  ``pretrain_nll``. A 4-bit K that no container holds (not a multiple of
+  64) is refused before training (``check_kernel_shapes``);
 - drafter only: ``layerskip:<k>``, the target's first k layers as views of
   its (quantized) containers, sharing its embedding, final norm and head;
   ``eagle:<depth>[@<steps>]``, an EAGLE head (``core/eagle.py``) seeded by
@@ -37,9 +37,14 @@ A T5 or mT5 checkpoint directory loads as a codec model
 safetensors reader) into ``{"cfg", "params", "codec": True}``, dense at
 ``dtype``: a codec target or drafter with a quantization, and a
 ``layerskip:`` or ``eagle:`` drafter over a codec target, are refused
-before anything is read; ``kv_quant`` does not apply to it. There is no
-mesh: the port runs on one card (``parallel/``, ``ROADMAP.md`` §1 item 6).
-``device=None`` means the card.
+before anything is read; ``kv_quant`` does not apply to it.
+
+``mesh`` (``parallel/mesh.py``) shards the target after loading and
+replicates the drafter, as the JAX loader does: every rank loads the whole
+model, keeps its shard (``shard_params``) and returns the local config
+(``local_config``); a drafter, LayerSkip views and EAGLE heads included,
+is copied whole on every rank. ``device=None`` means the card (the mesh's
+device under a mesh).
 """
 from __future__ import annotations
 
@@ -174,8 +179,7 @@ def _trained(name: str, dtype, quantization: str = "none",
         raise ValueError(f"unknown preset {preset!r} in {name!r}; "
                          f"choose from {sorted(SYNTHETIC_PRESETS)}")
     cfg = ModelConfig(dtype=dtype, **SYNTHETIC_PRESETS[preset])
-    if quantization != "none":
-        check_kernel_shapes(cfg, quantization, device)
+    check_kernel_shapes(cfg, quantization)
     stream = MarkovSpec(vocab_size=cfg.vocab_size,
                         num_states=min(cfg.vocab_size, 8192), branching=8,
                         zipf_s=1.2, order=1, seed=_seed(preset))
@@ -308,16 +312,21 @@ def load_models(
     drafter_quantization: str = "none",
     kv_quant: str = "none",              # none | int8 (KV-cache format)
     device=None,
+    mesh=None,
 ) -> Dict[str, Any]:
     """Load the target (and the drafter, if any) and the tokenizer onto
     ``device`` (``None``: the card). Returns the JAX loader's bundle:
     ``{"target", "drafter", "tokenizer", "end_tokens", "pad_token_id"}``,
     each model a dict with ``cfg`` and ``params`` (``quantized`` for a
     quantized one, ``eagle`` for an EAGLE head, ``codec`` for a T5-family
-    encoder-decoder)."""
-    device = resolve_device(device)
+    encoder-decoder). Under ``mesh`` the target's ``params`` are this
+    rank's shard and its ``cfg`` the local config."""
+    device = resolve_device(device if device is not None or mesh is None
+                            else mesh.device)
     _refuse_for_codec(target_model_path, drafter_model_path, quantization,
                       drafter_quantization)
+    if mesh is not None and _is_codec(target_model_path):
+        raise ValueError("encoder-decoder (T5) models take no mesh")
 
     def load_one(path, quant="none"):
         if path.startswith("synthetic"):
@@ -349,8 +358,7 @@ def load_models(
             return out, tokenizer
         from specdec_tpu_torch.core.hf_loader import load_hf_model
         cfg, params = load_hf_model(path, dtype=dtype, device=device)
-        if quant != "none":
-            check_kernel_shapes(cfg, quant, device)
+        check_kernel_shapes(cfg, quant)
         return {"cfg": cfg, "params": params}, tokenizer
 
     drafter_spec = drafter_model_path or ""
@@ -402,6 +410,14 @@ def load_models(
 
     if drafter is not None and drafter["cfg"].vocab_size != t_cfg.vocab_size:
         raise ValueError("drafter and target must share a vocabulary")
+    if mesh is not None:
+        from specdec_tpu_torch.parallel.mesh import local_config, shard_params
+        target["params"] = shard_params(target["params"], t_cfg, mesh)
+        target["cfg"] = local_config(t_cfg, mesh)
+        if drafter is not None:
+            drafter["params"] = shard_params(drafter["params"],
+                                             drafter["cfg"], mesh,
+                                             replicated=True)
     return {
         "target": target,
         "drafter": drafter,

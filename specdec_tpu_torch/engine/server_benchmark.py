@@ -12,10 +12,25 @@ splitting, ref :173-174 — a quirk SURVEY.md §7.3 fixes).
 from __future__ import annotations
 
 import time
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 from specdec_tpu_torch.engine.metrics import BatchMetrics, BenchmarkResults
 from specdec_tpu_torch.serve.scheduler import ContinuousBatcher
+
+
+def _group_decides(mesh, due: int, closed: bool) -> Tuple[int, bool]:
+    """(arrivals to admit now, time budget spent) as the first rank of this
+    rank's 'model' group reads its clock: the ranks of a tensor-parallel
+    group admit the same requests at the same step, so their all-reduces
+    pair the same rows. Data rows decide apart (each steps on its own)."""
+    if mesh is None or mesh.tp == 1:
+        return due, closed
+    import torch.distributed as dist
+
+    said = [due, closed]
+    dist.broadcast_object_list(said, src=mesh.ranks[mesh.dp_index][0],
+                               group=mesh.model_group)
+    return int(said[0]), bool(said[1])
 
 
 def run_server_benchmark(
@@ -40,21 +55,26 @@ def run_server_benchmark(
     arrival_times = [start + i / rate for i in range(len(prompts))]
     next_idx = 0
     submitted: List[int] = []
+    mesh = batcher.target_params.get("mesh")
 
     while True:
         now = time.time()
-        # admit all arrivals that are due (unless the time budget is spent)
-        while (next_idx < len(prompts) and arrival_times[next_idx] <= now and
-               (duration is None or now - start < duration)):
+        closed = duration is not None and now - start >= duration
+        due = 0 if closed else sum(
+            1 for t in arrival_times[next_idx:] if t <= now)
+        due, closed = _group_decides(mesh, due, closed)
+        # admit the arrivals that are due (unless the time budget is spent)
+        for _ in range(due):
             rid = batcher.submit(prompts[next_idx])
-            req = batcher.queue[-1]
-            req.submit_time = max(arrival_times[next_idx], now)
+            # under a data-parallel mesh another data rank may serve it
+            if batcher.queue and batcher.queue[-1].request_id == rid:
+                batcher.queue[-1].submit_time = max(arrival_times[next_idx],
+                                                    now)
             submitted.append(rid)
             next_idx += 1
 
         active = batcher.step()
-        pending_arrivals = (next_idx < len(prompts) and
-                            (duration is None or time.time() - start < duration))
+        pending_arrivals = next_idx < len(prompts) and not closed
         if not active and not pending_arrivals:
             break
         if not active and pending_arrivals:
@@ -62,6 +82,9 @@ def run_server_benchmark(
                                      arrival_times[next_idx] - time.time())))
 
     results.end_time = time.time()
+    # drained: run() only gathers the other data ranks' requests, under a
+    # data-parallel mesh
+    batcher.run()
     for rid in submitted:
         req = batcher.completed.get(rid)
         if req is None or req.metrics is None:

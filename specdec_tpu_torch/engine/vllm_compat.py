@@ -10,10 +10,12 @@ caching and chunked prefill when asked), the slotted one under
 ``SPECDEC_SERVE_ENGINE=slotted``, or the EAGLE batcher for an ``eagle:``
 drafter. ``KV_QUANT`` (the runner's variable) sets the KV format.
 
-The port runs on one card: pipeline stages fold into tensor parallelism
-where the cards allow it and are ignored with a warning where they do
-not, as the JAX package does, and a tensor-parallel degree above 1 then
-raises NotImplementedError (``ROADMAP.md`` §1 item 6).
+A ``tensor_parallel_size`` above 1 serves on a pure-TP mesh
+(``parallel/``) over a world of that many processes, one per card, joined
+from torchrun's or the JAX runner's variables
+(``parallel/distributed.py``); pipeline stages fold into tensor
+parallelism where the world allows it and are ignored with a warning where
+it does not, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -79,8 +81,13 @@ def create_vllm_config_from_env() -> VLLMConfig:
     )
 
 
-def _num_cards(device: torch.device) -> int:
-    return torch.cuda.device_count() if device.type == "cuda" else 1
+def _world_size(device: torch.device) -> int:
+    """The ranks of the world this process joins (1 without one)."""
+    import torch.distributed as dist
+
+    from specdec_tpu_torch.parallel import init_distributed
+
+    return dist.get_world_size() if init_distributed(device=device) else 1
 
 
 class VLLMEngineManager:
@@ -100,12 +107,12 @@ class VLLMEngineManager:
         from specdec_tpu_torch.serve.scheduler import ContinuousBatcher
 
         tp = self.config.tensor_parallel_size
-        cards = _num_cards(self.device)
+        world = _world_size(self.device)
         if self.config.pipeline_parallel_size > 1:
             # the JAX engine serves decode tensor-parallel and folds the
             # requested stages into TP where the devices allow it
             folded = tp * self.config.pipeline_parallel_size
-            if cards >= folded:
+            if world >= folded:
                 warnings.warn(
                     "pipeline_parallel_size > 1: serving decode uses tensor "
                     f"parallelism; folding stages into TP (tp {tp} -> "
@@ -114,12 +121,19 @@ class VLLMEngineManager:
             else:
                 warnings.warn(
                     f"pipeline_parallel_size > 1 ignored: tp x pp = {folded} "
-                    f"exceeds {cards} card(s); keeping tp={tp}",
+                    f"exceeds a world of {world} rank(s); keeping tp={tp}",
                     stacklevel=2)
+        mesh = None
         if tp > 1:
-            raise NotImplementedError(
-                f"tensor_parallel_size {tp}: tensor parallelism is not ported "
-                "to specdec_tpu_torch yet (ROADMAP.md §1 item 6, parallel)")
+            from specdec_tpu_torch.parallel import build_mesh
+            if world != tp:
+                raise ValueError(
+                    f"tensor_parallel_size {tp} needs a world of {tp} "
+                    f"processes, one per card (this one has {world}); "
+                    "launch with torchrun --nproc-per-node "
+                    f"{tp} (or set COORDINATOR_ADDRESS, NUM_PROCESSES and "
+                    "PROCESS_ID)")
+            mesh = build_mesh(tp=tp, dp=1, device=self.device)
 
         spec = self.config.speculative_config or {}
         drafter_path = spec.get("model") or os.getenv("DRAFTER_MODEL")
@@ -129,7 +143,7 @@ class VLLMEngineManager:
         bundle = load_models(self.config.model, drafter_path, dtype=dtype,
                              quantization=self.config.quantization or "none",
                              kv_quant=os.getenv("KV_QUANT", "none").lower(),
-                             device=self.device)
+                             device=self.device, mesh=mesh)
         self.tokenizer = bundle["tokenizer"]
         self._end_tokens = bundle["end_tokens"]
         drafter = bundle["drafter"] or bundle["target"]  # self-draft

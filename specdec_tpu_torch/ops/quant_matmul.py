@@ -16,8 +16,12 @@ wrapper each:
   ``csrc/int8_matmul.cu`` (TPU ``_int8_kernel``, K7).
 
 A stacked wrapper hands the kernel the whole stack and the layer index;
-the kernel reads the layer in place. On a CPU tensor a wrapper computes
-its plain version; on a CUDA tensor it launches the kernel or raises. The
+the kernel reads the layer in place. A 4-bit weight whose K the kernels do
+not take (``four_bit_takes``) is routed by its shape, before any launch,
+to ``dequant_matmul`` (``x @ dequantize(w)``, the JAX package's XLA
+route); the kernel wrappers themselves keep raising on such a K. On a CPU
+tensor a wrapper computes its plain version; on a CUDA tensor it launches
+the kernel or raises. The
 plain versions compute the TPU kernels' arithmetic (x cast to bf16, f32
 sums, a bf16 result cast to ``x.dtype``):
 
@@ -298,15 +302,51 @@ def _wrappers(w: Any):
                         "weight") from None
 
 
+def kernel_takes(kind: str, K: int) -> bool:
+    """Whether a weight of format ``kind`` ("int8", "int4", "nf4" or
+    "fp4") and input width K runs on its kernel: INT8 at any K, the 4-bit
+    formats where ``four_bit_takes(K)``, else ``dequant_matmul``. Decided
+    from the shape alone, before any launch, as
+    ``core/model.py::kernel_route`` decides attention; the loaders report
+    it by projection (``quant/core.py::check_kernel_shapes``)."""
+    return kind == "int8" or four_bit_takes(K)
+
+
+def _kind(w: Any) -> str:
+    return "int8" if isinstance(w, Int8Weight) else "4-bit"
+
+
+def dequant_matmul(x: torch.Tensor, w: Any,
+                   idx: Optional[int] = None) -> torch.Tensor:
+    """x @ dequantize(w) through ``torch.matmul``: the route of a 4-bit
+    weight whose K the kernels do not take, with the JAX package's XLA
+    semantics (``specdec_tpu/ops/quant_matmul.py:595-600``): the weight
+    dequantized to bf16 for a bf16 x, else to f32, one product, the output
+    in x's dtype. ``idx``: layer ``idx`` of a stack. Counted in
+    ``dequant_matmul.calls``, on every device."""
+    if idx is not None:
+        w = type(w)(*(f[int(idx)] for f in _fields(w)))
+    wd = dequantize(w, torch.bfloat16 if x.dtype == torch.bfloat16
+                    else torch.float32)
+    dequant_matmul.calls += 1
+    return torch.matmul(x.to(wd.dtype), wd).to(x.dtype)
+
+
 def quant_matmul(x: torch.Tensor, w: Any) -> torch.Tensor:
     """x @ w for a 2D quantized weight; x: [..., K] any float dtype; the
-    output dtype follows x."""
+    output dtype follows x. Its kernel where ``kernel_takes``, else
+    ``dequant_matmul``."""
+    if not kernel_takes(_kind(w), x.shape[-1]):
+        return dequant_matmul(x, w)
     return _wrappers(w)[0](x, w)
 
 
 def quant_matmul_stacked(x: torch.Tensor, w: Any, idx: int) -> torch.Tensor:
     """x @ w[idx] for a STACKED quantized container ([L, ...] leaves). The
-    kernel reads the layer in place; nothing is copied."""
+    kernel reads the layer in place; nothing is copied. A 4-bit K the
+    kernels do not take goes to ``dequant_matmul``."""
+    if not kernel_takes(_kind(w), x.shape[-1]):
+        return dequant_matmul(x, w, idx)
     return _wrappers(w)[1](x, w, idx)
 
 
@@ -316,3 +356,4 @@ q4_halfplane_matmul.launches = 0
 q4_halfplane_matmul_stacked.launches = 0
 int8_matmul.launches = 0
 int8_matmul_stacked.launches = 0
+dequant_matmul.calls = 0

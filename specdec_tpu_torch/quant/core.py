@@ -16,9 +16,10 @@ bit:
 
 ``qmatmul`` hands every container to ``ops/quant_matmul.py``, whose CUDA
 kernels (K1 for INT4, K6 for NF4/FP4, K7 for INT8) read the weights as
-stored. ``init_quantized_params`` builds a random model directly in
-quantized form, one layer at a time; ``check_kernel_shapes`` refuses, on
-the card, 4-bit shapes those kernels do not take. The loaders' host
+stored, except 4-bit weights whose K those kernels do not take, which
+``check_kernel_shapes`` reports as the dequant route (and refuses a 4-bit
+K that is no multiple of 64). ``init_quantized_params`` builds a random
+model directly in quantized form, one layer at a time. The loaders' host
 quantizers are in ``quant/host.py``.
 """
 from __future__ import annotations
@@ -365,19 +366,21 @@ def quantize_params(params: dict, kind: str = "int8",
 FOUR_BIT = ("int4", "nf4", "fp4")
 
 
-def check_kernel_shapes(cfg, kind: str, device) -> None:
-    """Refuse, before any launch, a model whose ``kind`` weights the card's
-    kernels cannot take: on a CUDA device, 4-bit weights need every
-    projection's K (its input width) to be one K1 and K6 take
-    (``ops/quant_matmul.py::four_bit_takes``). The JAX
-    package sends such shapes to an XLA dequant instead; the port's plain
-    path takes any K on the CPU, so nothing is refused there. Raises
-    ValueError naming the tensor (as the fused loaders store it), its K,
-    and the formats that load it."""
-    from specdec_tpu_torch.ops.quant_matmul import four_bit_takes
+def check_kernel_shapes(cfg, kind: str) -> dict:
+    """The route each projection of a ``kind`` model takes, decided by its
+    K (input width) before any launch: ``{tensor name (as the fused loaders
+    store it): "kernel" or "dequant"}``, by the rule the matmuls apply
+    (``ops/quant_matmul.py::kernel_takes``): 4-bit weights whose K the
+    kernels do not take go to ``dequant_matmul`` (the JAX package's XLA
+    route), INT8 always takes its kernel. Empty for ``kind`` "none". Raises ValueError for a 4-bit K
+    that is no multiple of the 64-row absmax block, which no 4-bit
+    container holds (the JAX quantizers assert the same): the loaders call
+    this first, so such a model is refused before anything is read or
+    trained."""
+    from specdec_tpu_torch.ops.quant_matmul import kernel_takes
 
-    if kind not in FOUR_BIT or torch.device(device).type != "cuda":
-        return
+    if kind not in FOUR_BIT + ("int8",):
+        return {}
     D = cfg.hidden_size
     shapes = [("wqkv", D), ("wo", cfg.num_heads * cfg.head_dim),
               ("w_gateup" if cfg.gated_mlp else "w_up", D),
@@ -385,12 +388,13 @@ def check_kernel_shapes(cfg, kind: str, device) -> None:
     if not cfg.tie_embeddings:
         shapes.append(("lm_head", D))
     for name, K in shapes:
-        if not four_bit_takes(K):
+        if kind in FOUR_BIT and K % NF4_BLOCK:
             raise ValueError(
-                f"{kind} weights on {device}: {name} has K={K}, which the "
-                "4-bit kernels do not take (they read the absmax "
-                "block-major: K must be a multiple of 256); load this model "
+                f"{kind} weights: {name} has K={K}, not a multiple of "
+                f"{NF4_BLOCK} (the 4-bit absmax block); load this model "
                 "with quantization 'int8' or 'none'")
+    return {name: "kernel" if kernel_takes(kind, K) else "dequant"
+            for name, K in shapes}
 
 
 def concat_columns(parts: list):
@@ -473,15 +477,15 @@ def init_quantized_params(cfg, seed: int = 0, kind: str = "int8",
     (quantized) are drawn, in that order. The draws are
     ``init_layer_params``'s for each layer, so drawing the same stream
     again into dense layers and calling ``quantize_params(kind,
-    fuse=fuse)`` gives the same bits. Refuses shapes the card's kernels do
-    not take first (``check_kernel_shapes``)."""
+    fuse=fuse)`` gives the same bits. Refuses a 4-bit K no container holds
+    first (``check_kernel_shapes``)."""
     from functools import partial
 
     from specdec_tpu_torch import resolve_device
     from specdec_tpu_torch.core.model import init_layer_params, normal_init
 
     device = resolve_device(device)
-    check_kernel_shapes(cfg, kind, device)
+    check_kernel_shapes(cfg, kind)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
     fn = partial(quantize_chunked, _QUANTIZERS[kind])

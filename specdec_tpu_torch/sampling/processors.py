@@ -18,12 +18,39 @@ import torch
 _FILTER_VALUE = -1e20
 
 
+class DataRowsGenerator(torch.Generator):
+    """A generator for one data rank of a batch of ``total`` rows that
+    holds rows [lo, lo + n): every batched draw (``uniform``) is made for
+    the whole batch and the rank keeps its own rows, so a data-parallel
+    run draws what the unsharded run draws for those rows."""
+
+    def __new__(cls, device, total: int, lo: int):
+        return super().__new__(cls, device=device)
+
+    def __init__(self, device, total: int, lo: int):
+        self.batch_rows = (int(total), int(lo))
+
+
+def uniform(shape, generator: Optional[torch.Generator],
+            device) -> torch.Tensor:
+    """f32 uniforms of ``shape`` (leading axis: batch rows) from
+    ``generator``; a ``DataRowsGenerator`` draws the whole batch's and
+    returns its rows."""
+    rows = getattr(generator, "batch_rows", None)
+    if rows is None:
+        return torch.rand(shape, generator=generator, dtype=torch.float32,
+                          device=device)
+    total, lo = rows
+    u = torch.rand((total,) + tuple(shape[1:]), generator=generator,
+                   dtype=torch.float32, device=device)
+    return u[lo:lo + shape[0]]
+
+
 def _gumbel_argmax(scores: torch.Tensor,
                    generator: Optional[torch.Generator]) -> torch.Tensor:
     """argmax(scores + Gumbel noise) over the last axis: a categorical draw
     from softmax(scores)."""
-    u = torch.rand(scores.shape, generator=generator, dtype=torch.float32,
-                   device=scores.device)
+    u = uniform(scores.shape, generator, scores.device)
     # torch.rand may return exactly 0, whose Gumbel value is -inf
     u = torch.clamp_min(u, torch.finfo(torch.float32).tiny)
     gumbel = -torch.log(-torch.log(u))

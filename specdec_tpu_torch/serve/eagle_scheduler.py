@@ -34,7 +34,7 @@ from specdec_tpu_torch.sampling.processors import (
 )
 from specdec_tpu_torch.sampling.utils import normalize_eos
 from specdec_tpu_torch.serve.scheduler import (
-    ContinuousBatcher, Request, _first_token, _install_row,
+    ContinuousBatcher, Request, _first_token, _install_row, data_slots,
 )
 
 
@@ -87,7 +87,7 @@ class EagleContinuousBatcher(ContinuousBatcher):
         self.device = resolve_device(device)
         self.eagle_cfg, self.eagle_params = eagle_cfg, eagle_params
         self.target_cfg, self.target_params = target_cfg, target_params
-        self.B = num_slots
+        self.data_mesh, self.B = data_slots(target_params, num_slots)
         self.gamma = gamma
         self.auto_gamma = False
         self.max_prompt_len = max_prompt_len

@@ -39,7 +39,7 @@ from specdec_tpu_torch.sampling.processors import (
 )
 from specdec_tpu_torch.sampling.utils import eos_mask, normalize_eos
 from specdec_tpu_torch.serve.scheduler import (
-    ContinuousBatcher, Request, _install_row,
+    ContinuousBatcher, Request, _install_row, data_slots,
 )
 
 
@@ -94,7 +94,7 @@ class NasdContinuousBatcher(ContinuousBatcher):
                  seed: int = 0, device=None):
         self.device = resolve_device(device)
         self.target_cfg, self.target_params = target_cfg, target_params
-        self.B = num_slots
+        self.data_mesh, self.B = data_slots(target_params, num_slots)
         self.gamma = gamma
         self.auto_gamma = False
         self.filler_top_k = max(1, int(filler_top_k))

@@ -200,7 +200,7 @@ class PagedContinuousBatcher(ContinuousBatcher):
         # drafter_paged=True pools both
         self.drafter_paged = drafter_paged
         # default pool: half of what per-slot reservation would need
-        pool_tokens = pool_tokens or (num_slots * self.S + self.S) // 2
+        pool_tokens = pool_tokens or (self.B * self.S + self.S) // 2
         # the table must cover _needed_now at max length: S tokens plus one
         # full dispatch horizon at the largest gamma a retune may reach
         horizon = self.windows_per_sync * (self.auto_gamma_max + 1) + 1
@@ -210,11 +210,11 @@ class PagedContinuousBatcher(ContinuousBatcher):
                              2 * self.max_pages_per_seq)
 
         caches = dict(t_cache=init_paged_cache(
-            target_cfg, num_slots, self.num_pages, page_size,
+            target_cfg, self.B, self.num_pages, page_size,
             self.max_pages_per_seq, device=self.device))
         if drafter_paged:
             caches["d_cache"] = init_paged_cache(
-                drafter_cfg, num_slots, self.num_pages, page_size,
+                drafter_cfg, self.B, self.num_pages, page_size,
                 self.max_pages_per_seq, device=self.device)
         # hybrid: d_cache stays the slotted [L, B, S] cache of super()
         self.state = dataclasses.replace(self.state, **caches)
@@ -226,8 +226,8 @@ class PagedContinuousBatcher(ContinuousBatcher):
         self._alloc_t.alloc("_garbage", 1)
         if drafter_paged:
             self._alloc_d.alloc("_garbage", 1)
-        self._slot_pages_t: List[List[int]] = [[] for _ in range(num_slots)]
-        self._slot_pages_d: List[List[int]] = [[] for _ in range(num_slots)]
+        self._slot_pages_t: List[List[int]] = [[] for _ in range(self.B)]
+        self._slot_pages_d: List[List[int]] = [[] for _ in range(self.B)]
         self._tables_dirty = False
         self.preemptions = 0
 
@@ -250,7 +250,7 @@ class PagedContinuousBatcher(ContinuousBatcher):
                 # without reuse the suffix is always the whole prompt
                 prefill_buckets = (P,)
         self.prefill_buckets = tuple(sorted(prefill_buckets))
-        self._slot_shared: List[List[int]] = [[] for _ in range(num_slots)]
+        self._slot_shared: List[List[int]] = [[] for _ in range(self.B)]
         # slot -> [req, block_keys, matched_blocks, prompt_len, offset]
         self._prefilling: dict = {}
 
@@ -527,4 +527,4 @@ class PagedContinuousBatcher(ContinuousBatcher):
         while (self.queue or self._prefilling
                or any(r is not None for r in self.slot_req)):
             self.step()
-        return self.completed
+        return self._gathered()

@@ -114,11 +114,33 @@ def _admit_slot(drafter_cfg: ModelConfig, drafter_params,
         d_cache=install_slot(state.d_cache, d1, slot, pos - 2))
 
 
+def data_slots(target_params, num_slots: int):
+    """(mesh, slots of this data rank): under a data-parallel mesh (target
+    params sharded with dp > 1) the ``num_slots`` split over the data
+    ranks, else (None, num_slots). Raises ValueError when they do not
+    split evenly."""
+    mesh = target_params.get("mesh")
+    if mesh is None or mesh.dp == 1:
+        return None, num_slots
+    if num_slots % mesh.dp:
+        raise ValueError(f"{num_slots} slots do not split over dp={mesh.dp} "
+                         "data ranks")
+    return mesh, num_slots // mesh.dp
+
+
 class ContinuousBatcher:
     """Admit/evict requests into fixed device slots; drive spec windows.
 
     ``device=None`` means the card; ``seed`` seeds the one generator that
-    draws for every admission and window."""
+    draws for every admission and window.
+
+    Under a data-parallel mesh every data rank holds ``num_slots / dp``
+    slots and serves the requests whose id is its data index modulo dp
+    (every rank submits every request); ``run`` gathers the completed
+    requests of all data ranks onto each. Greedy requests equal the
+    unsharded batcher's; sampled ones draw from each rank's own generator,
+    so they match the unsharded batcher in distribution, not token for
+    token."""
 
     def __init__(self, drafter_cfg: ModelConfig, drafter_params,
                  target_cfg: ModelConfig, target_params,
@@ -137,7 +159,7 @@ class ContinuousBatcher:
         self.device = resolve_device(device)
         self.drafter_cfg, self.drafter_params = drafter_cfg, drafter_params
         self.target_cfg, self.target_params = target_cfg, target_params
-        self.B = num_slots
+        self.data_mesh, self.B = data_slots(target_params, num_slots)
         self.gamma = gamma
         # runtime gamma adaptation (engine/gamma_tuner.py): after
         # auto_gamma_min_drafts measured drafts, switch to the model's best
@@ -198,11 +220,25 @@ class ContinuousBatcher:
     # ------------------------------------------------------------------ API
     def submit(self, prompt_ids: Sequence[int],
                max_new_tokens: Optional[int] = None) -> int:
+        """Queue a request; returns its id. ``max_new_tokens`` None means
+        the constructor's ``max_new_tokens``, which sized the cache: a
+        request may ask for 1 up to that many, and ValueError is raised
+        otherwise (the JAX batcher clamps the overflow onto the cache's
+        last slots)."""
+        if max_new_tokens is None:
+            max_new_tokens = self.default_max_new
+        elif not 1 <= max_new_tokens <= self.default_max_new:
+            raise ValueError(
+                f"max_new_tokens={max_new_tokens}: this batcher's cache was "
+                f"sized for 1..{self.default_max_new} new tokens a request")
         rid = self._next_id
         self._next_id += 1
+        mesh = self.data_mesh
+        if mesh is not None and rid % mesh.dp != mesh.dp_index:
+            return rid  # another data rank serves it
         req = Request(request_id=rid,
                       prompt_ids=[int(t) for t in prompt_ids][:self.max_prompt_len],
-                      max_new_tokens=max_new_tokens or self.default_max_new,
+                      max_new_tokens=int(max_new_tokens),
                       submit_time=time.time())
         self.queue.append(req)
         return rid
@@ -322,4 +358,12 @@ class ContinuousBatcher:
         by id."""
         while self.queue or any(r is not None for r in self.slot_req):
             self.step()
+        return self._gathered()
+
+    def _gathered(self) -> Dict[int, Request]:
+        """``completed``, with every data rank's requests under a
+        data-parallel mesh (one ``all_gather_object`` a call)."""
+        if self.data_mesh is not None:
+            for part in self.data_mesh.gather_rows(self.completed):
+                self.completed.update(part)
         return self.completed

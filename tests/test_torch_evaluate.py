@@ -116,8 +116,10 @@ def test_nll_sums_masking(params):
 
 def test_quantized_perplexity_launches_the_wrappers(params, monkeypatch):
     """On an INT4 target every projection and the lm_head go through the
-    weight kernel's wrappers, one call a layer projection per forward (the
-    plain version here; the kernel on the card)."""
+    weight kernel's wrappers where the kernel takes their K (the plain
+    version here; the kernel on the card), and through the dequant route
+    where it does not (K % 256 != 0: every K of this model): one call a
+    layer projection per forward, each on exactly one of the two."""
     from specdec_tpu_torch.ops import quant_matmul as qm
 
     _, tp_ = both(params, "int4")
@@ -128,12 +130,20 @@ def test_quantized_perplexity_launches_the_wrappers(params, monkeypatch):
             calls.append(label)
             return fn(*a)
         return call
+
+    def route(x, w, idx=None, real=qm.dequant_matmul):
+        calls.append("route 2d" if idx is None else "route")
+        return real(x, w, idx)
+    route.calls = qm.dequant_matmul.calls  # the route counts itself by name
     monkeypatch.setitem(qm._WRAPPERS, tq.Int4Weight, (
         counted("2d", qm.int4_matmul),
         counted("stacked", qm.int4_matmul_stacked)))
+    monkeypatch.setattr(qm, "dequant_matmul", route)
     tev.perplexity(CFG, tp_, SEQS, batch_size=4, device="cpu")
     # unfused q/k/v, gate/up: 7 projections a layer, 2 layers, one forward
-    assert calls.count("stacked") == 7 * 2 and calls.count("2d") == 1
+    assert calls.count("stacked") + calls.count("route") == 7 * 2
+    assert calls.count("2d") + calls.count("route 2d") == 1
+    assert qm.four_bit_takes(CFG.hidden_size) == (calls.count("2d") == 1)
 
 
 def test_evaluate_needs_a_device_or_the_card(params, monkeypatch):

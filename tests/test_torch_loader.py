@@ -561,16 +561,20 @@ def _t5_dir(tmp_path):
 
 @pytest.mark.parametrize("case", ["t5", "mesh", "vllm_tp"])
 def test_later_slices_raise_not_implemented(case, tmp_path, monkeypatch):
-    """Specs that need a later slice raise NotImplementedError naming
-    their ROADMAP.md item, before anything loads (the training specs load:
-    tests/test_torch_checkpoint.py). T5, once item 2, is ported: a T5
-    directory now goes to the codec loader (tests/test_torch_codec.py),
-    which looks for its weights."""
+    """Every spec of the JAX entry points is ported now. T5, once item 2,
+    goes to the codec loader (tests/test_torch_codec.py), which looks for
+    its weights. A mesh (TP_SIZE, or the facade's tensor_parallel_size)
+    builds on a world of one process per card (tests/test_torch_parallel.py):
+    a single process that was launched as no rank of a world raises a
+    ValueError naming the launch, before anything loads."""
     if case == "t5":
         with pytest.raises(FileNotFoundError, match="model.safetensors"):
             tml.load_models(_t5_dir(tmp_path), device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    for name in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID",
+                 "MASTER_ADDR", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node"):
         if case == "mesh":
             from specdec_tpu_torch.engine.benchmark_runner import (
                 BenchmarkRunner,
@@ -587,50 +591,69 @@ def test_later_slices_raise_not_implemented(case, tmp_path, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# the refusal of 4-bit shapes the card's kernels do not take
+# the route of 4-bit shapes the card's kernels do not take
 # ---------------------------------------------------------------------------
 
 def test_check_kernel_shapes_refuses_on_cuda_only():
-    """hidden 96: K=96 is no multiple of 256. On a CUDA device every 4-bit
-    format is refused, naming the tensor and its K; int8 and none pass, and
-    so does the CPU (the plain path takes any K)."""
-    cfg = ModelConfig(vocab_size=256, hidden_size=96, intermediate_size=256,
-                      num_layers=1, num_heads=2, num_kv_heads=1, head_dim=48)
+    """check_kernel_shapes reports each projection's route by its K: a
+    4-bit weight whose K is no multiple of 256 goes to the dequant route
+    (hidden 192: wqkv, wo, w_gateup and the lm_head; w_down K=256 takes
+    its kernel), INT8 always takes its kernel, and "none" has no
+    projection to route. Nothing is refused on any device any more."""
+    cfg = ModelConfig(vocab_size=256, hidden_size=192, intermediate_size=256,
+                      num_layers=1, num_heads=3, num_kv_heads=1, head_dim=64)
     for kind in ("int4", "nf4", "fp4"):
-        with pytest.raises(ValueError, match=r"wqkv has K=96.*'int8' or "
-                                             r"'none'"):
-            tq.check_kernel_shapes(cfg, kind, "cuda")
-        tq.check_kernel_shapes(cfg, kind, "cpu")
-    for kind in ("int8", "none"):
-        tq.check_kernel_shapes(cfg, kind, "cuda")
-    wide = cfg.replace(hidden_size=256, num_heads=4, head_dim=64,
-                       intermediate_size=704)
-    with pytest.raises(ValueError, match="w_down has K=704"):
-        tq.check_kernel_shapes(wide, "int4", "cuda")
+        assert tq.check_kernel_shapes(cfg, kind) == {
+            "wqkv": "dequant", "wo": "dequant", "w_gateup": "dequant",
+            "w_down": "kernel", "lm_head": "dequant"}
+    assert set(tq.check_kernel_shapes(cfg, "int8").values()) == {"kernel"}
+    assert tq.check_kernel_shapes(cfg, "none") == {}
+    wide = cfg.replace(hidden_size=256, num_heads=4, intermediate_size=704)
+    routes = tq.check_kernel_shapes(wide, "int4")
+    assert routes.pop("w_down") == "dequant"
+    assert set(routes.values()) == {"kernel"}
+    with pytest.raises(ValueError, match=r"wqkv has K=96.*'int8' or 'none'"):
+        tq.check_kernel_shapes(cfg.replace(hidden_size=96), "nf4")
+    assert tq.check_kernel_shapes(cfg.replace(hidden_size=96), "int8")
 
 
 @pytest.mark.parametrize("entry", ["synthetic", "streamed", "load_models"])
-def test_loaders_refuse_before_any_launch(entry, tmp_path, monkeypatch):
-    """The loaders call the check first: with a CUDA device claimed (no
-    card here), a 4-bit load of such shapes raises before a tensor is
-    made on it (llama-70m's w_down K=1376; a checkpoint of hidden 96 whose
-    weights are never read)."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    d = tmp_path / "ckpt96"
-    d.mkdir()
-    (d / "config.json").write_text(json.dumps(dict(
-        model_type="llama", vocab_size=256, hidden_size=96,
-        intermediate_size=256, num_hidden_layers=1, num_attention_heads=2,
-        num_key_value_heads=1)))
-    with pytest.raises(ValueError, match="K=(1376|96)"):
-        if entry == "synthetic":
+def test_loaders_refuse_before_any_launch(entry, ckpts):
+    """The loaders no longer refuse 4-bit shapes the kernels do not take:
+    the test checkpoint (hidden 64, intermediate 128) streams into NF4 and
+    loads through load_models in FP4 with a LayerSkip drafter, and every
+    projection of a forward goes through the dequant route (3 layers x 4
+    projections + the lm_head), its logits the dequantized weights'.
+    ``synthetic:llama-70m`` (intermediate 1376 = 21.5 blocks of 64) still
+    raises before anything is made, as the JAX quantizer asserts: no 4-bit
+    format holds that K."""
+    from specdec_tpu_torch.ops import quant_matmul as tqm
+
+    if entry == "synthetic":
+        with pytest.raises(ValueError, match="w_down has K=1376"):
             tml._synthetic("synthetic:llama-70m", torch.bfloat16, "int4",
-                           device="cuda")
-        elif entry == "streamed":
-            tsl.load_hf_streamed(str(d), quantization="nf4", device="cuda")
-        else:
-            tml.load_models("synthetic:llama-70m", "layerskip:2",
-                            quantization="fp4", device="cuda")
+                           device="cpu")
+        return
+    if entry == "streamed":
+        cfg, params = tsl.load_hf_streamed(ckpts["llama_f32"],
+                                           dtype=torch.float32,
+                                           quantization="nf4", device="cpu")
+    else:
+        bundle = tml.load_models(ckpts["llama_f32"], "layerskip:1",
+                                 dtype=torch.float32, quantization="fp4",
+                                 device="cpu")
+        cfg, params = bundle["target"]["cfg"], bundle["target"]["params"]
+        assert bundle["drafter"]["cfg"].num_layers == 1
+    tokens = torch.tensor([[5, 9, 33, 2]])
+    before = tqm.dequant_matmul.calls
+    logits = tm.forward_full(cfg, params, tokens)
+    assert tqm.dequant_matmul.calls - before == 3 * 4 + 1
+    dense = {k: v for k, v in params.items() if k != "layers"}
+    dense["lm_head"] = tq.dequantize(params["lm_head"])
+    dense["layers"] = {k: tq.dequantize(v) if isinstance(v, tq.QUANTIZED)
+                       else v for k, v in params["layers"].items()}
+    torch.testing.assert_close(logits, tm.forward_full(cfg, dense, tokens),
+                               rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("entry", ["load_hf_model", "tokenizer"])
