@@ -26,8 +26,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 3b. kernel vs plain, paged attention: the paged decode-attention kernel,
    through both wrappers (a 4D pool, and a layer of stacked pools, which
    must agree bit for bit), against its plain version in float32 and bf16
-   at the decode, verify, long-context and serving shapes, and once at
-   qwen3-family heads (Hq=32, Hk=8, Dh=128), over bf16/f32 pools and over
+   at the decode, verify, long-context and serving shapes, once at
+   qwen3-family heads (Hq=32, Hk=8, Dh=128) and once at gemma-2b's (the
+   serving verify, Hq=8, Hk=1, Dh=256, pages of 16, where float32 q over
+   float32 pools must be refused before any launch), over bf16/f32 pools
+   and over
    int8 pools with their scales; its time beside the plain version's,
    ``scaled_dot_product_attention`` over K/V gathered (and, for int8,
    dequantized) beforehand (a yardstick the port never calls) and the
@@ -36,11 +39,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    K/V of q's type and over int8 K/V, in float32 and bf16, at the shapes
    the main paths give it (single sequence B=1, S=334, T = 1, 2, 13, 64;
    the serving drafter B=8, T = 1, 2 over the batcher's S; the admission
-   prefill T=256), at qwen3-family heads (decode and verify, Dh=128) and
-   at S=2048 (8 spans of 4 tiles), and EAGLE's int8 + flash catch-ups
+   prefill T=256), at qwen3-family heads (decode and verify, Dh=128), at
+   gemma-2b's (decode and verify, Dh=256; float32 over float32 refused
+   before any launch) and at S=2048 (8 spans of 4 tiles), and EAGLE's int8
+   + flash catch-ups
    and verify (T = 5, 6 over S = 145, 135), offsets up to S; a row's
    result must
-   not depend on T (at S=334 and 2048), nor a sequence's on the rest of its
+   not depend on T (at S=334 and 2048, and at Dh=256), nor a sequence's on
+   the rest of its
    batch (each alone at B=1, bit for bit); over the same keys laid out in
    pages of 64, K3/K4 equal the paged kernel K8a/K8b bit for bit (one
    kernel body, the same tiles and spans); times beside the plain
@@ -96,11 +102,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    ``--kv-quant int8 --attn flash``; and the paged engine under ``--quant
    int8`` and ``--quant nf4`` (K7 or K6 on every projection, at the
    serving row counts M = 8, 72, 256);
-4c. dispatch: a model with head_dim 256 (gemma's; the attention kernels
-   take at most 128) runs the slotted forward under the flash setting and
-   the paged forward with ``use_kernel=None``, over bf16 and int8 KV, with
-   no attention kernel launched, logits equal to the plain path's, and
-   ``use_kernel=True`` raising before any launch;
+4c. head_dim 256 at full width: google/gemma-2b's widths (GEMMA_2B
+   through ``config_from_hf``: 18 layers, Hq=8, Hk=1, Dh=256, F=16384,
+   V=256000, tied), random INT4 weights, its first 4 layers as the
+   drafter, under the flash setting with bf16 and int8 KV: greedy AR and
+   speculative decoding (gamma 12) of one sequence with K3 (K4) in every
+   layer of every forward, and the paged engine serving 4 requests with
+   K8a (K8b) in every target forward, every output equal to the plain
+   attention's greedy AR up to a top-two tie, ms a token with the kernels
+   and with the plain attention; then float32 over float32 KV (2 layers)
+   takes the plain route by config and ``use_kernel=True`` raises before
+   any launch;
 7. NASD on the INT4 target of phase 5, greedy (tools/bench_nasd.py's
    protocol, cut to 64 tokens: n = 3, gamma 5, prompts from
    default_rng(3)):
@@ -271,6 +283,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    forward 2 all-reduces a layer plus 2, the
    lm_head on K1a and every projection on K1b but, at tp=4, the w_down
    shard (K = 1408) on ``dequant_matmul``.
+14a. pipeline parallelism at one stage: an NCCL world of one rank,
+   ``pipeline_forward_full`` on the INT4 target of phase 5 (22 layers,
+   quantized lm_head) at B=8, T = 13 and 64, 1, 2 and 4 microbatches:
+   bit-equal to ``forward_full`` at one microbatch, the largest
+   difference and argmaxes up to top-two ties at more; launches;
+14b. gloo worlds on the one card (spawned, CUDA tensors, each hop staged
+   through the host): 2 stages over the 22 layers and 4 over the first
+   20, B=8, T=13, 1, 2 and 4 microbatches, under the plain attention and
+   the flash kernel (K3): logits within PP_LOGIT_FRO of the unsharded
+   forward's, argmaxes up to top-two ties, two faults planted at run time
+   (PP_FAULTS) reading above the limit, every rank's launches (4 K1b a
+   layer and microbatch, K1a a microbatch on the last stage, K3 a layer
+   and microbatch under flash); walls labelled one card's.
 
 Any failed phase exits 1 (without a CUDA device, or outside a checkout,
 too, before any result is printed). Standard output ends with the card's
@@ -349,18 +374,24 @@ TIMED_RUNS = 25
 MAIN_REPS = 1
 SLEEP_CYCLES = 50_000_000   # keeps the card busy while the runs enqueue
 
-# attention heads (Hq, Hk, Dh): the pair's, and a qwen3-family model's
-# (Qwen3-8B: 32 query heads over 8 KV heads of 128), run once on each
-# attention kernel
+# attention heads (Hq, Hk, Dh): the pair's, a qwen3-family model's
+# (Qwen3-8B: 32 query heads over 8 KV heads of 128) and google/gemma-2b's (8
+# query heads over 1 KV head of 256, the kernel body's 256 instance), run
+# on each attention kernel. At head_dim 256 float32 q over float32 K/V does
+# not fit a block's shared memory: that combination must be refused before
+# any launch, and is recorded as refused
 PAIR_HEADS = (32, 4, 64)
 QWEN3_HEADS = (32, 8, 128)
+GEMMA_HEADS = (8, 1, 256)
 # paged attention shapes: (label, B, T, page, MP, offsets, heads). Page 64
 # is the serving engine's: decode/verify are tools/bench_paged.py's
 # validation shapes; long reaches the config's 2048 positions; serve is the
 # serving engine's verify (8 slots, gamma 8) at its table width of 9 pages,
 # chunk a chunk of phase 4b's chunked prefill (prefill_chunk=64) at that
 # width; vllm-serve the serving facade's verify (phase 9d: 8 slots, gamma
-# 5) at its width of VLLM_TABLE_PAGES = 12 pages. Pages of 16 (four to a 64-key tile) and 128 (half a page a tile)
+# 5) at its width of VLLM_TABLE_PAGES = 12 pages; gemma-serve the serving
+# verify at gemma-2b's heads in pages of 16 over the same 576 positions.
+# Pages of 16 (four to a 64-key tile) and 128 (half a page a tile)
 # with offsets at page starts and ends. Every table's entries past its
 # sequence's last live page hold POISON, an out-of-range page index that
 # faults if the kernel reads it.
@@ -381,6 +412,8 @@ PAGED_SHAPES = [
     ("qwen3-verify", 4, 9, PAGE, 8, [40, 100, 350, 7], QWEN3_HEADS),
     ("vllm-serve", 8, 6, PAGE, 12, [30, 199, 260, 400, 511, 600, 640, 700],
      PAIR_HEADS),
+    ("gemma-serve", 8, 9, 16, 36, [60, 150, 230, 320, 90, 200, 280, 330],
+     GEMMA_HEADS),
 ]
 # row independence of the paged kernel: the rows of a T=64 call against the
 # same rows of calls at these T, at every paged shape
@@ -407,7 +440,8 @@ BF16_U = 2.0 ** -8
 # spans hold 4 tiles each; and EAGLE's sequential forwards under int8 KV +
 # flash (phase 8b): the chain's catch-up and verify (T = 6, gamma 5) over
 # its S = 64 + TREE_GEN + 5 + 2, the (2, 2, 2) tree's catch-up (T = 5) over
-# S = 64 + TREE_GEN + 15 + 2. Offsets reach S - T.
+# S = 64 + TREE_GEN + 15 + 2; the single-sequence decode and verify at
+# gemma-2b's heads (phase 4c's shapes). Offsets reach S - T.
 SINGLE_S, SERVE_S, LONG_S = 334, 394, 2048
 EAGLE_S, EAGLE_TREE_S = 135, 145
 FLASH_SHAPES = [
@@ -427,11 +461,15 @@ FLASH_SHAPES = [
     ("eagle-catch-up", 1, EAGLE_S, 6, [116], PAIR_HEADS),
     ("eagle-verify", 1, EAGLE_S, 6, [129], PAIR_HEADS),
     ("eagle-tree-catch-up", 1, EAGLE_TREE_S, 5, [140], PAIR_HEADS),
+    ("gemma-decode", 1, SINGLE_S, 1, [333], GEMMA_HEADS),
+    ("gemma-verify", 1, SINGLE_S, 13, [321], GEMMA_HEADS),
 ]
 # row independence: the rows of a T=64 call at one offset against the same
-# rows of calls at smaller T, over a cache of each capacity (S, offset)
+# rows of calls at smaller T, over a cache of each capacity and heads (S,
+# offset, heads)
 ROW_CHECK_T = (1, 2, 13)
-ROW_CHECK_S = ((SINGLE_S, 200), (LONG_S, 1900))
+ROW_CHECK_S = ((SINGLE_S, 200, PAIR_HEADS), (LONG_S, 1900, PAIR_HEADS),
+               (SINGLE_S, 200, GEMMA_HEADS))
 
 
 def say(*a):
@@ -521,9 +559,17 @@ def phase_build():
     say(f"[2 build] nvcc built {sorted(log)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, rec in log.items():
+        # per instance: its mangled name, registers and spill bytes
+        entry = spill = None
         for line in rec["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"  {name}: {line.strip()}")
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = m.group(1)
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line:
+                regs = re.search(r"Used \d+ registers", line).group(0)
+                say(f"  {name}: {entry}: {regs}; {spill}")
     for name in SPILL_CHECKED:
         spills = [int(n) for n in re.findall(
             r"(\d+) bytes spill (?:stores|loads)", log[name]["ptxas"])]
@@ -919,6 +965,25 @@ def poisoned(table, offsets, T, page):
         torch.int32)
 
 
+def refusal(what, calls):
+    """Each of ``calls`` (an attention wrapper on a combination of head_dim
+    and types that the kernel does not take) raises ValueError before any
+    launch: the wrappers' counts do not move. Returns the first message."""
+    counts = launches()
+    msgs = []
+    for call in calls:
+        try:
+            call()
+        except ValueError as e:
+            msgs.append(str(e))
+        else:
+            fail(f"{what}: the kernel's wrapper did not refuse")
+    torch.cuda.synchronize()
+    if launches() != counts:
+        fail(f"{what}: launched before refusing")
+    return msgs[0]
+
+
 def phase_paged_kernel(device, against=None):
     """The paged attention kernel vs its plain version at PAGED_SHAPES, in
     float32 and bf16, through both wrappers (which must agree bit for bit),
@@ -929,6 +994,8 @@ def phase_paged_kernel(device, against=None):
     sequence's on the others of its batch. ``against``: build_against's
     (NAME, library); where NAME is ``paged_attention``, that library is
     held to the same tolerance and timed in turns with the checkout's.
+    A combination the kernel does not take (float32 over float32 pools at
+    head_dim 256) must be refused by both wrappers before any launch.
     Returns the per-shape records of each pool format (timed in bf16, the
     main path's type) and each format's largest absolute error."""
     from specdec_tpu_torch.core.cache import quantize_kv_block
@@ -936,6 +1003,7 @@ def phase_paged_kernel(device, against=None):
         gather_page_scales, gather_pages,
     )
     from specdec_tpu_torch.ops import paged_attention as pa
+    from specdec_tpu_torch.ops.attention_args import kernel_takes
 
     other = (against[1] if against and against[0] == "paged_attention"
              else None)
@@ -991,9 +1059,19 @@ def phase_paged_kernel(device, against=None):
                     pv_abs = pa.paged_attention_reference(
                         q.float(), ks[1].float(), vs[1].float().abs(),
                         clean, off)
+                what = f"paged {label} {fmt} pool, q {dtype}"
+                if not kernel_takes(Dh, dtype, fmt == "int8"):
+                    records[fmt].append({
+                        "name": label, "pool": fmt,
+                        "dtype": str(dtype).split(".")[-1], "B": B, "T": T,
+                        "page": page, "MP": MP, "heads": [Hq, Hk, Dh],
+                        "refused": refusal(what, (
+                            kern, lambda: k4(q, table, off)))})
+                    say(f"[3b paged] {label:12s} {fmt} q {dtype} Dh={Dh}: "
+                        "refused before any launch (shared memory)")
+                    continue
                 got, plain = kern(), ref()
                 torch.cuda.synchronize()
-                what = f"paged {label} {fmt} pool, q {dtype}"
                 if not torch.equal(k4(q, table, off), got):
                     fail(f"{what}: the stacked wrapper (layer 1) differs "
                          "from the 4D wrapper on that layer")
@@ -1067,7 +1145,7 @@ def phase_paged_kernel(device, against=None):
                         f"{rec['within_1ulp']:.1%} within one; "
                         f"{rec['bound_ratio']:.2f} of the allowance)")
                 records[fmt].append(rec)
-    n = sum(map(len, records.values()))
+    n = sum("refused" not in r for rs in records.values() for r in rs)
     say(f"[3b paged] all {n} comparisons within tolerance: "
         f"{tol_summary(records['bf16'] + records['int8'])}; tables poisoned "
         f"past each sequence's last live page (entry {POISON}); stacked == "
@@ -1092,14 +1170,16 @@ def phase_flash_kernel(device, against=None):
     K/V (K4), q in float32 and bf16; checks that a query row's result does
     not depend on T, nor a sequence's on the others of its batch; and K3/K4
     against the paged kernels K8a/K8b over the same keys laid out in pages
-    of 64, bit for bit.
+    of 64, bit for bit. A combination the kernel does not take (float32 q
+    over float32 K/V at head_dim 256) must be refused before any launch.
     ``against``: build_against's (NAME, library); where NAME is
     ``decode_attention``, that library is held to the same tolerance and
-    timed in turns with the checkout's. Returns the per-shape records of each kernel (timed in
-    bf16) and each kernel's largest absolute error."""
+    timed in turns with the checkout's. Returns the per-shape records of
+    each kernel (timed in bf16) and each kernel's largest absolute error."""
     from specdec_tpu_torch.core.cache import quantize_kv_block
     from specdec_tpu_torch.ops import decode_attention as da
     from specdec_tpu_torch.ops import paged_attention as pa
+    from specdec_tpu_torch.ops.attention_args import kernel_takes
 
     other = (against[1] if against and against[0] == "decode_attention"
              else None)
@@ -1140,10 +1220,20 @@ def phase_flash_kernel(device, against=None):
                 q = torch.randn((B, T, Hq, Dh), generator=gen,
                                 device=device).to(dtype)
                 k, v = (kq, vq) if quant else (kf.to(dtype), vf.to(dtype))
+                what = f"flash {label} {name} q {dtype}"
+                if not kernel_takes(Dh, dtype, quant):
+                    records[name].append({
+                        "name": label, "kernel": name,
+                        "dtype": str(dtype).split(".")[-1], "B": B, "S": S,
+                        "T": T, "heads": [Hq, Hk, Dh],
+                        "refused": refusal(what, (lambda: run(
+                            "kernel", q, k, v, off, quant),))})
+                    say(f"[3c flash] {label:14s} {name} q {dtype} Dh={Dh}: "
+                        "refused before any launch (shared memory)")
+                    continue
                 got = run("kernel", q, k, v, off, quant)
                 plain = run("plain", q, k, v, off, quant)
                 torch.cuda.synchronize()
-                what = f"flash {label} {name} q {dtype}"
                 pv = (pv_abs(q, k, v, off, quant)
                       if dtype == torch.bfloat16 else None)
                 rec = {"name": label, "kernel": name,
@@ -1207,8 +1297,6 @@ def phase_flash_kernel(device, against=None):
     # a row's result does not depend on T: the rows of a T=64 call against
     # the same rows (same positions) of calls at smaller T (the kernel runs
     # the T=64 call in one block per row tile, the others in clusters)
-    Hq, Hk, Dh = PAIR_HEADS
-
     def as_pages(a, S):
         """[1, S, Hk(, Dh)] -> a one-layer pool [1, MP + 1, Hk, page(, Dh)]
         whose page p + 1 holds positions p * page ..; page 0 and the tail
@@ -1220,7 +1308,7 @@ def phase_flash_kernel(device, against=None):
         pool = pad.reshape(MP, PAGE, *a.shape[2:]).transpose(1, 2)
         return torch.cat([torch.zeros_like(pool[:1]), pool])[None].contiguous()
 
-    for S, o in ROW_CHECK_S:
+    for S, o, (Hq, Hk, Dh) in ROW_CHECK_S:
         off = torch.tensor([o], dtype=torch.int32, device=device)
         kf, vf = (torch.randn((1, S, Hk, Dh), generator=gen, device=device)
                   for _ in range(2))
@@ -1229,6 +1317,8 @@ def phase_flash_kernel(device, against=None):
         table = torch.arange(1, MP + 1, dtype=torch.int32, device=device)[None]
         for name, quant in (("K3", False), ("K4", True)):
             for dtype in (torch.float32, torch.bfloat16):
+                if not kernel_takes(Dh, dtype, quant):
+                    continue
                 k, v = (kq, vq) if quant else (kf.to(dtype), vf.to(dtype))
                 q = torch.randn((1, 64, Hq, Dh), generator=gen,
                                 device=device).to(dtype)
@@ -1247,24 +1337,26 @@ def phase_flash_kernel(device, against=None):
                     qt = q[:, :T].contiguous()
                     part = run("kernel", qt, k, v, off, quant)
                     if not torch.equal(part, full[:, :T]):
-                        fail(f"flash {name} {dtype} S={S}: rows of the T={T} "
-                             "call differ from the same rows of the T=64 "
-                             "call")
+                        fail(f"flash {name} {dtype} S={S} Dh={Dh}: rows of "
+                             f"the T={T} call differ from the same rows of "
+                             "the T=64 call")
                     # over the same keys laid out in pages of 64 (MP =
                     # ceil(S / 64): the same tiles, so the same spans), K3
                     # equals K8a and K4 equals K8b bit for bit
                     if not torch.equal(paged(qt), part):
-                        fail(f"flash {name} {dtype} S={S} T={T}: the paged "
-                             "kernel over the same keys in pages of "
+                        fail(f"flash {name} {dtype} S={S} T={T} Dh={Dh}: the "
+                             "paged kernel over the same keys in pages of "
                              f"{PAGE} differs from the flash-decode kernel")
-    n = sum(map(len, records.values()))
+    n = sum("refused" not in r for rs in records.values() for r in rs)
     say(f"[3c flash] all {n} comparisons within tolerance: "
         f"{tol_summary(records['K3'] + records['K4'])}; rows independent of "
-        f"T (T in {ROW_CHECK_T} against 64; S, offset in {ROW_CHECK_S}) and "
-        "of the batch "
+        f"T (T in {ROW_CHECK_T} against 64; S, offset, heads in "
+        f"{ROW_CHECK_S}) and of the batch "
         "(each sequence alone at B=1 against the B=8 calls); K3 == K8a and "
         f"K4 == K8b bit for bit over the same keys in pages of {PAGE} (T in "
-        f"{ROW_CHECK_T + (64,)}; S in {[S for S, _ in ROW_CHECK_S]})")
+        f"{ROW_CHECK_T + (64,)}; S in {[S for S, _, _ in ROW_CHECK_S]}); "
+        "float32 over float32 refused before any launch at head_dim "
+        f"{GEMMA_HEADS[2]}")
     return records, max_err
 
 
@@ -1762,9 +1854,27 @@ def phase_serve(pair, device, label="bf16 KV", engines=("paged", "slotted"),
 # Dispatch at head_dim 256, NASD, NASD serving and beam search
 # ---------------------------------------------------------------------------
 
-# a gemma-2B-shaped attention (8 query heads over 1 KV head of 256) at the
-# pair's width, 2 layers: a head_dim the attention kernels do not take
-DH256_HEADS = (8, 1, 256)
+# phase 4c: google/gemma-2b's config.json on the Hugging Face hub, the
+# fields the port reads, at its published widths (typed here; nothing is
+# downloaded): 18 layers of hidden 2048, 8 query heads over 1 KV head of
+# 256, intermediate 16384, vocabulary 256000, tied embeddings, embedding
+# scale sqrt(2048). Random weights at 0.02 from GEMMA_SEED, INT4, fused; the
+# drafter is its first GEMMA_DRAFT_LAYERS layers (LayerSkip, as bench.py
+# pairs). Single sequence: GEMMA_GEN greedy tokens, AR and speculative at
+# GEMMA_GAMMA; serving: GEMMA_REQUESTS requests on the paged engine at
+# gamma GEMMA_SERVE_GAMMA in pages of GEMMA_PAGE (phase 3b's gemma-serve
+# shape); then the f32 refusal at GEMMA_F32_LAYERS layers
+GEMMA_2B = {"model_type": "gemma", "hidden_size": 2048,
+            "num_hidden_layers": 18, "num_attention_heads": 8,
+            "num_key_value_heads": 1, "head_dim": 256,
+            "intermediate_size": 16384, "vocab_size": 256000,
+            "max_position_embeddings": 8192, "rope_theta": 10000.0,
+            "rms_norm_eps": 1e-6, "hidden_activation": "gelu_pytorch_tanh",
+            "tie_word_embeddings": True}
+GEMMA_SEED, GEMMA_DRAFT_LAYERS = 4, 4
+GEMMA_GEN, GEMMA_GAMMA = 32, 12
+GEMMA_REQUESTS, GEMMA_SERVE_GAMMA, GEMMA_PAGE = 4, 8, 16
+GEMMA_F32_LAYERS = 2
 # NASD and beam search, tools/bench_nasd.py's protocol: greedy, n = 3,
 # gamma 5; prompts from default_rng(3), the first of 60 tokens, the rest
 # ragged, 40-60. The benchmark decodes 128 tokens; 64 here, one timed
@@ -1785,94 +1895,202 @@ BEAM_GEN, BEAM_WIDE = 32, 4
 ATTENTION_KERNELS = ("K2", "K8a", "K5", "K8b", "K3", "K4")
 
 
-def phase_dispatch(device):
-    """Part of the port's dispatch that the kernels' limits decide: a model
-    with head_dim 256 (gemma's; the attention kernels take at most 128)
-    runs a prefill and a decode step through the slotted forward under
-    ``attention_impl="flash"`` and through the paged forward with
-    ``use_kernel=None``, over bf16 and int8 KV: no attention kernel
-    launches, the logits are finite and equal the plain path's (``"xla"``,
-    ``use_kernel=False``) bit for bit, and ``use_kernel=True`` raises
-    before any launch."""
+def gemma_model(device, dtype=torch.bfloat16, num_layers=None,
+                quant="int4"):
+    """Phase 4c's model: GEMMA_2B through the port's ``config_from_hf``,
+    random weights from GEMMA_SEED (``quant``: INT4, fused; None: dense).
+    Returns (cfg, params)."""
+    from specdec_tpu_torch.core.hf_loader import config_from_hf
+    from specdec_tpu_torch.core.model import init_params
+    from specdec_tpu_torch.quant.core import quantize_params
+
+    cfg = config_from_hf(GEMMA_2B, dtype=dtype)
+    if num_layers is not None:
+        cfg = cfg.replace(num_layers=num_layers)
+    gen = torch.Generator(device=device).manual_seed(GEMMA_SEED)
+    params = init_params(cfg, scale=0.02, device=device, generator=gen)
+    if quant is not None:
+        params = quantize_params(params, kind=quant, fuse=True)
+    return cfg, params
+
+
+def gemma_counts(what, counts, attn, want_attn):
+    """The launches of phase 4c's runs: ``want_attn`` of the attention
+    kernel ``attn`` (each layer of each forward attends once), four K1b a
+    layer, no K1a (the head is the tied embedding) and nothing else."""
+    want = {k: 0 for k in counts}
+    want[attn] = want_attn
+    want["K1b"] = 4 * want_attn
+    if want_attn == 0 or counts != want:
+        fail(f"4c {what}: launches {counts}, expected {want}")
+
+
+def phase_gemma(device, card):
+    """Phase 4c, head_dim 256 at full width: gemma-2b's widths, INT4, a
+    4-layer LayerSkip drafter, under ``attention_impl="flash"`` with bf16
+    KV and with int8 KV. Greedy AR and speculative decoding (GreedyProcessor
+    at GREEDY_T: a draft is accepted iff it is the target's argmax) of one
+    sequence attend through K3 (K4) in every layer of every forward, and
+    the paged engine serves GEMMA_REQUESTS requests through K8a (K8b) in
+    every target forward and K3 (K4) in every slotted one; every output
+    equals the plain attention's greedy AR (``"xla"``) or parts from it at
+    a top-two tie. Then float32 activations over float32 KV (2 layers, the
+    one combination the kernels refuse at head_dim 256): the plain route
+    by config, logits equal to the plain path's, and ``use_kernel=True``
+    raises before any launch. Returns (summary, launches summed)."""
     from specdec_tpu_torch import bench
     from specdec_tpu_torch.core import model as tmodel
     from specdec_tpu_torch.core.cache import init_cache
     from specdec_tpu_torch.core.paged_cache import init_paged_cache
+    from specdec_tpu_torch.engine.batch_engine import (
+        batch_autoregressive_generate,
+    )
+    from specdec_tpu_torch.sampling.processors import GreedyProcessor
+    from specdec_tpu_torch.serve import PagedContinuousBatcher
 
-    Hq, Hk, Dh = DH256_HEADS
-    base = bench.target_config(num_layers=2).replace(
-        num_heads=Hq, num_kv_heads=Hk, head_dim=Dh)
-    gen = torch.Generator(device=device).manual_seed(4)
-    params = tmodel.init_params(base, scale=0.02, device=device,
-                                generator=gen)
-    prompt = torch.tensor([bench.bench_prompt(seed=4)], device=device)
-    P, B, MP = prompt.shape[1], 1, 2
-    step = torch.tensor([[17]], device=device)
+    t0 = time.perf_counter()
+    base, target = gemma_model(device)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    drafter = dict(target, layers=tmodel.layer_views(target["layers"],
+                                                     GEMMA_DRAFT_LAYERS))
+    L, Ld, gamma = base.num_layers, GEMMA_DRAFT_LAYERS, GEMMA_GAMMA
+    prompt = bench.bench_prompt(seed=GEMMA_SEED)
+    prompts = [bench.bench_prompt(seed=GEMMA_SEED + 1 + i)
+               for i in range(GEMMA_REQUESTS)]
+    greedy, cold = GreedyProcessor(), GreedyProcessor(temperature=GREEDY_T)
+    out, total = {"card": card, "build_s": built}, {}
+    for label, kv in (("bf16 KV", "none"), ("int8 KV", "int8")):
+        plain = base.replace(kv_quant=kv, attention_impl="xla")
+        cfg = plain.replace(attention_impl="flash")
+        d_cfg = cfg.replace(num_layers=Ld)
+        if not tmodel.kernel_route(cfg):
+            fail(f"4c {label}: head_dim 256 in bf16 not routed to the "
+                 "attention kernels")
+        attn, paged = ("K4", "K8b") if kv == "int8" else ("K3", "K8a")
 
-    def run(forward, make_cache):
-        cache = make_cache()
-        logits, cache = forward(prompt, cache)
-        out = [logits]
-        logits, cache = forward(step, cache)
-        return out + [logits]
-
-    for kv in ("none", "int8"):
-        cfg = base.replace(kv_quant=kv, attention_impl="flash")
-        if tmodel.kernel_route(cfg):
-            fail(f"dispatch: head_dim {Dh} routed to the attention kernels")
-
-        def slotted(c):
-            return lambda: init_cache(c, B, 128, device=device)
-
-        def paged():
-            cache = init_paged_cache(cfg, B, MP + 1, PAGE, MP, device=device)
-            cache.page_table[0] = torch.arange(1, MP + 1, device=device)
-            return cache
-
-        results = {}
-        for what, forward, make in (
-                ("slotted flash", lambda t, c: tmodel.forward_step(
-                    cfg, params, t, c), slotted(cfg)),
-                ("slotted plain", lambda t, c: tmodel.forward_step(
-                    cfg.replace(attention_impl="xla"), params, t, c),
-                 slotted(cfg.replace(attention_impl="xla"))),
-                ("paged", lambda t, c: tmodel.forward_step_paged(
-                    cfg, params, t, c), paged),
-                ("paged gather", lambda t, c: tmodel.forward_step_paged(
-                    cfg, params, t, c, use_kernel=False), paged)):
-            reset_launches()
-            results[what] = run(forward, make)
-            torch.cuda.synchronize()
-            n = {k: v for k, v in launches().items()
-                 if k in ATTENTION_KERNELS and v}
-            if n:
-                fail(f"dispatch ({kv} KV, {what}): attention kernels "
-                     f"launched at head_dim {Dh}: {n}")
-            if not all(bool(torch.isfinite(l).all())
-                       for l in results[what]):
-                fail(f"dispatch ({kv} KV, {what}): logits not finite")
-        for a, b in (("slotted flash", "slotted plain"),
-                     ("paged", "paged gather")):
-            if not all(torch.equal(x, y)
-                       for x, y in zip(results[a], results[b])):
-                fail(f"dispatch ({kv} KV): {a} differs from {b}")
+        def ar(c, n):
+            return timed_call(lambda: bench.run_ar(c, target, prompt, n,
+                                                   greedy, 0, device))
+        for c in (plain, cfg):  # warm-up
+            ar(c, 4)
+        ref, plain_s = ar(plain, GEMMA_GEN)
         reset_launches()
-        try:
-            tmodel.forward_step_paged(cfg, params, prompt, paged(),
-                                      use_kernel=True)
-        except ValueError:
-            pass
-        else:
-            fail(f"dispatch ({kv} KV): use_kernel=True did not raise at "
-                 f"head_dim {Dh}")
-        if any(launches().values()):
-            fail(f"dispatch ({kv} KV): use_kernel=True launched "
-                 f"{launches()} before raising")
-        say(f"[4c dispatch] head_dim {Dh} (Hq={Hq}, Hk={Hk}), {kv} KV, 2 "
-            f"layers at D={cfg.hidden_size}: slotted flash forward == plain, "
-            f"paged forward == gather path, prefill T={P} and a decode step, no "
-            "attention kernel launched; use_kernel=True raised before any "
-            "launch")
+        got, kernel_s = ar(cfg, GEMMA_GEN)
+        gemma_counts(f"{label} AR", launches(), attn, L * GEMMA_GEN)
+        by_path = launches()
+        reset_launches()
+        spec = bench.run_spec(d_cfg, drafter, cfg, target, prompt, GEMMA_GEN,
+                              gamma, cold, 0, device)
+        w = spec["windows"]
+        gemma_counts(f"{label} speculative", launches(), attn,
+                     L * (1 + w) + Ld * (1 + gamma * w))
+        for k, n in launches().items():
+            by_path[k] += n
+        parted = {what: check_greedy(f"4c {label} {what}", plain, target,
+                                     [prompt], [ref["ids"]], [out["ids"]],
+                                     device, {})
+                  for what, out in (("AR", got), ("speculative", spec))}
+
+        refs = batch_autoregressive_generate(prompts, plain, target,
+                                             gen_len=GEMMA_GEN,
+                                             eos_tokens_id=(), device=device)
+        b = PagedContinuousBatcher(
+            d_cfg, drafter, cfg, target, num_slots=GEMMA_REQUESTS,
+            gamma=GEMMA_SERVE_GAMMA, max_prompt_len=64,
+            max_new_tokens=GEMMA_GEN, page_size=GEMMA_PAGE,
+            logits_processor=cold, eos_tokens_id=(), device=device)
+        reset_launches()
+        calls = tmodel.forward_step_paged.calls
+        ids = [b.submit(p) for p in prompts]
+        done, serve_s = timed_call(b.run)
+        served = launches()
+        forwards = tmodel.forward_step_paged.calls - calls
+        want = {k: 0 for k in served}
+        want[paged], want["K1b"] = L * forwards, 4 * (served[attn]
+                                                      + L * forwards)
+        want[attn] = served[attn]
+        if forwards == 0 or served[attn] == 0 or served != want:
+            fail(f"4c {label} serving: launches {served} over {forwards} "
+                 f"paged target forwards; expected {want}")
+        for k, n in served.items():
+            by_path[k] += n
+        parted["serving"] = check_greedy(
+            f"4c {label} serving", plain, target, prompts, refs,
+            [done[j].output_ids for j in ids], device, {})
+        rec = {"ar_ms_per_token": kernel_s / GEMMA_GEN * 1e3,
+               "ar_ms_per_token_plain": plain_s / GEMMA_GEN * 1e3,
+               "spec_windows": w, "spec_acceptance": spec["acceptance"],
+               "serving_s": serve_s, "paged_forwards": forwards,
+               "parted": parted,
+               "launches": {k: n for k, n in by_path.items() if n}}
+        out[label] = rec
+        for k, n in by_path.items():
+            total[k] = total.get(k, 0) + n
+        say(f"[4c gemma] {label}, gemma-2b widths ({L} layers, Hq=8, Hk=1, "
+            f"Dh=256, V=256000), INT4: AR {rec['ar_ms_per_token']:.2f} ms a "
+            f"token on the kernels, {rec['ar_ms_per_token_plain']:.2f} on "
+            f"the plain attention ({card}); {L} {attn} a target forward, "
+            f"{Ld} a drafter forward; spec gamma {gamma}: {w} windows, "
+            f"acceptance {spec['acceptance']:.3f}; serving {GEMMA_REQUESTS} "
+            f"requests x {GEMMA_GEN} tokens in {serve_s:.2f} s, {forwards} "
+            f"paged forwards through {paged}; tokens == the plain "
+            f"attention's greedy AR but for partings at a top-two tie at "
+            f"tokens {parted}; launches {rec['launches']}")
+    del target, drafter
+    torch.cuda.empty_cache()
+
+    # float32 over float32 KV: the plain route, and a forced kernel refused
+    cfg32, params = gemma_model(device, torch.float32, GEMMA_F32_LAYERS,
+                                quant=None)
+    cfg = cfg32.replace(attention_impl="flash")
+    if tmodel.kernel_route(cfg):
+        fail("4c f32: float32 over float32 KV routed to the kernels at "
+             "head_dim 256")
+    toks = torch.tensor([prompt], device=device)
+    MP = -(-len(prompt) // GEMMA_PAGE)
+
+    def paged_cache(c):
+        cache = init_paged_cache(c, 1, MP + 1, GEMMA_PAGE, MP, device=device)
+        cache.page_table[0] = torch.arange(1, MP + 1, device=device)
+        return cache
+
+    reset_launches()
+    got = {"slotted flash": tmodel.forward_step(
+               cfg, params, toks, init_cache(cfg, 1, len(prompt),
+                                             device=device))[0],
+           "slotted plain": tmodel.forward_step(
+               cfg32, params, toks, init_cache(cfg32, 1, len(prompt),
+                                               device=device))[0],
+           "paged": tmodel.forward_step_paged(cfg, params, toks,
+                                              paged_cache(cfg))[0],
+           "paged gather": tmodel.forward_step_paged(
+               cfg32, params, toks, paged_cache(cfg32), use_kernel=False)[0]}
+    torch.cuda.synchronize()
+    if any(launches().values()):
+        fail(f"4c f32: kernels launched {launches()}")
+    if not (torch.equal(got["slotted flash"], got["slotted plain"])
+            and torch.equal(got["paged"], got["paged gather"])
+            and all(bool(torch.isfinite(v).all()) for v in got.values())):
+        fail("4c f32: the flash and paged forwards differ from the plain "
+             "paths, or are not finite")
+    try:
+        tmodel.forward_step_paged(cfg, params, toks, paged_cache(cfg),
+                                  use_kernel=True)
+    except ValueError:
+        pass
+    else:
+        fail("4c f32: use_kernel=True did not raise at head_dim 256")
+    if any(launches().values()):
+        fail(f"4c f32: use_kernel=True launched {launches()} before raising")
+    del params
+    torch.cuda.empty_cache()
+    say(f"[4c gemma] float32 over float32 KV, {GEMMA_F32_LAYERS} layers at "
+        "gemma-2b widths: the plain route by config (slotted flash == plain, "
+        "paged == gather path, bit for bit, no kernel launched); "
+        "use_kernel=True raised before any launch")
+    out["seconds"] = time.perf_counter() - t0
+    return out, total
 
 
 def nasd_prompts():
@@ -5010,6 +5228,298 @@ def phase_parallel_gloo(device, card, root):
     return {"records": records, "card": card}, total
 
 
+# ---------------------------------------------------------------------------
+# phase 14: pipeline parallelism
+# ---------------------------------------------------------------------------
+
+# 14a: the pair's INT4 target (22 layers, quantized lm_head) at one stage in
+# an NCCL world of one rank: PP_B sequences at each T of PP_TS, each count
+# of microbatches of PP_MS. 14b: gloo worlds on the one card (spawned, CUDA
+# tensors), (stages, layers) of PP_WORLDS: 2 stages over the 22 layers, 4
+# over the first 20 (22 % 4 != 0), at T = PP_TS[0], under each attention
+# of PP_IMPLS
+PP_B, PP_TS, PP_MS = 8, (13, 64), (1, 2, 4)
+PP_WORLDS = ((2, 22), (4, 20))
+PP_IMPLS = ("xla", "flash")
+# the pipeline's logits against the unsharded forward's, relative
+# Frobenius: a stage runs the unsharded forward's kernels on the same rows
+# and the hop is exact, so only a microbatch's smaller batch may move a
+# bf16 rounding (the plain attention's batched products). The faults of
+# PP_FAULTS, planted at PP_FAULT_M microbatches, must read above it
+PP_LOGIT_FRO = 1e-2
+PP_FAULTS = ("the hop delivers a stage's input one microbatch late",
+             "the last stage writes microbatch j's logits into slot j + 1")
+PP_FAULT_M = 4
+
+
+def pp_tokens(T, seed):
+    """PP_B sequences of T tokens, the same on every rank."""
+    from specdec_tpu_torch import bench
+
+    rng = np.random.default_rng(seed)
+    return rng.integers(1, bench.V, size=(PP_B, T)).tolist()
+
+
+def logit_gap(what, logits, ref):
+    """``logits`` against the unsharded ``ref`` [B, T, V]: the relative
+    Frobenius error, the largest absolute difference, whether they are
+    equal bit for bit, and the positions whose argmax differs, each of
+    which must be a top-two tie of ``ref`` within two bf16 ulps."""
+    parted = (logits.argmax(-1) != ref.argmax(-1)).nonzero().tolist()
+    for b, t in parted:
+        top2 = ref[b, t].topk(2).values.tolist()
+        ulp = 2.0 ** (math.floor(math.log2(abs(top2[0]))) - 7)
+        if top2[0] - top2[1] > 2 * ulp:
+            fail(f"{what}: the argmax of sequence {b}, position {t} differs "
+                 f"from the unsharded forward's, whose top-2 gap "
+                 f"{top2[0] - top2[1]:.3g} exceeds two bf16 ulps")
+    return {"rel_fro": float((logits - ref).norm() / ref.norm()),
+            "max_abs": float((logits - ref).abs().max()),
+            "bit_equal": bool(torch.equal(logits, ref)),
+            "parted_at_ties": len(parted)}
+
+
+def pp_counts(what, counts, m, per_stage, last, flash):
+    """One rank's launches of a pipeline call of ``m`` microbatches over
+    ``per_stage`` layers: four K1b a layer and microbatch, the K1a of the
+    lm_head once a microbatch on the last stage only, one K3 a layer and
+    microbatch under the flash kernel; nothing else."""
+    want = {k: 0 for k in counts}
+    want["K1b"] = 4 * m * per_stage
+    want["K1a"] = m if last else 0
+    want["K3"] = m * per_stage if flash else 0
+    if counts != want:
+        fail(f"{what}: launches {counts}, expected {want}")
+
+
+def phase_pipeline_nccl(pair, device, card):
+    """Phase 14a: ``pipeline_forward_full`` at one stage in an NCCL world of
+    one rank, on the pair's INT4 target (22 layers, quantized lm_head), at
+    B = PP_B and each T of PP_TS, at each microbatch count of PP_MS: at one
+    microbatch the logits equal ``forward_full``'s bit for bit; at more,
+    the largest difference is reported and the argmaxes agree up to
+    top-two ties. Launches as ``pp_counts``. Returns (summary, launches
+    summed)."""
+    import torch.distributed as dist
+
+    from specdec_tpu_torch.core.model import forward_full
+    from specdec_tpu_torch.parallel import (
+        build_pipeline_mesh, init_distributed, pipeline_forward_full,
+        shard_params_pipeline,
+    )
+
+    t_cfg, target = pair[0], pair[2]
+    L = t_cfg.num_layers
+    if not init_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                            device=device):
+        fail("14a: init_distributed did not join a world of one rank")
+    if dist.get_backend() != "nccl":
+        fail(f"14a: backend {dist.get_backend()}, not nccl")
+    records, total = [], {}
+    try:
+        mesh = build_pipeline_mesh(stages=1)
+        local = shard_params_pipeline(target, t_cfg, mesh)
+        for T in PP_TS:
+            tokens = torch.tensor(pp_tokens(T, seed=T), device=device)
+            ref = forward_full(t_cfg, target, tokens)
+            for m in PP_MS:
+                what = f"14a T={T} M={m}"
+                reset_launches()
+                logits, wall = timed_call(lambda: pipeline_forward_full(
+                    t_cfg, local, tokens, mesh, num_microbatches=m))
+                counts = launches()
+                pp_counts(what, counts, m, L, True, False)
+                rec = {"T": T, "M": m, "wall_ms": wall * 1e3,
+                       **logit_gap(what, logits, ref)}
+                if m == 1 and not rec["bit_equal"]:
+                    fail(f"{what}: logits differ from forward_full's at one "
+                         f"stage and one microbatch (max abs "
+                         f"{rec['max_abs']:.3g})")
+                records.append(rec)
+                for k, n in counts.items():
+                    total[k] = total.get(k, 0) + n
+        del local
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    say(f"[14a pipeline] NCCL world of 1, one stage, INT4 target ({L} "
+        f"layers, quantized lm_head), B={PP_B}: "
+        + "; ".join(f"T={r['T']} M={r['M']} {r['wall_ms']:.1f} ms, max abs "
+                    f"{r['max_abs']:.3g}"
+                    + (" (bit-equal)" if r["bit_equal"] else "")
+                    + f", {r['parted_at_ties']} argmaxes parted at ties"
+                    for r in records)
+        + f"; walls on one card ({card}); launches "
+        f"{ {k: n for k, n in total.items() if n} }")
+    return {"records": records, "card": card}, total
+
+
+def planted_pipeline_faults(cfg, local, tokens, mesh):
+    """The pipeline's logits at PP_FAULT_M microbatches under each fault of
+    PP_FAULTS, planted at run time on every rank alike (the code is not
+    changed): a stage's receive hands on the activation it received one
+    microbatch earlier; the last stage stores microbatch j's logits in
+    slot j + 1 mod M."""
+    from specdec_tpu_torch.parallel import pipeline as pp
+
+    recv, store = pp._recv_activation, pp._store_logits
+    held = []
+
+    def late(mesh, like):
+        held.append(recv(mesh, like))
+        return held[-2] if len(held) > 1 else held[-1]
+
+    def shifted(out, j, logits):
+        store(out, (j + 1) % out.shape[0], logits)
+
+    got = {}
+    for fault, name, planted in ((PP_FAULTS[0], "_recv_activation", late),
+                                 (PP_FAULTS[1], "_store_logits", shifted)):
+        original = getattr(pp, name)
+        setattr(pp, name, planted)
+        try:
+            got[fault] = pp.pipeline_forward_full(
+                cfg, local, tokens, mesh, num_microbatches=PP_FAULT_M)
+        finally:
+            setattr(pp, name, original)
+    return got
+
+
+def pipeline_rank(rank, world, address, root, device, layers, tokens, out):
+    """One rank of phase 14b (spawned): joins a gloo world whose tensors are
+    CUDA tensors on the one card, builds the pair's INT4 target (the same
+    bits on every rank) cut to ``layers`` layers, keeps its stage of a
+    pipeline of ``world`` stages, and runs ``pipeline_forward_full`` at
+    each microbatch count of PP_MS under each attention of PP_IMPLS, with
+    its launches, then the planted faults. Rank 0 holds the logits against
+    the unsharded ``forward_full`` (computed before it drops the other
+    stages' layers) and writes every rank's records to ``out``."""
+    sys.path.insert(0, root)
+    import torch.distributed as dist
+
+    from specdec_tpu_torch import bench
+    from specdec_tpu_torch.core.model import forward_full, layer_views
+    from specdec_tpu_torch.parallel import (
+        build_pipeline_mesh, init_distributed, pipeline_forward_full,
+        shard_params_pipeline,
+    )
+
+    device = torch.device(device)
+    torch.cuda.set_device(device)
+    init_distributed(address, world, rank, backend="gloo", device=device)
+    t_cfg, _, target, _ = bench.build_pair(device)
+    cfg = t_cfg.replace(num_layers=layers)
+    params = dict(target, layers=layer_views(target["layers"], layers))
+    tokens = torch.tensor(tokens, device=device)
+    refs = ({impl: forward_full(cfg.replace(attention_impl=impl), params,
+                                tokens) for impl in PP_IMPLS}
+            if rank == 0 else None)
+    mesh = build_pipeline_mesh()  # no device: the rank's card
+    local = shard_params_pipeline(params, cfg, mesh)
+    del target, params
+    torch.cuda.empty_cache()
+    # warm-up (the rank's first products and host staging), not timed
+    for impl in PP_IMPLS:
+        pipeline_forward_full(cfg.replace(attention_impl=impl), local,
+                              tokens, mesh, num_microbatches=1)
+    records = []
+    for impl in PP_IMPLS:
+        c = cfg.replace(attention_impl=impl)
+        for m in PP_MS:
+            reset_launches()
+            logits, wall = timed_call(lambda: pipeline_forward_full(
+                c, local, tokens, mesh, num_microbatches=m))
+            rec = {"rank": rank, "stage": mesh.stage, "impl": impl, "M": m,
+                   "wall_ms": wall * 1e3, "counts": launches()}
+            if rank == 0:
+                rec.update(logit_gap(f"14b {world} stages, {impl}, M={m}",
+                                     logits, refs[impl]))
+            records.append(rec)
+    faults = planted_pipeline_faults(cfg.replace(attention_impl="xla"),
+                                     local, tokens, mesh)
+    if rank == 0:
+        records.append({"faults": {
+            k: float((v - refs["xla"]).norm() / refs["xla"].norm())
+            for k, v in faults.items()}})
+    gathered = [None] * world
+    dist.all_gather_object(gathered, records)
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(gathered, f)
+    dist.destroy_process_group()
+
+
+def phase_pipeline_gloo(device, card, root):
+    """Phase 14b: gloo worlds on the one card (NCCL takes one rank per GPU;
+    every rank's tensors are CUDA tensors, each hop staged through the
+    host), PP_WORLDS: 2 stages over the pair's 22 INT4 layers and 4 over
+    its first 20, B = PP_B, T = PP_TS[0], microbatches PP_MS, under the
+    plain attention and the flash kernel. The logits stay within
+    PP_LOGIT_FRO of the unsharded forward's with argmaxes equal up to
+    top-two ties; each planted fault reads above the limit; every rank
+    launches as ``pp_counts``. Walls are one card's: the ranks share it,
+    so they say nothing of PP across cards. Returns (summary, launches of
+    every rank summed)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    T = PP_TS[0]
+    tokens = pp_tokens(T, seed=T)
+    records, total = [], {}
+    for stages, layers in PP_WORLDS:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as d:
+            out = os.path.join(d, "ranks.json")
+            mp.spawn(pipeline_rank,
+                     args=(stages, f"127.0.0.1:{free_port()}", root,
+                           str(device), layers, tokens, out), nprocs=stages)
+            with open(out) as f:
+                ranks = json.load(f)
+        seconds = time.perf_counter() - t0
+        say(f"[time] 14b {stages} stages in {seconds:.1f} s")
+        what = f"14b {stages} stages over {layers} layers"
+        for recs in ranks:
+            for rec in recs:
+                if "counts" not in rec:
+                    continue
+                pp_counts(f"{what}, rank {rec['rank']}, {rec['impl']}, "
+                          f"M={rec['M']}", rec["counts"], rec["M"],
+                          layers // stages, rec["stage"] == stages - 1,
+                          rec["impl"] == "flash")
+                for k, n in rec["counts"].items():
+                    total[k] = total.get(k, 0) + n
+        calls = [r for r in ranks[0] if "counts" in r]
+        faults = next(r["faults"] for r in ranks[0] if "faults" in r)
+        for r in calls:
+            if r["rel_fro"] > PP_LOGIT_FRO:
+                fail(f"{what}, {r['impl']}, M={r['M']}: logits "
+                     f"{r['rel_fro']:.3g} relative Frobenius from the "
+                     f"unsharded forward's (limit {PP_LOGIT_FRO})")
+        for fault, err in faults.items():
+            if err <= PP_LOGIT_FRO:
+                fail(f"{what}: planted fault '{fault}' reads {err:.3g}, "
+                     f"within the limit {PP_LOGIT_FRO}")
+        records.append({"stages": stages, "layers": layers, "T": T,
+                        "seconds": seconds, "calls": calls,
+                        "faults": faults})
+        say(f"[14b pipeline] {what} (gloo, CUDA tensors, one card), B={PP_B}"
+            f" T={T}: "
+            + "; ".join(f"{r['impl']} M={r['M']} {r['wall_ms']:.1f} ms, "
+                        f"{r['rel_fro']:.3g} rel. Frobenius"
+                        + (" (bit-equal)" if r["bit_equal"] else
+                           f", max abs {r['max_abs']:.3g}")
+                        + f", {r['parted_at_ties']} argmaxes parted at ties"
+                        for r in calls)
+            + f" (limit {PP_LOGIT_FRO}); planted faults "
+            f"{ {k: round(v, 4) for k, v in faults.items()} }; per rank and "
+            f"microbatch {4 * (layers // stages)} K1b, "
+            f"{layers // stages} K3 under flash, one K1a on the last stage; "
+            f"walls are rank 0's on one card shared by {stages} ranks "
+            f"({card}): they say nothing of PP across cards")
+    return {"records": records, "card": card}, total
+
+
 # Qwen/Qwen2-0.5B's config.json on the Hugging Face hub, cut to ROUTE_LAYERS
 # layers: hidden 896 (K % 256 = 128), so its 4-bit wqkv, wo and w_gateup
 # take the dequant route and w_down (K = 4864 = 19 x 256) its kernel; the
@@ -5203,8 +5713,8 @@ def main():
     phase_serve_oracle(device, "int8 KV, flash", **KVINT8_FLASH)
     phase_serve_oracle(device, kind="int8")
     stamp("4-4b oracles")
-    phase_dispatch(device)
-    stamp("4c dispatch")
+    summary_gemma, launches_gemma = phase_gemma(device, card)
+    stamp("4c head_dim 256 at gemma-2b widths")
     int8_pair = with_config(pair, **KVINT8_FLASH)
     summary, launches_main = phase_main(pair, device)
     stamp("5 single sequence, bf16 KV")
@@ -5274,6 +5784,13 @@ def main():
     summary["parallel_gloo"], launches_13b = phase_parallel_gloo(device, card,
                                                                  root)
     stamp("13b parallel, gloo worlds of 2 and 4 on one card")
+    summary["pipeline_nccl"], launches_14a = phase_pipeline_nccl(pair, device,
+                                                                 card)
+    stamp("14a pipeline, NCCL world of 1")
+    summary["pipeline_gloo"], launches_14b = phase_pipeline_gloo(device, card,
+                                                                 root)
+    stamp("14b pipeline, gloo worlds of 2 and 4 stages on one card")
+    summary["gemma"] = summary_gemma
     summary["trees"]["card"] = summary["eagle"]["card"] = card
     summary["nasd"] = {"bf16 KV": nasd, "int8 KV, flash": nasd_int8,
                        "serving": nasd_serving, "card": card}
@@ -5314,7 +5831,10 @@ def main():
                 if path not in ("harness_cli_int8", "loader_route_nf4")},
              "parallel_nccl": launches_13a[key],
              "parallel_gloo": launches_13b[key],
-             **{path: c[key] for path, c in launches_train.items()}},
+             **{path: c[key] for path, c in launches_train.items()},
+             "gemma_2b_width": launches_gemma.get(key, 0),
+             "pipeline_nccl": launches_14a[key],
+             "pipeline_gloo": launches_14b[key]},
             k1_8b=[r for r in k1_8b if (r["layer"] is None) == (key == "K1a")],
             training=[r for r in grad_records["int4"]
                       if (r["name"] == LM_HEAD[0]) == (key == "K1a")]))
@@ -5359,6 +5879,13 @@ def main():
     def top(rows, name):
         return next(r for r in rows if r["name"] == name and "ms" in r)
 
+    def head_dim_256(rows, name):
+        """The timed record of a gemma-2b shape, and the refused one."""
+        return {"timed": [r for r in rows if r["name"] == name and "ms" in r],
+                "refused": [{k: r[k] for k in ("dtype", "refused")}
+                            for r in rows if r["name"] == name
+                            and "refused" in r]}
+
     # the paged attention kernel: one CUDA kernel for K2 (4D pool) and K8a
     # (a layer of the stacks, the wrapper the serving path calls), and its
     # int8 instantiation for K5 and K8b; the top-level times are one verify
@@ -5373,8 +5900,10 @@ def main():
          "serving_int8": serve_launches_w8["K8a"] + serve_launches_w8["K2"],
          "serving_nf4": serve_launches_nf4["K8a"] + serve_launches_nf4["K2"],
          "vllm_serving": launches_harness["vllm_serving"]["K8a"],
-         "parallel_nccl_serving": launches_13a["K8a"]},
-        also_replaces="specdec_tpu/ops/paged_attention.py:26"))
+         "parallel_nccl_serving": launches_13a["K8a"],
+         "gemma_2b_width_serving": launches_gemma["K8a"]},
+        also_replaces="specdec_tpu/ops/paged_attention.py:26",
+        head_dim_256=head_dim_256(paged_records["bf16"], "gemma-serve")))
     entries.append(kernel_entry(
         "paged_decode_attention_quant (K8b stacked layer; K5 4D pool)",
         paged_src, "specdec_tpu/ops/paged_attention.py:377",
@@ -5384,8 +5913,10 @@ def main():
         "pools, bf16 q",
         {"serving_kvint8_flash": serve_launches_int8["K8b"]
          + serve_launches_int8["K5"],
-         "vllm_serving_kvint8": launches_harness["vllm_serving_kvint8"]["K8b"]},
-        also_replaces="specdec_tpu/ops/paged_attention.py:136"))
+         "vllm_serving_kvint8": launches_harness["vllm_serving_kvint8"]["K8b"],
+         "gemma_2b_width_serving_kvint8": launches_gemma["K8b"]},
+        also_replaces="specdec_tpu/ops/paged_attention.py:136",
+        head_dim_256=head_dim_256(paged_records["int8"], "gemma-serve")))
     # the flash-decode kernel: K3 (K/V of q's type) and K4 (int8 K/V); the
     # top-level times are one single-sequence decode step's call
     flash_src = "specdec_tpu_torch/ops/csrc/decode_attention.cu"
@@ -5395,7 +5926,11 @@ def main():
         "specdec_tpu/ops/decode_attention.py:38", flash_records["K3"],
         flash_err["K3"], top(flash_records["K3"], "decode"), work + "bf16",
         {"spec_decode_flash": launches_flash["K3"],
-         "tree_oracle_flash": tree_oracle["bf16 KV, flash"]["K3"]}))
+         "tree_oracle_flash": tree_oracle["bf16 KV, flash"]["K3"],
+         "gemma_2b_width": launches_gemma["K3"],
+         "pipeline_gloo_flash": launches_14b["K3"]},
+        head_dim_256={n: head_dim_256(flash_records["K3"], n)
+                      for n in ("gemma-decode", "gemma-verify")}))
     entries.append(kernel_entry(
         "flash_decode_attention_quant (K4)", flash_src,
         "specdec_tpu/ops/decode_attention.py:159", flash_records["K4"],
@@ -5407,7 +5942,10 @@ def main():
          "tree_oracle_kvint8_flash": tree_oracle["int8 KV, flash"]["K4"],
          "trees_kvint8_flash": launches_trees["int8 KV, flash"]["K4"],
          "eagle_kvint8_flash": launches_eagle["int8 KV, flash"]["K4"],
-         "parallel_gloo_kvint8_flash": launches_13b["K4"]}))
+         "parallel_gloo_kvint8_flash": launches_13b["K4"],
+         "gemma_2b_width_kvint8": launches_gemma["K4"]},
+        head_dim_256={n: head_dim_256(flash_records["K4"], n)
+                      for n in ("gemma-decode", "gemma-verify")}))
     say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; "
         f"largest kernel-vs-plain abs error {max_err:.3g} (INT4), "
         + ", ".join(f"{fmt_records[q][1]:.3g} ({q})" for q in QUANTS) + ", "

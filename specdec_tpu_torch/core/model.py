@@ -286,6 +286,17 @@ def _embed(cfg: ModelConfig, params: Params,
                             ).to(cfg.dtype)
 
 
+def _embed_input(cfg: ModelConfig, params: Params,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    """The first layer's input: ``_embed``, times gemma's embed_scale."""
+    x = _embed(cfg, params, tokens)
+    if cfg.embed_scale != 1.0:  # gemma: sqrt(hidden) on the embedding only
+        # a CPU 0-dim tensor is a scalar operand: rounded to cfg.dtype first,
+        # as jnp.asarray(embed_scale, dtype) is, and never copied to the card
+        x = x * torch.tensor(cfg.embed_scale, dtype=cfg.dtype)
+    return x
+
+
 def _head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     """final norm -> logits (f32), with the logit softcap: the target's
     head, which the EAGLE drafter shares (``core/eagle.py``). Under a mesh
@@ -331,13 +342,8 @@ def _forward_common(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     residual stream after the layers and before the final norm, which
     EAGLE drafts on. ``head=False`` skips the final norm and the lm_head
     (logits None)."""
-    x = _embed(cfg, params, tokens)
-    if cfg.embed_scale != 1.0:  # gemma: sqrt(hidden) on the embedding only
-        # a CPU 0-dim tensor is a scalar operand: rounded to cfg.dtype first,
-        # as jnp.asarray(embed_scale, dtype) is, and never copied to the card
-        x = x * torch.tensor(cfg.embed_scale, dtype=cfg.dtype)
-    x = _layers(cfg, params["layers"], x, q_pos, layer_attend,
-                params.get("mesh"))
+    x = _layers(cfg, params["layers"], _embed_input(cfg, params, tokens),
+                q_pos, layer_attend, params.get("mesh"))
     return (_head(cfg, params, x) if head else None), x
 
 
@@ -450,9 +456,10 @@ def forward_step_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
     ``use_kernel=None`` takes the kernel where ``kernel_route(cfg)``: not
     for a model that soft-caps its attention logits, which the kernel does
-    not do, nor for a head_dim the kernel has no instance for (above 128);
-    such models gather the pages (and scales) and run ``attention``, as the
-    JAX dispatch does. ``True`` forces the kernel (and raises for such a
+    not do, nor for a head_dim and types the kernel does not take (above
+    256, or float32 activations over float32 pools at 256); such models
+    gather the pages (and scales) and run ``attention``, as the JAX
+    dispatch does. ``True`` forces the kernel (and raises for such a
     model before any launch), ``False`` the gather path. The CUDA kernel
     tiles query rows over blocks, so any T takes it."""
     from specdec_tpu_torch.ops import paged_attention as pa

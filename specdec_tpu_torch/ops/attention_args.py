@@ -10,13 +10,16 @@ wrapper refuses, on either device, inputs that want a gradient
 (``refuse_grad``): the kernel's output would carry none, silently. The
 trainers attend through the plain attention. The model's dispatch asks
 ``kernel_takes`` first, from the config, and sends a head_dim the kernel
-does not take to the plain attention before any launch.
+does not take to the plain attention before any launch. The kernel has
+instances for head_dims up to 64, 128 and 256 (gemma's); at 256 a block's
+shared memory holds bf16 q over bf16 or int8 K/V and f32 q over int8 K/V,
+not f32 q over f32 K/V (which stops at 152).
 """
 from __future__ import annotations
 
 import torch
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 MAX_SHARED_BYTES = 232448   # an H100 block's dynamic shared memory
 # q's type as the CUDA entry points take it
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -26,25 +29,32 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # block's inbox
 TILE, WARPS, ROWS, MAX_CLUSTER, STAGES = 64, 4, 16, 8, 2
 MAX_INBOX = ROWS + MAX_CLUSTER
+# the largest head_dim whose bf16 Q fragments live in registers; above it
+# the block stages Q in shared memory (kRegQMaxDh)
+REG_Q_MAX_DH = 128
 
 
 def shared_bytes(head_dim: int, q_dtype: torch.dtype, quant: bool) -> int:
     """Dynamic shared memory of one block of the kernel (``flash::layout``):
     the staging ring of K/V tiles in their stored type (rows padded by 16
     bytes; int8 with its scales), which a split block's inbox reuses; the
-    warps' partials; for f32 q, Q and the warps' probabilities; the
-    merge's per-row numbers; a local block's running state; the 64-bit
-    rows of the ring's positions (read by the paged layout)."""
+    warps' partials; for f32 q, Q and the warps' probabilities (for bf16
+    q over REG_Q_MAX_DH, Q as bf16 rows of head_dim + 16); the merge's
+    per-row numbers; a local block's running state; the 64-bit rows of the
+    ring's positions (read by the paged layout)."""
     kv_bytes = 1 if quant else torch.tensor([], dtype=q_dtype).element_size()
     ring = 2 * STAGES * TILE * (head_dim * kv_bytes + 16)
     if quant:
         ring += 2 * STAGES * TILE * 4
     inbox = MAX_INBOX * (head_dim + 2) * 4
     partial = WARPS * ROWS * (head_dim + 2) * 4
-    f32 = (ROWS * (head_dim + 4) + WARPS * ROWS * (TILE // WARPS + 1)
-           + WARPS * ROWS) * 4 if q_dtype == torch.float32 else 0
+    if q_dtype == torch.float32:
+        qs = (ROWS * (head_dim + 4) + WARPS * ROWS * (TILE // WARPS + 1)
+              + WARPS * ROWS) * 4
+    else:
+        qs = ROWS * (head_dim + 16) * 2 if head_dim > REG_Q_MAX_DH else 0
     merge = ROWS * (WARPS + 2 + 2 * MAX_CLUSTER) * 4
-    return (max(ring, inbox) + partial + f32 + merge
+    return (max(ring, inbox) + partial + qs + merge
             + ROWS * (head_dim + 2) * 4 + STAGES * TILE * 8)
 
 

@@ -70,9 +70,15 @@
 //     One launch either way, no workspace, no atomics; the C entry point and
 //     the wrapper are those of the kernel it replaces.
 //   - bf16 q: Q.K^T and P.V on the tensor cores, mma.sync m16n8k16 bf16 with
-//     f32 accumulation. Q's fragments are loaded from global memory into
-//     registers once, every load issued before any is used (loads under a
-//     branch went one after another). The 16 k-indices of an mma are
+//     f32 accumulation. Up to Dh = 128, Q's fragments are loaded from global
+//     memory into registers once, every load issued before any is used
+//     (loads under a branch went one after another). Over Dh = 128 (the 256
+//     instance, gemma's head_dim) the P.V accumulators alone take 128
+//     registers a thread, and Q's 64 more would pass the cap of 255: the
+//     block stages Q once into shared memory, [16][Dh + 16] bf16 (rows 32
+//     bytes apart modulo 128, so a quarter-warp's 8-byte fragment loads hit
+//     distinct banks), and each k-step of every tile reads its two 8-byte
+//     fragments from there. The 16 k-indices of an mma are
 //     permuted (2t + h -> 4t + h, 2t + 8 + h -> 4t + 2 + h, shared by A and
 //     B, so the sum is the same up to f32 order): a thread's Q fragment is 4
 //     consecutive d of a row (one 8-byte load) and its K fragment 4
@@ -147,6 +153,9 @@ constexpr int kMaxInbox = kRows + kMaxCluster;
 // coefficients per span
 constexpr int kMergeFloats = kWarps + 2 + 2 * kMaxCluster;
 constexpr float kNegInf = -1e30f;
+// the largest head_dim whose bf16 Q fragments live in registers; above it
+// (the 256 instance) Q is read from shared memory
+constexpr int kRegQMaxDh = 128;
 
 // The spans of a cache of capacity S: tiles of 64 keys, `span` tiles each,
 // `clusters_of` spans (ops/decode_attention.py, split)
@@ -173,7 +182,8 @@ __host__ __device__ inline int row_stride(int dh, int kv_bytes) {
 // and their alphas [4][16]; the merge's per-row numbers [16][kMergeFloats];
 // a local block's running acc [16][Dh], m and l [16]; the rows of the
 // positions of the tiles in the ring [kStages][kTile] (64-bit; paged only).
-// ops/attention_args.py computes the same.
+// For bf16 q over Dh > kRegQMaxDh, Q [16][Dh + 16] bf16 takes the place of
+// f32 q's Q. ops/attention_args.py computes the same.
 struct Layout {
   int ring_v, scales, parts, parts_m, parts_l, qs, pw, alpha, merge, run,
       rows, total;
@@ -190,7 +200,9 @@ __host__ __device__ inline Layout layout(int dh, bool q_f32, int kv_bytes) {
   o.parts_m = o.parts + kWarps * kRows * dh * 4;
   o.parts_l = o.parts_m + kWarps * kRows * 4;
   o.qs = o.parts_l + kWarps * kRows * 4;
-  o.pw = o.qs + (q_f32 ? kRows * (dh + 4) * 4 : 0);
+  o.pw = o.qs + (q_f32           ? kRows * (dh + 4) * 4
+                 : dh > kRegQMaxDh ? kRows * (dh + 16) * 2
+                                   : 0);
   o.alpha = o.pw + (q_f32 ? kWarps * kRows * (kWarpKeys + 1) * 4 : 0);
   o.merge = o.alpha + (q_f32 ? kWarps * kRows * 4 : 0);
   o.run = o.merge + kRows * kMergeFloats * 4;
@@ -365,8 +377,9 @@ __device__ __forceinline__ void cluster_arrive() {
 }
 
 // The kernel. TQ: q's and out's type (float: CUDA cores; bf16: tensor
-// cores); TKV: the stored K/V (TQ, or int8 with scales); kMaxDh: 64 or 128,
-// the register arrays' size (Dh <= kMaxDh, a multiple of 8; of 16 for int8);
+// cores); TKV: the stored K/V (TQ, or int8 with scales); kMaxDh: 64, 128,
+// 160 or 256, the register arrays' size (Dh <= kMaxDh, a multiple of 8; of 16
+// for int8; bf16 q over kRegQMaxDh reads Q from shared memory);
 // Keys: Slotted or Paged. Launched in clusters of C blocks (split) or of 1
 // (local).
 // 4 blocks an SM for bf16 q up to Dh = 64 (at most 128 registers a thread;
@@ -534,24 +547,40 @@ flash_decode_kernel(const Args a) {
     // the block's rows and Dh, before any is used, and the fragments past
     // them are zeroed after: a load under a branch waits for its data
     // before the next one is issued.
-    uint32_t qa[kKS][4];
-    uint2 qw[kKS][2];
-    const TQ* qrow[2] = {q + q_index(min(g, live_rows - 1)),
-                         q + q_index(min(g + 8, live_rows - 1))};
+    // Q in shared memory (the 256 instance), [16][Dh + 16]: rows past the
+    // block's and columns past Dh are zeros
+    constexpr bool kQShared = kMaxDh > kRegQMaxDh;
+    __nv_bfloat16* qsm = reinterpret_cast<__nv_bfloat16*>(sm + lo.qs);
+    const int qstr = Dh + 16;
+    uint32_t qa[kQShared ? 1 : kKS][4];
+    if constexpr (kQShared) {
+      const int chunks = qstr / 8;  // 16-byte chunks of a row
+      for (int i = threadIdx.x; i < kRows * chunks; i += kThreads) {
+        const int r = i / chunks, c = 8 * (i - r * chunks);
+        uint4 x = make_uint4(0u, 0u, 0u, 0u);
+        if (r < live_rows && c < Dh)
+          x = __ldg(reinterpret_cast<const uint4*>(q + q_index(r) + c));
+        *reinterpret_cast<uint4*>(qsm + r * qstr + c) = x;
+      }
+    } else {
+      uint2 qw[kKS][2];
+      const TQ* qrow[2] = {q + q_index(min(g, live_rows - 1)),
+                           q + q_index(min(g + 8, live_rows - 1))};
 #pragma unroll
-    for (int ks = 0; ks < kKS; ++ks)
+      for (int ks = 0; ks < kKS; ++ks)
 #pragma unroll
-      for (int half = 0; half < 2; ++half)
-        qw[ks][half] = __ldg(reinterpret_cast<const uint2*>(
-            qrow[half] + min(16 * ks + 4 * t, Dh - 4)));
+        for (int half = 0; half < 2; ++half)
+          qw[ks][half] = __ldg(reinterpret_cast<const uint2*>(
+              qrow[half] + min(16 * ks + 4 * t, Dh - 4)));
 #pragma unroll
-    for (int ks = 0; ks < kKS; ++ks) {
-      const int d = 16 * ks + 4 * t;
+      for (int ks = 0; ks < kKS; ++ks) {
+        const int d = 16 * ks + 4 * t;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const bool ok = ks < nks && d < Dh && g + 8 * half < live_rows;
-        qa[ks][half] = ok ? qw[ks][half].x : 0u;      // a0 / a1: d, d + 1
-        qa[ks][2 + half] = ok ? qw[ks][half].y : 0u;  // a2 / a3: d + 2, d + 3
+        for (int half = 0; half < 2; ++half) {
+          const bool ok = ks < nks && d < Dh && g + 8 * half < live_rows;
+          qa[ks][half] = ok ? qw[ks][half].x : 0u;      // a0 / a1: d, d + 1
+          qa[ks][2 + half] = ok ? qw[ks][half].y : 0u;  // a2 / a3: d + 2, + 3
+        }
       }
     }
     int qpos[2];
@@ -619,30 +648,47 @@ flash_decode_kernel(const Args a) {
       // scores: n-tile j, column g is key 4 (g >> 1) + 2j + (g & 1) of the
       // warp's 16
       float sc[2][4];
+      const unsigned char* kr[2];
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-        const int key = kWarpKeys * warp + 4 * (g >> 1) + 2 * j + (g & 1);
-        const unsigned char* kr = kt + key * rs;
+        kr[j] = kt + (kWarpKeys * warp + 4 * (g >> 1) + 2 * j + (g & 1)) * rs;
+      }
 #pragma unroll
-        for (int ks = 0; ks < kKS; ++ks) {
-          if (ks >= nks) break;
-          const int d = 16 * ks + 4 * t;
+      for (int ks = 0; ks < kKS; ++ks) {
+        if (ks >= nks) break;
+        const int d = 16 * ks + 4 * t;
+        uint32_t qf[4];
+        if constexpr (kQShared) {
+          const uint2 w0 =
+              *reinterpret_cast<const uint2*>(qsm + g * qstr + d);
+          const uint2 w1 =
+              *reinterpret_cast<const uint2*>(qsm + (g + 8) * qstr + d);
+          qf[0] = w0.x;
+          qf[1] = w1.x;
+          qf[2] = w0.y;
+          qf[3] = w1.y;
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qf[e] = qa[ks][e];
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
           uint32_t b0 = 0u, b1 = 0u;
           if (d < Dh) {
             if constexpr (kQuant) {
-              const uint32_t w = *reinterpret_cast<const uint32_t*>(kr + d);
+              const uint32_t w = *reinterpret_cast<const uint32_t*>(kr[j] + d);
               b0 = i8_to_bf16x2((int8_t)(w & 0xFF), (int8_t)((w >> 8) & 0xFF));
               b1 = i8_to_bf16x2((int8_t)((w >> 16) & 0xFF),
                                 (int8_t)(w >> 24));
             } else {
-              const uint2 w = *reinterpret_cast<const uint2*>(kr + 2 * d);
+              const uint2 w = *reinterpret_cast<const uint2*>(kr[j] + 2 * d);
               b0 = w.x;
               b1 = w.y;
             }
           }
-          mma_bf16(sc[j], qa[ks], b0, b1);
+          mma_bf16(sc[j], qf, b0, b1);
         }
       }
 
@@ -955,23 +1001,32 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// f32 q over f32 K/V fits a block's shared memory up to Dh = 152 only: its
+// largest instance is 160, whose P.V accumulators fit the registers (the
+// 256 one's spill)
 template <typename Keys, typename TQ, typename TKV>
 cudaError_t launch_dh(const Args& a, int B, cudaStream_t stream) {
+  constexpr int kTop =
+      std::is_same<TQ, float>::value && std::is_same<TKV, float>::value ? 160
+                                                                        : 256;
   if (a.Dh <= 64) return launch<TQ, TKV, 64, Keys>(a, B, stream);
-  return launch<TQ, TKV, 128, Keys>(a, B, stream);
+  if (a.Dh <= 128) return launch<TQ, TKV, 128, Keys>(a, B, stream);
+  return launch<TQ, TKV, kTop, Keys>(a, B, stream);
 }
 
 // The entry points' launch: q_dtype 0 = float32, 1 = bfloat16; kv_int8 0 =
 // K/V of q's type, 1 = int8 with both scales. Dh <= 64 takes the 64
-// instance, else the 128 one. cudaErrorInvalidValue for arguments the
-// kernel does not take (Dh a multiple of 8, of 16 for int8, up to 128; a
-// block's shared memory within an H100's), else launch's result.
+// instance, Dh <= 128 the 128 one, else the 256 one (160 for f32 q over f32
+// K/V). cudaErrorInvalidValue
+// for arguments the kernel does not take (Dh a multiple of 8, of 16 for
+// int8, up to 256; a block's shared memory within an H100's: f32 q over
+// f32 K/V stops at Dh = 152), else launch's result.
 template <typename Keys>
 int run(const Args& a, int B, int q_dtype, int kv_int8, cudaStream_t stream) {
   const int vec = kv_int8 ? 16 : 8;
   const int kv_bytes = kv_int8 ? 1 : (q_dtype == 0 ? 4 : 2);
   if (B < 1 || a.T < 1 || a.Hk < 1 || a.Hq % a.Hk != 0 || a.Dh < vec ||
-      a.Dh % vec != 0 || a.Dh > 128 || a.S < 1 || q_dtype < 0 ||
+      a.Dh % vec != 0 || a.Dh > 256 || a.S < 1 || q_dtype < 0 ||
       q_dtype > 1 || (kv_int8 && (!a.ks || !a.vs)) ||
       layout(a.Dh, q_dtype == 0, kv_bytes).total > 232448)
     return (int)cudaErrorInvalidValue;

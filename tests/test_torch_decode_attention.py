@@ -249,12 +249,17 @@ def test_split_covers_the_cache_in_one_cluster(S):
 def test_kernel_shared_memory_fits_every_head_dim(dtype, quant, wrapper):
     """Every head_dim a wrapper takes (the slotted one, and the paged one on
     the same kernel body) fits one block of the kernel in the card's
-    shared memory, by the formula that wrapper checks with."""
+    shared memory, by the formula that wrapper checks with, and every
+    head_dim up to MAX_HEAD_DIM that fits is taken: all of them but f32 q
+    over f32 K/V past 152 (at 256, 372,480 bytes)."""
     step = 16 if quant else 8
-    sizes = [wrapper.shared_bytes(dh, dtype, quant)
-             for dh in range(step, aa.MAX_HEAD_DIM + 1, step)]
-    assert all(0 < n <= aa.MAX_SHARED_BYTES for n in sizes)
-    assert sizes == sorted(sizes)
+    dims = range(step, aa.MAX_HEAD_DIM + 1, step)
+    sizes = [wrapper.shared_bytes(dh, dtype, quant) for dh in dims]
+    assert all(n > 0 for n in sizes) and sizes == sorted(sizes)
+    for dh, n in zip(dims, sizes):
+        fits = n <= aa.MAX_SHARED_BYTES
+        assert aa.kernel_takes(dh, dtype, quant) == fits
+        assert fits == (quant or dtype == torch.bfloat16 or dh <= 152)
 
 
 # the paged layout of the kernel model: pages of 8 and 16 (several to a

@@ -1,10 +1,12 @@
-"""Which attention a forward takes, decided from the config: a head_dim
-the attention kernels do not take (above 128, as gemma's 256) goes to the
-plain attention under ``attention_impl="flash"`` and to the gather path of
-the paged forward, as the JAX dispatch sends what its kernel cannot hold
-to its XLA path. At head_dim 256 both forwards reach no kernel wrapper
-(each is patched to raise); forcing the paged kernel raises before any
-launch; head_dims 64 and 128 still take the kernel.
+"""Which attention a forward takes, decided from the config: the attention
+kernels take head_dims up to 256 (gemma's), where a block's shared memory
+holds bf16 q over bf16 or int8 K/V and f32 q over int8 K/V but not f32 q
+over f32 K/V. What they do not take goes to the plain attention under
+``attention_impl="flash"`` and to the gather path of the paged forward, as
+the JAX dispatch sends what its kernel cannot hold to its XLA path. At
+head_dim 256 the f32 forwards over f32 K/V reach no kernel wrapper and
+forcing the paged kernel raises before any launch; over int8 K/V, and in
+bf16, they reach the wrappers (whose CPU branch is the plain version).
 
 Each step's logits are JAX's at f32 tolerance, from the same cache state:
 the port's forward runs on a copy of JAX's cache as it stood before the
@@ -62,12 +64,16 @@ def t(a):
 
 
 @pytest.fixture
-def no_kernels(monkeypatch):
-    """Every attention kernel wrapper raises if it is called."""
-    def refuse(*args, **kwargs):
-        raise AssertionError("an attention kernel wrapper was reached")
+def wrapper_calls(monkeypatch):
+    """Every attention kernel wrapper counts its calls (in the returned
+    dict, by name) and runs as before."""
+    calls = {name: 0 for _, name in WRAPPERS}
     for module, name in WRAPPERS:
-        monkeypatch.setattr(module, name, refuse)
+        def counted(*args, _name=name, _fn=getattr(module, name), **kwargs):
+            calls[_name] += 1
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(module, name, counted)
+    return calls
 
 
 @pytest.fixture(scope="module")
@@ -76,15 +82,18 @@ def np_params():
                         jm.init_params(JCFG, jax.random.key(0), scale=0.3))
 
 
-@pytest.mark.parametrize("head_dim,takes", [(64, True), (128, True),
-                                            (256, False), (136, False)])
+@pytest.mark.parametrize("head_dim", [64, 128, 136, 256, 264])
 @pytest.mark.parametrize("kv_quant", ["none", "int8"])
-def test_kernel_route_by_config(head_dim, takes, kv_quant):
+def test_kernel_route_by_config(head_dim, kv_quant):
     """The predicate and the config route: 64 and 128 take the kernels in
-    f32 and bf16, 256 and 136 (past the cap) do not; a softcap or f16
-    activations never do."""
+    f32 and bf16, and so does 136 over K/V of q's type (int8 K/V take
+    multiples of 16); 256 in bf16, and in f32 over int8 K/V only (f32 over
+    f32 needs more shared memory than a block has); 264, past the cap, not
+    at all; a softcap or f16 activations never do."""
     quant = kv_quant == "int8"
     for dtype in (torch.float32, torch.bfloat16):
+        takes = {64: True, 128: True, 136: not quant,
+                 256: quant or dtype == torch.bfloat16, 264: False}[head_dim]
         assert attention_args.kernel_takes(head_dim, dtype, quant) == takes
         cfg = port_config(JCFG, head_dim=head_dim, kv_quant=kv_quant,
                           attention_impl="flash").replace(dtype=dtype)
@@ -120,11 +129,29 @@ def check_step(kv_quant, got, plain, synced, ref, cache, jcache):
         assert diff.max() <= 1 and (diff > 0).mean() < 1e-3, name
 
 
+def test_shared_bytes_at_head_dim_256():
+    """A block's dynamic shared memory at head_dim 256 (the kernel's
+    ``flash::layout``): bf16 q over bf16 and int8 K/V, f32 q over int8 K/V
+    fit the H100's 232,448 bytes; f32 q over f32 K/V does not. bf16 q
+    stages Q in 16 x (256 + 16) bf16 (8,704 bytes) over head_dim 128."""
+    sb = attention_args.shared_bytes
+    assert attention_args.MAX_HEAD_DIM == 256
+    assert sb(256, torch.bfloat16, False) == 228_864
+    assert sb(256, torch.bfloat16, True) == 164_352
+    assert sb(256, torch.float32, True) == 176_896
+    assert sb(256, torch.float32, False) == 372_480
+    assert sb(128, torch.bfloat16, False) == 113_664  # no Q staged
+    assert sb(256, torch.float32, False) > attention_args.MAX_SHARED_BYTES
+    assert max(sb(256, torch.bfloat16, q) for q in (False, True)) <= (
+        attention_args.MAX_SHARED_BYTES)
+
+
 @pytest.mark.parametrize("kv_quant", ["none", "int8"])
-def test_head_dim_256_flash_forward_matches_jax(np_params, no_kernels,
+def test_head_dim_256_flash_forward_matches_jax(np_params, wrapper_calls,
                                                 kv_quant):
     """The slotted forward under ``"flash"`` at Dh=256: prefill, decode and
-    a verify after rollback on two sequences."""
+    a verify after rollback on two sequences. f32 over f32 K/V reaches no
+    kernel wrapper; over int8 K/V every layer of every step reaches K4's."""
     jcfg = JCFG.replace(kv_quant=kv_quant, attention_impl="flash")
     cfg = port_config(jcfg)
     plain_cfg = cfg.replace(attention_impl="xla")
@@ -148,15 +175,21 @@ def test_head_dim_256_flash_forward_matches_jax(np_params, no_kernels,
         pl_, pcache = tm.forward_step(cfg, params, t(toks), pcache)
         ref, plain = tm.forward_step(plain_cfg, params, t(toks), plain)
         check_step(kv_quant, pl_, ref, sl, jl, pcache, jcache)
+    quant = kv_quant == "int8"
+    # two forwards a step (the synced and the chained one), 3 steps
+    assert wrapper_calls == {
+        name: 6 * JCFG.num_layers if quant and name.endswith("_quant")
+        and name.startswith("flash") else 0 for name in wrapper_calls}
 
 
 @pytest.mark.parametrize("kv_quant", ["none", "int8"])
-def test_head_dim_256_paged_forward_matches_jax(np_params, no_kernels,
+def test_head_dim_256_paged_forward_matches_jax(np_params, wrapper_calls,
                                                 kv_quant):
-    """``forward_step_paged(use_kernel=None)`` at Dh=256 takes the gather
-    path, across page boundaries and after rollback (JAX's paged forward
-    takes its gather path on the CPU); ``use_kernel=True`` raises before
-    any launch."""
+    """``forward_step_paged(use_kernel=None)`` at Dh=256, across page
+    boundaries and after rollback (JAX's paged forward takes its gather
+    path on the CPU): f32 over f32 pools takes the gather path and
+    ``use_kernel=True`` raises before any launch; over int8 pools every
+    layer reaches K8b's wrapper, and ``use_kernel=True`` runs it too."""
     jcfg = JCFG.replace(kv_quant=kv_quant)
     cfg = port_config(jcfg)
     jparams = jax.tree.map(jnp.asarray, np_params)
@@ -185,5 +218,60 @@ def test_head_dim_256_paged_forward_matches_jax(np_params, no_kernels,
         ref, plain = tm.forward_step_paged(cfg, params, t(toks), plain,
                                            use_kernel=False)
         check_step(kv_quant, pl_, ref, sl, jl, pcache, jcache)
-    with pytest.raises(ValueError, match="head_dim 256"):
-        tm.forward_step_paged(cfg, params, t(toks), pcache, use_kernel=True)
+    quant = kv_quant == "int8"
+    # two kernel-route forwards a step (the synced and the chained one)
+    assert wrapper_calls == {
+        name: 6 * JCFG.num_layers
+        if quant and name == "paged_decode_attention_quant_stacked" else 0
+        for name in wrapper_calls}
+    if not quant:
+        with pytest.raises(ValueError, match="head_dim 256"):
+            tm.forward_step_paged(cfg, params, t(toks), pcache,
+                                  use_kernel=True)
+        assert not any(wrapper_calls.values())
+        return
+    forced, _ = tm.forward_step_paged(cfg, params, t(toks),
+                                      pcache.with_length(pcache.length - 5),
+                                      use_kernel=True)
+    assert torch.equal(forced, pl_)
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_head_dim_256_bf16_reaches_the_kernels(np_params, wrapper_calls,
+                                               kv_quant):
+    """bf16 activations at Dh=256 take the kernels in both forwards: the
+    slotted one under ``"flash"`` reaches K3's (K4's) wrapper and the
+    paged one K8a's (K8b's) once a layer; on the CPU the wrappers compute
+    the plain version, so the logits equal the plain paths' bit for
+    bit."""
+    cfg = port_config(JCFG, kv_quant=kv_quant,
+                      attention_impl="flash").replace(dtype=torch.bfloat16)
+    assert tm.kernel_route(cfg)
+    params = params_from_numpy(np_params, "cpu")
+    params = {k: ({n: w.to(torch.bfloat16) for n, w in v.items()}
+                  if k == "layers" else v.to(torch.bfloat16))
+              for k, v in params.items()}
+    toks = t(np.random.default_rng(7).integers(0, 64, size=(2, 6)))
+    B, MP = 2, 2
+    flash, _ = tm.forward_step(cfg, params, toks,
+                               tc.init_cache(cfg, B, 16, device="cpu"))
+    plain, _ = tm.forward_step(cfg.replace(attention_impl="xla"), params,
+                               toks, tc.init_cache(cfg, B, 16, device="cpu"))
+    assert torch.equal(flash, plain)
+    tables = t(np.arange(1, B * MP + 1, dtype=np.int32).reshape(B, MP))
+
+    def paged(c, **kw):
+        cache = dataclasses.replace(
+            tpc.init_paged_cache(c, B, B * MP + 1, PAGE, MP, device="cpu"),
+            page_table=tables)
+        return tm.forward_step_paged(c, params, toks, cache, **kw)[0]
+    assert torch.equal(paged(cfg), paged(cfg.replace(attention_impl="xla"),
+                                         use_kernel=False))
+    quant = kv_quant == "int8"
+    slotted = ("flash_decode_attention_quant" if quant
+               else "flash_decode_attention")
+    pool = ("paged_decode_attention_quant_stacked" if quant
+            else "paged_decode_attention_stacked")
+    assert wrapper_calls == {
+        name: JCFG.num_layers if name in (slotted, pool) else 0
+        for name in wrapper_calls}

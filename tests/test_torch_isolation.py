@@ -70,7 +70,8 @@ def test_import_leaves_jax_unloaded():
             "specdec_tpu_torch.cli.benchmark, "
             "specdec_tpu_torch.core.codec_model, "
             "specdec_tpu_torch.sampling.codec_decoding, "
-            "specdec_tpu_torch.cli.repl; "
+            "specdec_tpu_torch.cli.repl, "
+            "specdec_tpu_torch.parallel.pipeline; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{UNLOADED!r}]; "
             "assert not bad, bad; print('ok')")
