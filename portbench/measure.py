@@ -1,0 +1,155 @@
+"""The yardstick's arithmetic: percentiles, unions of intervals, the card's
+peaks, the weight kernel's roofline bound and the FLOPs a window's work
+requires. Plain Python and numpy; nothing here imports the program.
+"""
+from __future__ import annotations
+
+import re
+from typing import Iterable, List, Optional, Sequence, Tuple
+
+# NVIDIA H100 SXM data sheet (dense rates, 700 W): HBM3 bandwidth and the
+# bf16 tensor-core rate
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
+
+# INT4 weight-only storage: a 4-bit code and a bf16 scale per 64 rows of K
+INT4_BYTES_PER_WEIGHT = 0.5 + 2 / 64
+
+
+def percentile(values: Sequence[float], p: float) -> Optional[float]:
+    """The p-th percentile of ``values`` by linear interpolation between
+    closest ranks (numpy's default): rank p/100 * (n - 1) of the sorted
+    values. None for an empty sample."""
+    xs = sorted(values)
+    if not xs:
+        return None
+    r = p / 100.0 * (len(xs) - 1)
+    lo = int(r)
+    hi = min(lo + 1, len(xs) - 1)
+    return xs[lo] + (xs[hi] - xs[lo]) * (r - lo)
+
+
+def union(intervals: Iterable[Tuple[float, float]]) -> List[Tuple[float, float]]:
+    """The union of [start, end) intervals as sorted disjoint intervals."""
+    out: List[Tuple[float, float]] = []
+    for s, e in sorted(intervals):
+        if e <= s:
+            continue
+        if out and s <= out[-1][1]:
+            if e > out[-1][1]:
+                out[-1] = (out[-1][0], e)
+        else:
+            out.append((s, e))
+    return out
+
+
+def clip(intervals: Iterable[Tuple[float, float]], lo: float,
+         hi: float) -> List[Tuple[float, float]]:
+    """Intervals cut to [lo, hi]; empty ones dropped."""
+    return [(max(s, lo), min(e, hi)) for s, e in intervals
+            if min(e, hi) > max(s, lo)]
+
+
+def covered(intervals: Iterable[Tuple[float, float]]) -> float:
+    """Total length of the union of ``intervals``."""
+    return sum(e - s for s, e in union(intervals))
+
+
+def gaps(intervals: Iterable[Tuple[float, float]], lo: float,
+         hi: float) -> List[Tuple[float, float]]:
+    """The parts of [lo, hi] that no interval covers."""
+    out, t = [], lo
+    for s, e in union(clip(intervals, lo, hi)):
+        if s > t:
+            out.append((t, s))
+        t = max(t, e)
+    if hi > t:
+        out.append((t, hi))
+    return out
+
+
+def int4_bound_s(M: int, K: int, N: int) -> float:
+    """Least time of one INT4 weight-only product x [M, K] @ w [K, N]: the
+    weights at INT4_BYTES_PER_WEIGHT, x and y in bf16, each byte moved
+    once at HBM_BYTES_PER_S, or 2*M*K*N operations at the bf16 rate,
+    whichever is longer."""
+    t_bytes = (K * N * INT4_BYTES_PER_WEIGHT + M * K * 2 + M * N * 2
+               ) / HBM_BYTES_PER_S
+    t_ops = 2.0 * M * K * N / BF16_FLOPS_PER_S
+    return max(t_bytes, t_ops)
+
+
+def layer_params(model: dict) -> int:
+    """Weights of the target's layer projections (biases and norms, which
+    add no matrix product, left out)."""
+    D, F, Dh = model["D"], model["F"], model["Dh"]
+    Hq, Hk = model["Hq"], model["Hk"]
+    per = D * (Hq + 2 * Hk) * Dh + Hq * Dh * D + D * F * (
+        2 if model["gated"] else 1) + F * D
+    return model["L"] * per
+
+
+def attention_flops(model: dict, first: int, last: int) -> float:
+    """Causal attention FLOPs of processing the tokens at positions
+    first..last-1 of one sequence: a token at position p scores p + 1 keys
+    and sums as many values, 4 * Hq * Dh * (p + 1) operations a layer."""
+    if last <= first:
+        return 0.0
+    keys = (last * (last + 1) - first * (first + 1)) // 2
+    return 4.0 * model["L"] * model["Hq"] * model["Dh"] * keys
+
+
+def required_flops(model: dict, prompts: Sequence[int],
+                   outputs: Sequence[Tuple[int, int, int]]) -> float:
+    """FLOPs the window's work requires of the target alone.
+
+    ``prompts``: the unpadded length n of each prompt admitted in the
+    window (all n positions processed, the last one's head giving the
+    first output). ``outputs``: (n, k0, k1) for each request that
+    committed its output tokens k0..k1-1 in the window; output k >= 1
+    needs the token at position n + k - 1 processed, and every output
+    needs one head. Drafter work, rejected drafts and padding are not
+    counted."""
+    per_token = 2.0 * layer_params(model)
+    head = 2.0 * model["D"] * model["V"]
+    total = 0.0
+    for n in prompts:
+        total += per_token * n + attention_flops(model, 0, n)
+    for n, k0, k1 in outputs:
+        lo = max(k0, 1)
+        if k1 > lo:
+            total += per_token * (k1 - lo) + attention_flops(
+                model, n + lo - 1, n + k1 - 1)
+        total += head * max(0, k1 - k0)
+    return total
+
+
+# PyTorch's generic kernel templates: a label names the operation inside
+_GENERIC = {"elementwise_kernel", "unrolled_elementwise_kernel",
+            "vectorized_elementwise_kernel", "gpu_kernel_impl",
+            "gpu_kernel_impl_nocast", "launch_legacy_kernel",
+            "index_elementwise_kernel", "reduce_kernel", "ReduceOp",
+            "func_wrapper_t", "AUnaryFunctor", "BUnaryFunctor",
+            "BinaryFunctor"}
+
+
+def kernel_label(name: str) -> str:
+    """A device operation's name, shortened: the port's kernels by what
+    they are (the attention kernel's instances by key layout and K/V
+    type); PyTorch's generic templates by template and the first named
+    operation inside (``elementwise_kernel/direct_copy_kernel_cuda``);
+    others to their first 64 characters."""
+    for k in ("int4_pair_matmul", "q4_halfplane_matmul", "int8_matmul"):
+        if k in name:
+            return k
+    if "flash_decode_kernel" in name:
+        layout = "paged" if "Paged" in name else "slotted"
+        kv = "int8" if "signed char" in name else (
+            "bf16" if name.count("bfloat16") > 1 else "f32")
+        return f"flash_decode_kernel[{layout}, {kv} K/V]"
+    words = re.findall(r"at::native::(?:\(anonymous namespace\)::)?(\w+)",
+                       name)
+    if words:
+        inner = [w for w in words[1:] if w not in _GENERIC]
+        return (words[0] + ("/" + inner[0] if inner else ""))[:64]
+    return name[:64]
