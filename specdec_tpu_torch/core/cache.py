@@ -30,6 +30,7 @@ import dataclasses
 import torch
 
 from specdec_tpu_torch import resolve_device
+from specdec_tpu_torch.utils.profiling import TRACER
 
 
 @dataclasses.dataclass
@@ -164,11 +165,19 @@ def storage_fields(cache):
             if getattr(cache, f.name).dtype != torch.int32]
 
 
+def write_scalar(t: torch.Tensor, index, value) -> None:
+    """``t[index] = value`` for a host number ``value``. On the card
+    PyTorch uploads the number and waits for the copy, so the tracer counts
+    the write as a host sync (``sync.scalar_write``)."""
+    with TRACER.span("sync.scalar_write"):
+        t[index] = value
+
+
 def with_row_length(cache, slot: int, new_len):
     """``cache`` (slotted or paged) with row ``slot`` of its length set. The
     length tensor is copied, not edited: other caches may share it."""
     length = cache.length.clone()
-    length[slot] = new_len
+    write_scalar(length, slot, new_len)
     return cache.with_length(length)
 
 

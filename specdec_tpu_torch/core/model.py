@@ -47,6 +47,7 @@ from specdec_tpu_torch.core.rope import apply_rope, rope_cos_sin
 from specdec_tpu_torch.ops.attention_args import kernel_takes
 from specdec_tpu_torch.parallel.mesh import model_all_reduce
 from specdec_tpu_torch.quant.core import QUANTIZED, StackedSlice, qmatmul
+from specdec_tpu_torch.utils.profiling import TRACER
 
 Params = Dict[str, Any]
 
@@ -496,9 +497,28 @@ def forward_step_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                                                     table, offsets)
         return out.reshape(B, T, -1)
 
+    if TRACER.on:
+        _record_live_keys(cfg, cache, T, scales)
     logits, _ = _forward_common(cfg, params, tokens, q_pos, attend)
     forward_step_paged.calls += 1
     return logits, cache.with_length(cache.length + T)
+
+
+def _record_live_keys(cfg: ModelConfig, cache, T: int, scales) -> None:
+    """The tracer's ``paged_attention`` record of one paged forward:
+    (layers, K/V bytes a position and layer, q and out bytes a query row and
+    layer, then on the device [live positions, live query rows]). A live
+    row attends its offset plus the block's T positions; a row whose table
+    starts at the garbage page (a free or pending slot) reads only that
+    page and counts for nothing. Summed on the device, read at the
+    tracer's drain."""
+    live = (cache.page_table[:, 0] != 0).to(torch.int64)
+    keys = (live * (cache.length.to(torch.int64) + T)).sum()
+    kv = 2 * cfg.num_kv_heads * (cfg.head_dim * cache.k.element_size()
+                                 + (4 if scales else 0))
+    TRACER.record("paged_attention", cfg.num_layers, kv,
+                  2 * cfg.num_heads * cfg.head_dim * cfg.dtype.itemsize,
+                  torch.stack([keys, live.sum() * T]))
 
 
 # target paged forwards (a run's kernel launches are checked against it)

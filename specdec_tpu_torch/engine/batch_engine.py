@@ -51,6 +51,7 @@ from specdec_tpu_torch.sampling.processors import (
 )
 from specdec_tpu_torch.sampling.speculative import accept_step, commit_step
 from specdec_tpu_torch.sampling.utils import eos_mask, normalize_eos
+from specdec_tpu_torch.utils.profiling import TRACER
 
 
 def forward_step(cfg, params, tokens, cache):
@@ -177,52 +178,56 @@ def _spec_window_body(drafter_cfg: ModelConfig, drafter_params,
                       processor: LogitsProcessor, eos_ids: Tuple[int, ...],
                       skip_sample_adjustment: bool,
                       generator: torch.Generator) -> BatchState:
-    """One gamma-draft / verify / accept window for the whole batch."""
+    """One gamma-draft / verify / accept window for the whole batch, in the
+    tracer's spans ``draft``, ``verify`` and ``commit``; the callers open
+    ``window`` around it."""
     B = state.buf.shape[0]
     samp, pos = state.samp, state.pos
-    first_tok = _gather_at(state.buf, pos - 1)                   # [B]
 
     # --- draft: gamma drafter forwards; the first feeds buf[pos-2:pos] ---
-    prev2 = torch.stack([_gather_at(state.buf, pos - 2), first_tok], dim=1)
-    logits, d_cache = forward_step(drafter_cfg, drafter_params, prev2,
-                                   state.d_cache)
-    q = processor.batched(logits[:, 1], samp)                    # [B, V]
-    x = processor.sample_batched(q, generator, samp)
-    qs, xs = [q], [x]
-    for _ in range(1, gamma):
-        logits, d_cache = forward_step(drafter_cfg, drafter_params,
-                                       x[:, None], d_cache)
-        q = processor.batched(logits[:, 0], samp)
+    with TRACER.span("draft"):
+        first_tok = _gather_at(state.buf, pos - 1)               # [B]
+        prev2 = torch.stack([_gather_at(state.buf, pos - 2), first_tok],
+                            dim=1)
+        logits, d_cache = forward_step(drafter_cfg, drafter_params, prev2,
+                                       state.d_cache)
+        q = processor.batched(logits[:, 1], samp)                # [B, V]
         x = processor.sample_batched(q, generator, samp)
-        qs.append(q)
-        xs.append(x)
-    q_all = torch.stack(qs, dim=1)                               # [B, g, V]
-    drafts = torch.stack(xs, dim=1)                              # [B, g]
+        qs, xs = [q], [x]
+        for _ in range(1, gamma):
+            logits, d_cache = forward_step(drafter_cfg, drafter_params,
+                                           x[:, None], d_cache)
+            q = processor.batched(logits[:, 0], samp)
+            x = processor.sample_batched(q, generator, samp)
+            qs.append(q)
+            xs.append(x)
+        q_all = torch.stack(qs, dim=1)                           # [B, g, V]
+        drafts = torch.stack(xs, dim=1)                          # [B, g]
 
     # --- verify: one target forward over gamma+1 positions -----------------
-    t_in = torch.cat([first_tok[:, None], drafts], dim=1)
-    t_logits, t_cache = forward_step(target_cfg, target_params, t_in,
-                                     state.t_cache)
-    p_all = processor.batched(t_logits, samp)                    # [B, g+1, V]
+    with TRACER.span("verify"):
+        t_in = torch.cat([first_tok[:, None], drafts], dim=1)
+        t_logits, t_cache = forward_step(target_cfg, target_params, t_in,
+                                         state.t_cache)
+        p_all = processor.batched(t_logits, samp)                # [B, g+1, V]
 
-    # --- accept / residual, then commit ------------------------------------
-    r = uniform((B, gamma), generator, state.buf.device)
-    n, next_tok = accept_step(p_all, q_all, drafts, r, processor, generator,
-                              skip_sample_adjustment, samp)
-    remaining = (state.total_len - pos).to(n.dtype)
-    cand, advance, any_eos = commit_step(drafts, n, next_tok, remaining,
-                                         eos_ids)
-    advance = torch.where(state.finished, 0, advance)
-    _put_block(state.buf, cand, pos, state.finished)
-    new_pos = (pos + advance).to(torch.int32)
-    finished = state.finished | any_eos | (new_pos >= state.total_len)
-
-    # --- bookkeeping over corrected_gamma ----------------------------------
-    corrected = torch.clamp(state.total_len - pos - 1, 0, gamma)
-    active = ~state.finished
-    accepted = state.accepted + torch.where(
-        active, torch.minimum(n.to(torch.int32), corrected), 0)
-    speculated = state.speculated + torch.where(active, corrected, 0)
+    # --- accept / residual, commit, bookkeeping over corrected_gamma -------
+    with TRACER.span("commit"):
+        r = uniform((B, gamma), generator, state.buf.device)
+        n, next_tok = accept_step(p_all, q_all, drafts, r, processor,
+                                  generator, skip_sample_adjustment, samp)
+        remaining = (state.total_len - pos).to(n.dtype)
+        cand, advance, any_eos = commit_step(drafts, n, next_tok, remaining,
+                                             eos_ids)
+        advance = torch.where(state.finished, 0, advance)
+        _put_block(state.buf, cand, pos, state.finished)
+        new_pos = (pos + advance).to(torch.int32)
+        finished = state.finished | any_eos | (new_pos >= state.total_len)
+        corrected = torch.clamp(state.total_len - pos - 1, 0, gamma)
+        active = ~state.finished
+        accepted = state.accepted + torch.where(
+            active, torch.minimum(n.to(torch.int32), corrected), 0)
+        speculated = state.speculated + torch.where(active, corrected, 0)
     return dataclasses.replace(
         state, pos=new_pos, finished=finished,
         d_cache=d_cache.with_length(new_pos - 2),
@@ -237,9 +242,10 @@ def batch_spec_window(drafter_cfg, drafter_params, target_cfg, target_params,
                       skip_sample_adjustment: bool,
                       generator: torch.Generator) -> BatchState:
     """One window (see ``_spec_window_body``); no host read."""
-    return _spec_window_body(drafter_cfg, drafter_params, target_cfg,
-                             target_params, state, gamma, processor, eos_ids,
-                             skip_sample_adjustment, generator)
+    with TRACER.span("window"):
+        return _spec_window_body(drafter_cfg, drafter_params, target_cfg,
+                                 target_params, state, gamma, processor,
+                                 eos_ids, skip_sample_adjustment, generator)
 
 
 def batch_spec_windows(drafter_cfg, drafter_params, target_cfg, target_params,
@@ -251,11 +257,15 @@ def batch_spec_windows(drafter_cfg, drafter_params, target_cfg, target_params,
     """Up to ``max_windows`` windows, stopping early once every row is
     finished: one host read (the finished check) before each window."""
     for _ in range(max_windows):
-        if bool(state.finished.all()):
+        with TRACER.span("sync.finished_check"):
+            done = bool(state.finished.all())
+        if done:
             break
-        state = _spec_window_body(
-            drafter_cfg, drafter_params, target_cfg, target_params, state,
-            gamma, processor, eos_ids, skip_sample_adjustment, generator)
+        with TRACER.span("window"):
+            state = _spec_window_body(
+                drafter_cfg, drafter_params, target_cfg, target_params,
+                state, gamma, processor, eos_ids, skip_sample_adjustment,
+                generator)
     return state
 
 

@@ -63,6 +63,11 @@ from specdec_tpu_torch.quant.core import (
     _fp4_decode_bits, _int4_decode, _nf4_decode_bits, _unpack_nibbles,
     dequantize,
 )
+from specdec_tpu_torch.utils.profiling import TRACER
+
+# the kernel of each weight format, by its name in ops/csrc
+_KERNELS = {Int8Weight: "int8_matmul", Int4Weight: "int4_pair_matmul",
+            NF4Weight: "q4_halfplane_matmul", FP4Weight: "q4_halfplane_matmul"}
 
 # 4-bit codec of the half-plane kernel: the plain version's decode and the
 # kernel's template switch
@@ -183,12 +188,8 @@ def _launch(w: Any, x2: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     N = a.shape[-1]
     y = torch.empty((M, N), dtype=torch.bfloat16, device=xb.device)
     strides = [t.stride(0) if t.dim() == 3 else 0 for t in (a, b)]
-    if isinstance(w, Int8Weight):
-        name, extra = "int8_matmul", []
-    elif isinstance(w, Int4Weight):
-        name, extra = "int4_pair_matmul", []
-    else:
-        name, extra = "q4_halfplane_matmul", [_CODECS[type(w)][1]]
+    name = _KERNELS[type(w)]
+    extra = [_CODECS[type(w)][1]] if type(w) in _CODECS else []
     err = getattr(load(name), name)(
         xb.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), M, K, N,
         layer, *strides, *extra,
@@ -201,9 +202,13 @@ def _launch(w: Any, x2: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 def _forward(wrapper, w: Any, x2: torch.Tensor,
              idx: Optional[int]) -> torch.Tensor:
     """x2 [M, K] @ w (layer ``idx`` of a stack, or the 2D weight): the
-    plain version on the CPU, else the kernel, counted. Returns [M, N] in
-    x2's dtype."""
+    plain version on the CPU, else the kernel, counted. While the tracer is
+    on, (M, K, N) goes to its record under the kernel's name, on either
+    device. Returns [M, N] in x2's dtype."""
     a, b = _fields(w)
+    if TRACER.on:
+        TRACER.record(_KERNELS[type(w)], x2.shape[0], x2.shape[1],
+                      a.shape[-1])
     if x2.device.type == "cpu":
         out = _plain(w, x2, *((a, b) if idx is None else (a[idx], b[idx])))
     else:

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from specdec_tpu_torch.core.cache import (
-    init_cache, install_slot, with_row_length,
+    init_cache, install_slot, with_row_length, write_scalar,
 )
 from specdec_tpu_torch.core.config import ModelConfig
 from specdec_tpu_torch.core.model import forward_step, forward_step_paged
@@ -50,6 +50,7 @@ from specdec_tpu_torch.serve.prefix_cache import PrefixBlockCache, block_keys
 from specdec_tpu_torch.serve.scheduler import (
     ContinuousBatcher, Request, _first_token, _install_row,
 )
+from specdec_tpu_torch.utils.profiling import TRACER
 
 
 def _admit_slot_paged(drafter_cfg: ModelConfig, drafter_params,
@@ -269,7 +270,8 @@ class PagedContinuousBatcher(ContinuousBatcher):
         return row
 
     def _table_row(self, pages: List[int]) -> torch.Tensor:
-        return torch.from_numpy(self._row(pages)).to(self.device)
+        with TRACER.span("sync.h2d"):
+            return torch.from_numpy(self._row(pages)).to(self.device)
 
     def _alloc(self, alloc: PageAllocator, owner, n: int) -> List[int]:
         """Allocator front door: with prefix caching, an empty free list is
@@ -304,7 +306,7 @@ class PagedContinuousBatcher(ContinuousBatcher):
         self._slot_first_token[slot] = None
         self.queue.insert(0, req)
         self.preemptions += 1
-        self.state.finished[slot] = True
+        write_scalar(self.state.finished, slot, True)
         self._tables_dirty = True
 
     def _top_up(self):
@@ -350,9 +352,10 @@ class PagedContinuousBatcher(ContinuousBatcher):
             # corrupt the half-prefilled pages (the chunk programs address
             # the pages through their own explicit row)
             def table(slot_pages):
-                return torch.from_numpy(np.stack([
-                    self._row([] if s in self._prefilling else p)
-                    for s, p in enumerate(slot_pages)])).to(self.device)
+                rows = np.stack([self._row([] if s in self._prefilling else p)
+                                 for s, p in enumerate(slot_pages)])
+                with TRACER.span("sync.h2d"):
+                    return torch.from_numpy(rows).to(self.device)
 
             new = dict(t_cache=dataclasses.replace(
                 self.state.t_cache, page_table=table(self._slot_pages_t)))
@@ -419,7 +422,8 @@ class PagedContinuousBatcher(ContinuousBatcher):
         """``ids`` zero-padded to ``length``, on the device."""
         arr = np.zeros((length,), np.int64)
         arr[:len(ids)] = ids
-        return torch.from_numpy(arr).to(self.device)
+        with TRACER.span("sync.h2d"):
+            return torch.from_numpy(arr).to(self.device)
 
     def _advance_prefill(self, slot: int) -> bool:
         """Run ONE prefill slice of a pending slot. Non-final slices only
@@ -435,10 +439,14 @@ class PagedContinuousBatcher(ContinuousBatcher):
         models = (self.drafter_cfg, self.drafter_params, self.target_cfg,
                   self.target_params, self.state)
         if remaining > chunk:
-            self.state = _prefill_chunk(
-                *models, self._tokens(req.prompt_ids[offset:offset + chunk],
-                                      chunk),
-                offset, t_row, d_row, drafter_paged=self.drafter_paged)
+            tokens = self._tokens(req.prompt_ids[offset:offset + chunk],
+                                  chunk)
+            if TRACER.on:
+                TRACER.note(prompt=chunk)
+            with TRACER.span("prefill"):
+                self.state = _prefill_chunk(
+                    *models, tokens, offset, t_row, d_row,
+                    drafter_paged=self.drafter_paged)
             self._prefilling[slot][4] = offset + chunk
             return False
 
@@ -447,19 +455,25 @@ class PagedContinuousBatcher(ContinuousBatcher):
         tail = (self.processor, self.eos_ids, self.generator)
         if offset == 0:
             # nothing cached and no earlier chunk: dense-prefill admission
-            self.state = _admit_slot_dense(
-                *models, slot, prompt, n, req.max_new_tokens, t_row, d_row,
-                *tail, drafter_paged=self.drafter_paged)
+            if TRACER.on:
+                TRACER.note(prompt=n)
+            with TRACER.span("prefill"):
+                self.state = _admit_slot_dense(
+                    *models, slot, prompt, n, req.max_new_tokens, t_row,
+                    d_row, *tail, drafter_paged=self.drafter_paged)
         else:
             suffix = self._tokens(req.prompt_ids[offset:n], bucket)
-            if self.drafter_paged:
-                self.state = _admit_slot_paged(
-                    *models, slot, prompt, suffix, offset, n,
-                    req.max_new_tokens, t_row, d_row, *tail)
-            else:
-                self.state = _admit_slot_hybrid(
-                    *models, slot, prompt, suffix, offset, n,
-                    req.max_new_tokens, t_row, *tail)
+            if TRACER.on:
+                TRACER.note(prompt=remaining)
+            with TRACER.span("prefill"):
+                if self.drafter_paged:
+                    self.state = _admit_slot_paged(
+                        *models, slot, prompt, suffix, offset, n,
+                        req.max_new_tokens, t_row, d_row, *tail)
+                else:
+                    self.state = _admit_slot_hybrid(
+                        *models, slot, prompt, suffix, offset, n,
+                        req.max_new_tokens, t_row, *tail)
         if self.prefix_caching:
             # hand the freshly prefilled full prompt blocks to the cache
             # (refcount 1, held by this slot until release)
@@ -483,11 +497,12 @@ class PagedContinuousBatcher(ContinuousBatcher):
         return True
 
     def _admit(self, slot: int, req: Request, sync: bool = True):
-        self._begin_admit(slot, req)
-        while not self._advance_prefill(slot):
-            pass
-        if sync:
-            self._stamp_admissions([slot])
+        with TRACER.span("admit", req.request_id):
+            self._begin_admit(slot, req)
+            while not self._advance_prefill(slot):
+                pass
+            if sync:
+                self._stamp_admissions([slot])
 
     def _harvest(self, slot: int, buf, pos, plen, accepted, speculated):
         req = self.slot_req[slot]
@@ -499,12 +514,25 @@ class PagedContinuousBatcher(ContinuousBatcher):
             self._tables_dirty = True
 
     def step(self):
+        with TRACER.span("step"):
+            worked = self._paged_step()
+            if TRACER.on:
+                # the target pool's pages held by slots, the garbage page
+                # left out
+                TRACER.note(
+                    pages_held=self.num_pages - len(self._alloc_t.free) - 1,
+                    pool_pages=self.num_pages - 1)
+            return worked
+
+    def _paged_step(self) -> bool:
+        """The body of ``step``."""
         admitted = []
         # one prefill slice per pending slot per step: decode windows
         # interleave with long admissions instead of stalling behind them
         for slot in list(self._prefilling):
-            if self._advance_prefill(slot):
-                admitted.append(slot)
+            with TRACER.span("admit", self._prefilling[slot][0].request_id):
+                if self._advance_prefill(slot):
+                    admitted.append(slot)
         for slot in range(self.B):
             if (self.slot_req[slot] is None and slot not in self._prefilling
                     and self.queue and self._can_admit(self.queue[0])):
@@ -513,14 +541,16 @@ class PagedContinuousBatcher(ContinuousBatcher):
                     self._admit(slot, req, sync=False)
                     admitted.append(slot)
                 else:
-                    self._begin_admit(slot, req)
-                    if self._advance_prefill(slot):  # short prompt: done now
-                        admitted.append(slot)
+                    with TRACER.span("admit", req.request_id):
+                        self._begin_admit(slot, req)
+                        if self._advance_prefill(slot):  # short prompt
+                            admitted.append(slot)
         if admitted:
             self._stamp_admissions(admitted)
         if all(r is None for r in self.slot_req):
             return bool(self._prefilling)
-        self._top_up()
+        with TRACER.span("top_up"):
+            self._top_up()
         return super()._window_and_harvest()
 
     def run(self):

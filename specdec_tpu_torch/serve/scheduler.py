@@ -24,7 +24,9 @@ import numpy as np
 import torch
 
 from specdec_tpu_torch import resolve_device
-from specdec_tpu_torch.core.cache import init_cache, install_slot
+from specdec_tpu_torch.core.cache import (
+    init_cache, install_slot, write_scalar,
+)
 from specdec_tpu_torch.core.config import ModelConfig
 from specdec_tpu_torch.core.model import forward_step
 from specdec_tpu_torch.engine.batch_engine import (
@@ -39,6 +41,7 @@ from specdec_tpu_torch.sampling.processors import (
     GreedyProcessor, LogitsProcessor,
 )
 from specdec_tpu_torch.sampling.utils import eos_mask, normalize_eos
+from specdec_tpu_torch.utils.profiling import TRACER
 
 
 @dataclasses.dataclass
@@ -67,8 +70,9 @@ def _first_token(target_cfg, drafter_cfg, t_logits, prompt_len: int,
                   drafter_cfg.max_position_embeddings)
     total = min(max_pos, prompt_len + max_new)
     pos = prompt_len + 1
-    finished = eos_mask(tok0, eos_ids) | torch.tensor(pos >= total,
-                                                      device=device)
+    with TRACER.span("sync.h2d"):
+        done = torch.tensor(pos >= total, device=device)
+    finished = eos_mask(tok0, eos_ids) | done
     return tok0, pos, total, finished
 
 
@@ -78,12 +82,12 @@ def _install_row(state: BatchState, slot: int, prompt: torch.Tensor,
     state.buf[slot].zero_()
     state.buf[slot, :prompt.shape[0]] = prompt
     state.buf[slot, prompt_len] = tok0
-    state.pos[slot] = pos
-    state.prompt_len[slot] = prompt_len
-    state.total_len[slot] = total
+    write_scalar(state.pos, slot, pos)
+    write_scalar(state.prompt_len, slot, prompt_len)
+    write_scalar(state.total_len, slot, total)
     state.finished[slot] = finished
-    state.accepted[slot] = 0
-    state.speculated[slot] = 0
+    write_scalar(state.accepted, slot, 0)
+    write_scalar(state.speculated, slot, 0)
 
 
 def _admit_slot(drafter_cfg: ModelConfig, drafter_params,
@@ -248,26 +252,33 @@ class ContinuousBatcher:
         prompt = np.zeros((P,), np.int64)
         n = min(len(req.prompt_ids), P)
         prompt[:n] = req.prompt_ids[:n]
-        return torch.from_numpy(prompt).to(self.device), n
+        with TRACER.span("sync.h2d"):
+            return torch.from_numpy(prompt).to(self.device), n
 
     def _admit(self, slot: int, req: Request, sync: bool = True):
-        prompt, n = self._padded_prompt(req)
-        self.state = _admit_slot(
-            self.drafter_cfg, self.drafter_params, self.target_cfg,
-            self.target_params, self.state, slot, prompt, n,
-            req.max_new_tokens, self.processor, self.eos_ids, self.generator)
-        self.slot_req[slot] = req
-        req.metrics = RequestMetrics(prompt_tokens=n,
-                                     start_time=req.submit_time,
-                                     queue_seconds=time.time() - req.submit_time)
-        if sync:
-            self._stamp_admissions([slot])
+        with TRACER.span("admit", req.request_id):
+            prompt, n = self._padded_prompt(req)
+            if TRACER.on:
+                TRACER.note(prompt=n)
+            with TRACER.span("prefill"):
+                self.state = _admit_slot(
+                    self.drafter_cfg, self.drafter_params, self.target_cfg,
+                    self.target_params, self.state, slot, prompt, n,
+                    req.max_new_tokens, self.processor, self.eos_ids,
+                    self.generator)
+            self.slot_req[slot] = req
+            req.metrics = RequestMetrics(
+                prompt_tokens=n, start_time=req.submit_time,
+                queue_seconds=time.time() - req.submit_time)
+            if sync:
+                self._stamp_admissions([slot])
 
     def _stamp_admissions(self, slots: List[int]):
         """The admission prefill commits the first generated token, so TTFT
         stamps at admission, after one host read (a burst of admissions
         shares it)."""
-        self._host_pos[:] = self.state.pos.cpu().numpy()
+        with TRACER.span("sync.stamp"):
+            self._host_pos[:] = self.state.pos.cpu().numpy()
         now = time.time()
         for slot in slots:
             self._slot_first_token[slot] = now
@@ -316,16 +327,17 @@ class ContinuousBatcher:
     def step(self):
         """Fill free slots from the queue, then run the windows of one
         sync."""
-        admitted = []
-        for slot in range(self.B):
-            if self.slot_req[slot] is None and self.queue:
-                self._admit(slot, self.queue.pop(0), sync=False)
-                admitted.append(slot)
-        if admitted:
-            self._stamp_admissions(admitted)
-        if all(r is None for r in self.slot_req):
-            return False
-        return self._window_and_harvest()
+        with TRACER.span("step"):
+            admitted = []
+            for slot in range(self.B):
+                if self.slot_req[slot] is None and self.queue:
+                    self._admit(slot, self.queue.pop(0), sync=False)
+                    admitted.append(slot)
+            if admitted:
+                self._stamp_admissions(admitted)
+            if all(r is None for r in self.slot_req):
+                return False
+            return self._window_and_harvest()
 
     def _window_step(self):
         """Advance the device state by windows_per_sync windows."""
@@ -340,17 +352,22 @@ class ContinuousBatcher:
     def _window_and_harvest(self):
         self._window_step()
         now = time.time()
-        buf, pos, plen, accepted, speculated, finished = _unpack_state(
-            _pack_state(self.state).cpu().numpy())
-        self._host_pos[:] = pos
-        for slot in range(self.B):
-            if self.slot_req[slot] is not None:
-                if self._slot_first_token[slot] is None:
-                    self._slot_first_token[slot] = now
-                if finished[slot]:
-                    self._harvest(slot, buf, pos, plen, accepted, speculated)
-        if self.auto_gamma:
-            self._maybe_retune_gamma()
+        packed = _pack_state(self.state)
+        with TRACER.span("sync.harvest_read"):
+            packed = packed.cpu().numpy()
+        with TRACER.span("harvest"):
+            buf, pos, plen, accepted, speculated, finished = _unpack_state(
+                packed)
+            self._host_pos[:] = pos
+            for slot in range(self.B):
+                if self.slot_req[slot] is not None:
+                    if self._slot_first_token[slot] is None:
+                        self._slot_first_token[slot] = now
+                    if finished[slot]:
+                        self._harvest(slot, buf, pos, plen, accepted,
+                                      speculated)
+            if self.auto_gamma:
+                self._maybe_retune_gamma()
         return True
 
     def run(self) -> Dict[int, Request]:

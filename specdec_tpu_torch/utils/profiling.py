@@ -1,60 +1,158 @@
-"""Tracing and profiling helpers (counterpart of
-``specdec_tpu/utils/profiling.py``).
+"""The serving path's tracer: spans and per-call records, kept in memory
+and drained by whoever enabled it.
 
-- ``phase_timer``: a host-clock bracket, as a context manager adding its
-  seconds to a shared dict (the benchmark's per-phase breakdown);
-- ``device_trace``: a ``torch.profiler`` trace of the CPU and, where CUDA
-  is available, the card's activity, written as a Chrome/Perfetto trace
-  (``trace.json``) into ``log_dir``;
-- ``annotate``: a named range (``torch.profiler.record_function``) that
-  marks draft, verify and accept phases in such a trace.
+- A span is ``(name, start_ns, end_ns, parent, request_id, args)``:
+  ``parent`` is the index of the span that was innermost when it opened
+  (-1 for none), ``request_id`` the request it serves (-1 where none
+  applies; a span opened inside a request's span inherits its id), and
+  ``args`` a dict of numbers noted on it, or None.
+- ``records`` holds per-call records by kind: the index of the innermost
+  open span, then the site's values. A record may end in a device tensor;
+  ``drain`` reads every such tensor of a kind in one copy, so a site costs
+  the device no host read.
+
+Off by default. Off, a span site costs one attribute test: ``span``
+returns a shared inert context and allocates nothing; ``note`` and
+``record`` sites test ``on`` themselves.
+``TRACER`` is the one tracer of the process, as the profiler it lines up
+with is: ``enable()``, ``disable()``, then ``drain()`` for what was kept.
+
+Clock: ``time.time_ns()``, the Unix wall clock in nanoseconds. It is the
+clock on which ``torch.profiler`` (torch 2.11 with CUDA 12.8, on an NVIDIA
+H100) stamps its host-side events: each ``cudaLaunchKernel`` runtime event
+lies between ``time.time_ns()`` read just before and just after the
+launch, and in a 10 s slice of chat serving each of the 460
+``cudaStreamSynchronize`` calls lay inside the ``sync.*`` span that made
+it, with no offset taken. The device's own kernel times drift from it (1
+to 4.6 ms ahead over that slice), so a kernel is tied to the span that
+launched it through its launch event. The ``Request`` and
+``RequestMetrics`` stamps keep ``time.time()``, the same clock in
+seconds.
 """
 from __future__ import annotations
 
-import contextlib
-import os
-import tempfile
+import dataclasses
 import time
-from typing import Dict, Optional
+from typing import Dict, List
 
 import torch
 
-
-@contextlib.contextmanager
-def phase_timer(phases: Dict[str, float], name: str):
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        phases[name] = phases.get(name, 0.0) + (time.perf_counter() - t0)
+now_ns = time.time_ns
 
 
-@contextlib.contextmanager
-def device_trace(log_dir: Optional[str] = None):
-    """Profile the block; the trace goes to ``log_dir/trace.json``
-    (``log_dir`` defaults to ``specdec_trace`` in the temporary
-    directory). Yields the profiler, or None where it does not start."""
-    log_dir = log_dir or os.path.join(tempfile.gettempdir(), "specdec_trace")
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    try:
-        prof = torch.profiler.profile(activities=activities)
-        prof.__enter__()
-    except Exception as e:  # the profiler may be unavailable
-        print(f"warning: torch profiler unavailable: {e}")
-        prof = None
-    try:
-        yield prof
-    finally:
-        if prof is not None:
-            prof.__exit__(None, None, None)
-            os.makedirs(log_dir, exist_ok=True)
-            path = os.path.join(log_dir, "trace.json")
-            prof.export_chrome_trace(path)
-            print(f"device trace written to {path}")
+class _Off:
+    """The context a span site gets while the tracer is off."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
 
 
-def annotate(name: str):
-    """A named trace range (recorded only while a profiler runs)."""
-    return torch.profiler.record_function(name)
+_OFF = _Off()
+
+
+class _Span:
+    """The context of an open span: its exit closes it."""
+
+    __slots__ = ("tracer", "index")
+
+    def __init__(self, tracer: "Tracer", index: int):
+        self.tracer, self.index = tracer, index
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        t = self.tracer
+        t._ends[self.index] = now_ns()
+        t._stack.pop()
+        return False
+
+
+@dataclasses.dataclass
+class Trace:
+    """What a tracer kept between ``enable`` and ``drain``."""
+
+    spans: List[tuple]                 # (name, start, end, parent, rid, args)
+    records: Dict[str, List[tuple]]    # kind -> (span, *values)
+
+
+class Tracer:
+    def __init__(self):
+        self.on = False
+        self._clear()
+
+    def _clear(self):
+        self._names: List[str] = []
+        self._starts: List[int] = []
+        self._ends: List[int] = []
+        self._parents: List[int] = []
+        self._rids: List[int] = []
+        self._args: Dict[int, dict] = {}
+        self._stack: List[int] = []
+        self._records: Dict[str, List[tuple]] = {}
+
+    def enable(self):
+        self.on = True
+
+    def disable(self):
+        self.on = False
+
+    def span(self, name: str, request_id: int = -1):
+        """A context that records one span while the tracer is on."""
+        if not self.on:
+            return _OFF
+        i = len(self._names)
+        parent = self._stack[-1] if self._stack else -1
+        if request_id < 0 and parent >= 0:
+            request_id = self._rids[parent]
+        self._names.append(name)
+        self._starts.append(now_ns())
+        self._ends.append(0)
+        self._parents.append(parent)
+        self._rids.append(request_id)
+        self._stack.append(i)
+        return _Span(self, i)
+
+    def note(self, **values):
+        """Add numbers to the innermost open span's args. Callers test
+        ``on`` first."""
+        if self._stack:
+            args = self._args.setdefault(self._stack[-1], {})
+            for k, v in values.items():
+                args[k] = args.get(k, 0) + v
+
+    def record(self, kind: str, *values):
+        """One per-call record under ``kind``, tagged with the innermost
+        open span. Callers test ``on`` first, so that an off tracer costs
+        them no arithmetic."""
+        span = self._stack[-1] if self._stack else -1
+        self._records.setdefault(kind, []).append((span, *values))
+
+    def drain(self) -> Trace:
+        """Everything kept so far, and a fresh start; call it outside every
+        span. Device tensors that end a kind's records are
+        read here, one copy a kind."""
+        spans = [(n, s, e, p, r, self._args.get(i))
+                 for i, (n, s, e, p, r) in enumerate(zip(
+                     self._names, self._starts, self._ends, self._parents,
+                     self._rids))]
+        records = {k: _read_tensors(v) for k, v in self._records.items()}
+        self._clear()
+        return Trace(spans, records)
+
+
+def _read_tensors(rows: List[tuple]) -> List[tuple]:
+    if not rows or not isinstance(rows[0][-1], torch.Tensor):
+        return rows
+    values = torch.stack([r[-1] for r in rows]).cpu().tolist()
+    return [r[:-1] + (tuple(v) if isinstance(v, list) else (v,))
+            for r, v in zip(rows, values)]
+
+
+TRACER = Tracer()
+

@@ -1,6 +1,6 @@
 """The port's benchmark harness against the JAX package's:
 ``engine/{benchmark_runner,benchmark_executor,dataset,monitor,
-server_benchmark,vllm_compat}.py``, ``utils/{printing,profiling}.py`` and
+server_benchmark,vllm_compat}.py``, ``utils/printing.py`` and
 ``cli/benchmark.py``.
 
 The runner cases load one tiny f32 llama checkpoint (built here, with a
@@ -34,7 +34,6 @@ from specdec_tpu_torch.engine.model_loader import load_models
 from specdec_tpu_torch.engine.server_benchmark import run_server_benchmark
 from specdec_tpu_torch.sampling.base_decoding import autoregressive_generate
 from specdec_tpu_torch.utils import printing as tprint
-from specdec_tpu_torch.utils import profiling as tprof
 
 from test_torch_loader import build_hf, write_tokenizer
 
@@ -536,7 +535,7 @@ def test_server_benchmark_duration_cuts_arrivals():
 
 
 # ---------------------------------------------------------------------------
-# printing, profiling and the CLI
+# printing and the CLI
 # ---------------------------------------------------------------------------
 
 def test_printing_matches_jax(capsys):
@@ -553,21 +552,6 @@ def test_printing_matches_jax(capsys):
         mod.beam_search_step([-1.5, -2.25], [drafts, drafts[:2]], 3, tok)
         printed.append(capsys.readouterr().out)
     assert printed[0] == printed[1] and "beam step 3" in printed[0]
-
-
-def test_profiling_helpers(tmp_path):
-    phases = {}
-    with tprof.phase_timer(phases, "draft"):
-        time.sleep(0.01)
-    with tprof.phase_timer(phases, "draft"):
-        pass
-    assert phases["draft"] >= 0.01
-    with tprof.device_trace(str(tmp_path / "trace")) as prof:
-        with tprof.annotate("verify"):
-            torch.ones(8) @ torch.ones(8)
-    assert prof is not None
-    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
-    assert any(e.get("name") == "verify" for e in trace["traceEvents"])
 
 
 def test_cli_raises_without_cuda(bench_env):
