@@ -97,7 +97,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    paged engine and the slotted one (16 requests x 128 tokens, 8 slots,
    gamma 8), with every page back in the pool, launch counts checked (the
    paged attention kernel once per target layer per paged forward, the
-   int8 flash-decode kernel on every slotted forward) and a profile of the
+   flash-decode kernel, K3 or K4 over int8 KV, on every slotted forward
+   whatever ``attention_impl`` says) and a profile of the
    card's busy share under the paged engine; with bf16 KV and with
    ``--kv-quant int8 --attn flash``; and the paged engine under ``--quant
    int8`` and ``--quant nf4`` (K7 or K6 on every projection, at the
@@ -1479,11 +1480,39 @@ def weight_kernels(params):
 
 
 def slotted_attention_kernel(cfg):
-    """The kernel a slotted forward of ``cfg`` attends through (None: the
-    plain attention)."""
+    """The kernel a slotted forward of ``cfg`` outside the batch engine
+    attends through (None: the plain attention)."""
     if cfg.attention_impl != "flash":
         return None
     return "K4" if cfg.kv_quant == "int8" else "K3"
+
+
+def batch_attention_kernel(cfg):
+    """The kernel a slotted forward of the batch engine or of a serving
+    batcher's admission attends through, whatever ``attention_impl`` says
+    (None: the plain attention): K3, or K4 over int8 KV, wherever
+    ``kernel_route(cfg)`` holds."""
+    from specdec_tpu_torch.core.model import kernel_route
+
+    if not kernel_route(cfg):
+        return None
+    return "K4" if cfg.kv_quant == "int8" else "K3"
+
+
+@contextlib.contextmanager
+def plain_batch_route():
+    """The batch engine's and the admissions' slotted forwards on the
+    config's ``attention_impl`` rule, not the kernel route: the greedy AR
+    references of engines that attend as the config says (NASD, EAGLE),
+    so that the reference and the engine reduce in the same attention."""
+    from specdec_tpu_torch.engine import batch_engine
+
+    saved = batch_engine.kernel_route
+    batch_engine.kernel_route = lambda cfg: False
+    try:
+        yield
+    finally:
+        batch_engine.kernel_route = saved
 
 
 def phase_main(pair, device, label="bf16 KV", gen=None):
@@ -1697,10 +1726,10 @@ def phase_serve(pair, device, label="bf16 KV", engines=("paged", "slotted"),
     """The serving main path: the paged engine and (unless ``engines``
     leaves it out) the slotted one, each with the launch counts of its own
     passes. The paged engine's target attends through K8a (bf16 KV) or K8b
-    (int8 KV), 22 launches per paged forward; under
-    ``attention_impl="flash"`` every slotted forward (the hybrid drafter's
-    steps, the dense admissions, all of the slotted engine's forwards)
-    attends through K3 or K4. Every forward runs its projections on the
+    (int8 KV), 22 launches per paged forward; every slotted forward (the
+    hybrid drafter's steps, the dense admissions, all of the slotted
+    engine's forwards) attends through K3 or K4, whatever
+    ``attention_impl`` says. Every forward runs its projections on the
     weight format's stacked kernel and its lm_head on the 2D one. Returns
     (summary, launches summed over the engines). ``profile=False`` skips
     the profiled pass."""
@@ -1710,7 +1739,7 @@ def phase_serve(pair, device, label="bf16 KV", engines=("paged", "slotted"),
     t_cfg, d_cfg = pair[0], pair[1]
     L, Ld, gamma = t_cfg.num_layers, d_cfg.num_layers, bench.SERVE_GAMMA
     paged_kernel = "K8b" if t_cfg.kv_quant == "int8" else "K8a"
-    attn = slotted_attention_kernel(t_cfg)
+    attn = batch_attention_kernel(t_cfg)
     w_stacked, w_2d = weight_kernels(pair[2])
     runs, by_engine = [], {}
     for engine in engines:
@@ -1942,8 +1971,8 @@ def phase_gemma(device, card):
     from specdec_tpu_torch.core import model as tmodel
     from specdec_tpu_torch.core.cache import init_cache
     from specdec_tpu_torch.core.paged_cache import init_paged_cache
-    from specdec_tpu_torch.engine.batch_engine import (
-        batch_autoregressive_generate,
+    from specdec_tpu_torch.sampling.base_decoding import (
+        autoregressive_generate,
     )
     from specdec_tpu_torch.sampling.processors import GreedyProcessor
     from specdec_tpu_torch.serve import PagedContinuousBatcher
@@ -1992,9 +2021,12 @@ def phase_gemma(device, card):
                                      device, {})
                   for what, out in (("AR", got), ("speculative", spec))}
 
-        refs = batch_autoregressive_generate(prompts, plain, target,
-                                             gen_len=GEMMA_GEN,
-                                             eos_tokens_id=(), device=device)
+        # single-sequence AR keeps the plain attention under "xla" (the
+        # batch engine would attend through K3)
+        refs = [autoregressive_generate(p, plain, target,
+                                        max_gen_len=GEMMA_GEN,
+                                        eos_tokens_id=(), device=device)
+                for p in prompts]
         b = PagedContinuousBatcher(
             d_cfg, drafter, cfg, target, num_slots=GEMMA_REQUESTS,
             gamma=GEMMA_SERVE_GAMMA, max_prompt_len=64,
@@ -2100,12 +2132,14 @@ def nasd_prompts():
 
 
 def teacher_forced(what, cfg, params, prompts, outs, device, shape,
-                   root=False, step_cfg=None, max_ulps=2):
+                   root=False, step_cfg=None, max_ulps=2, ties_at=None):
     """Every token of every output is the target's argmax over its own
     prefix, or within greedy_tie's two bf16 ulps below it, in a replay of
     the engine's computation: ``shape`` = (P, S, T, admit): the prompts
     padded to P and prefilled on a cache of S positions (each alone, as a
-    serving admission, if ``admit``; else as one batch), then one forward
+    serving admission, if ``admit``, on a scratch cache of ``admit``
+    positions where it is a number, as the serving engine's dense
+    admission has it; else as one batch), then one forward
     of T rows a token, the committed token in row 0 and padding after it,
     row 0 read (a causal row reads nothing after it; each weight kernel's
     row is the same bits at every row count). A forward over the whole
@@ -2116,9 +2150,12 @@ def teacher_forced(what, cfg, params, prompts, outs, device, shape,
     too, not from the prefill. ``step_cfg``: the config of those forwards
     where it differs from the prefill's (a tree verify attends in the
     plain attention under every setting). ``max_ulps``: the largest gap
-    allowed (TREE_REPLAY_ULPS for the tree engines). Returns (tokens
+    allowed (TREE_REPLAY_ULPS for the tree engines). ``ties_at``: {output
+    index: token} where the output parts from its greedy AR reference; the
+    replay's top two logits there must lie within ``max_ulps`` (the
+    parting is a tie of the engine's own computation). Returns (tokens
     checked, tokens not the argmax, largest gap in ulps)."""
-    from specdec_tpu_torch.core.cache import init_cache, install_slot
+    from specdec_tpu_torch.core.cache import init_cache, storage_fields
     from specdec_tpu_torch.core.model import forward_step
 
     step_cfg = step_cfg or cfg
@@ -2137,12 +2174,13 @@ def teacher_forced(what, cfg, params, prompts, outs, device, shape,
         live[i, :len(o)] = True
     cache = init_cache(cfg, N, S, device=device)
     if admit:
-        first = []
+        first, S1 = [], S if admit is True else admit
         for i in range(N):
-            one = init_cache(cfg, 1, S, device=device)
+            one = init_cache(cfg, 1, S1, device=device)
             lg, one = forward_step(cfg, params, padded[i:i + 1], one)
             first.append(lg[0, len(prompts[i]) - 1])
-            cache = install_slot(cache, one, i, len(prompts[i]))
+            for name in storage_fields(cache):
+                getattr(cache, name)[:, i, :S1].copy_(getattr(one, name)[:, 0])
         rows = torch.stack(first)
     else:
         lg, cache = forward_step(cfg, params, padded, cache)
@@ -2162,6 +2200,13 @@ def teacher_forced(what, cfg, params, prompts, outs, device, shape,
         ulp = torch.exp2(torch.floor(torch.log2(top.abs().clamp_min(1e-30)))
                          - 7)
         gaps.append(torch.where(live[:, j], gap / ulp, 0.0))
+        for i in [i for i, t in (ties_at or {}).items() if t == j]:
+            top2 = rows[i].topk(2).values
+            tie = ((top2[0] - top2[1]) / ulp[i]).item()
+            if tie > max_ulps:
+                fail(f"{what}, sequence {i}: parts from greedy AR at token "
+                     f"{j} where the replay's top-2 logit gap is {tie:.2f} "
+                     f"bf16 ulps (at most {max_ulps})")
     ratio = torch.stack(gaps, dim=1)                               # [N, L]
     if (ratio > max_ulps).any():
         # the first token past the tie rule, by position
@@ -2171,6 +2216,38 @@ def teacher_forced(what, cfg, params, prompts, outs, device, shape,
              f"ulps below the target's argmax over its prefix (at most "
              f"{max_ulps})")
     return (int(live.sum()), int((ratio > 0).sum()), ratio.max().item())
+
+
+def admitted_greedy_ar(cfg, params, prompts, gen, P, S, device):
+    """Greedy AR of each prompt as the serving engine admits it: padded to
+    P and prefilled alone on a scratch cache of S positions
+    (``serve/scheduler.py::_scratch_prefill``, on the batch engine's
+    attention route), then one token a step on that cache, the prompts
+    batched. An engine's verify then reads the same prompt K/V and decodes
+    through another attention (the paged kernel over the page table), as
+    an independent reference's decode should."""
+    from specdec_tpu_torch.core.cache import init_cache, storage_fields
+    from specdec_tpu_torch.core.model import forward_step, kernel_route
+    from specdec_tpu_torch.serve.scheduler import _scratch_prefill
+
+    cache = init_cache(cfg, len(prompts), S, device=device)
+    first = []
+    for i, p in enumerate(prompts):
+        padded = torch.zeros((P,), dtype=torch.int64, device=device)
+        padded[:len(p)] = torch.tensor(p, device=device)
+        lg, one = _scratch_prefill(cfg, params, padded, S)
+        first.append(lg[0, len(p) - 1].argmax())
+        for name in storage_fields(cache):
+            getattr(cache, name)[:, i].copy_(getattr(one, name)[:, 0])
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                        device=device)
+    toks = [torch.stack(first)]
+    for j in range(1, gen):
+        lg, cache = forward_step(cfg, params, toks[-1][:, None],
+                                 cache.with_length(lens + j - 1),
+                                 use_kernel=kernel_route(cfg))
+        toks.append(lg[:, 0].argmax(dim=-1))
+    return torch.stack(toks, dim=1).tolist()
 
 
 def check_greedy(what, cfg, params, prompts, refs, outs, device, parted):
@@ -2208,11 +2285,13 @@ def forced_note(forced):
             f"{worst:.2f} bf16 ulps")
 
 
-def forward_launches(what, counts, cfg, params, extra=()):
+def forward_launches(what, counts, cfg, params, extra=(), batch=False):
     """The launch counts of a run of target forwards: each forward launches
     the stacked weight kernel 4 * L times and the lm_head's once, and under
-    the flash kernel the slotted attention kernel L times; nothing else
-    launches (``extra``: kernels also allowed). Returns the forwards."""
+    the flash kernel the slotted attention kernel L times; so does each
+    forward of the batch engine (``batch``: ``batch_attention_kernel``),
+    whatever ``attention_impl`` says; nothing else launches (``extra``:
+    kernels also allowed). Returns the forwards."""
     stacked, two_d = weight_kernels(params)
     L = cfg.num_layers
     forwards = counts[two_d]
@@ -2221,6 +2300,8 @@ def forward_launches(what, counts, cfg, params, extra=()):
     attn = slotted_attention_kernel(cfg)
     if attn is not None:
         want[attn] = L * forwards
+    elif batch and batch_attention_kernel(cfg) is not None:
+        want[batch_attention_kernel(cfg)] = L * forwards
     got = {k: n for k, n in counts.items() if k not in extra}
     if forwards == 0 or got != {k: want[k] for k in got}:
         fail(f"{what}: launches {counts}, expected {want} for {forwards} "
@@ -2304,9 +2385,11 @@ def phase_nasd(pair, device, card, label="bf16 KV", variants=None):
                                         max_gen_len=NASD_GEN,
                                         eos_tokens_id=(), device=device)]}
     if n_refs > 1:
-        refs[n_refs] = batch_autoregressive_generate(
-            prompts[:n_refs], cfg, target, gen_len=NASD_GEN,
-            eos_tokens_id=(), device=device)
+        # NASD's loops attend as the config says, and so does the reference
+        with plain_batch_route():
+            refs[n_refs] = batch_autoregressive_generate(
+                prompts[:n_refs], cfg, target, gen_len=NASD_GEN,
+                eos_tokens_id=(), device=device)
     say(f"[time] NASD ({label}): greedy AR references (prompt 0 alone"
         + (f", {n_refs} prompts batched" if n_refs > 1 else "")
         + f") in {time.perf_counter() - t0:.1f} s")
@@ -2374,9 +2457,10 @@ def phase_nasd_serving(pair, device, card):
     cfg, target = pair[0], pair[2]
     prompts = bench.serving_prompts()
     t0 = time.perf_counter()
-    refs = batch_autoregressive_generate(
-        prompts, cfg, target, gen_len=SERVE_SHORT_GEN, eos_tokens_id=(),
-        device=device)
+    with plain_batch_route():
+        refs = batch_autoregressive_generate(
+            prompts, cfg, target, gen_len=SERVE_SHORT_GEN, eos_tokens_id=(),
+            device=device)
     say(f"[time] NASD serving: greedy AR references (batched) in "
         f"{time.perf_counter() - t0:.1f} s")
     summary, total, outputs = {}, {k: 0 for k in kernel_wrappers()}, {}
@@ -2892,8 +2976,10 @@ def phase_eagle_serving(pair, head, device, card):
     proc = GreedyProcessor(temperature=GREEDY_T)
     prompts = bench.serving_prompts()
     t0 = time.perf_counter()
-    refs = batch_autoregressive_generate(prompts, t_cfg, target, gen_len=gen,
-                                         eos_tokens_id=(), device=device)
+    with plain_batch_route():
+        refs = batch_autoregressive_generate(prompts, t_cfg, target,
+                                             gen_len=gen, eos_tokens_id=(),
+                                             device=device)
     say(f"[time] EAGLE serving: greedy AR references (batched) in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -3150,18 +3236,21 @@ def say_run(phase, name, rec, card, extra=""):
         f"{rec['tokens_per_joule']:.3f} tokens/J" + extra)
 
 
-def spec_forwards(what, counts, kernels, L, Ld):
-    """Target and drafter forwards of a LayerSkip run from its launches:
-    the stacked weight kernel 4 (L T + Ld D) times, the 2D one T + D
-    times, nothing else (``kernels``: the format's (stacked, 2D) pair).
-    Returns (T, D)."""
+def spec_forwards(what, counts, kernels, L, Ld, attn):
+    """Target and drafter forwards of a LayerSkip run of the batch engine
+    from its launches: the stacked weight kernel 4 (L T + Ld D) times, the
+    2D one T + D times, the slotted attention kernel ``attn`` (the batch
+    engine's, ``batch_attention_kernel``; None: none) L T + Ld D times,
+    nothing else (``kernels``: the format's (stacked, 2D) pair). Returns
+    (T, D)."""
     stacked, two_d = kernels
     a, b = counts[stacked], counts[two_d]
     num = a // 4 - Ld * b
     T, D = num // (L - Ld), b - num // (L - Ld)
     others = {k: n for k, n in counts.items() if n and k not in (stacked,
-                                                                two_d)}
-    if a % 4 or num % (L - Ld) or T <= 0 or D <= 0 or others:
+                                                                two_d, attn)}
+    if a % 4 or num % (L - Ld) or T <= 0 or D <= 0 or others or (
+            attn is not None and counts[attn] != L * T + Ld * D):
         fail(f"{what}: launches {counts} are no whole number of {L}-layer "
              f"target and {Ld}-layer drafter forwards")
     return T, D
@@ -3218,14 +3307,21 @@ def recording(module, names, calls):
 def greedy_ar_outputs(what, runner, calls, device):
     """Every recorded greedy output of the run equals single-sequence
     greedy AR of its prompt on the runner's target, or parts from it
-    first at a top-two bf16 tie (``greedy_tie``). Returns the ties."""
+    first at a top-two bf16 tie (``greedy_tie``), both attending alike:
+    the batch engine's outputs against AR on its attention kernel (under
+    ``"flash"``), the device table's against AR as the config says.
+    Returns the ties."""
     from specdec_tpu_torch.sampling.base_decoding import (
         autoregressive_generate,
     )
 
-    cfg, params = runner.target_cfg, runner.target_params
+    params = runner.target_params
     ties = []
     for name, args, out in calls:
+        cfg = runner.target_cfg
+        if (name == "batch_autoregressive_generate"
+                and batch_attention_kernel(cfg) is not None):
+            cfg = cfg.replace(attention_impl="flash")
         outs = out if name == "batch_autoregressive_generate" else out[0]
         for p, o in zip(args[0], outs):
             ref = autoregressive_generate(
@@ -3288,6 +3384,9 @@ def phase_cli(device, card, root, workdir):
     write_sharegpt(os.path.join(workdir, "sharegpt_gpt4.jsonl"))
     summary, by_run = {}, {}
     L, Ld = 22, 4  # the preset's layers and the drafter's
+    # the preset's bf16 heads of 64 take the flash-decode kernel, which
+    # every forward of the batch engine attends through
+    attn = "K3"
     for name, env in CLI_RUNS.items():
         rec, counts = run_cli(name, env, root, workdir, limit, card)
         quant = env["QUANTIZATION"]
@@ -3295,7 +3394,7 @@ def phase_cli(device, card, root, workdir):
         if not counts[stacked]:
             fail(f"9 {name}: no {stacked} launch under {quant} weights")
         rec["target_forwards"], rec["drafter_forwards"] = spec_forwards(
-            f"9 {name}", counts, (stacked, two_d), L, Ld)
+            f"9 {name}", counts, (stacked, two_d), L, Ld, attn)
         rec["launches"] = {k: n for k, n in counts.items() if n}
         summary[name], by_run[name] = rec, counts
         mode = "batch" if env.get("ENABLE_BATCH") == "true" else "single"
@@ -3328,7 +3427,10 @@ def phase_cli(device, card, root, workdir):
         what = f"9 {name}"
         extra = ""
         if name in ("target_ar", "ngram_device"):
-            fw = forward_launches(what, counts, runner.target_cfg, params)
+            # target_ar decodes in the batch engine, every forward on its
+            # attention; the device table's loop runs its own forwards
+            fw = forward_launches(what, counts, runner.target_cfg, params,
+                                  batch=name == "target_ar")
             rec["ties"] = greedy_ar_outputs(what, runner, calls, device)
             extra = (f"; {fw} target forwards (K1b 88, K1a 1 each); every "
                      "output == greedy AR" + (
@@ -3340,7 +3442,8 @@ def phase_cli(device, card, root, workdir):
             extra = f"; {T} target forwards, {heads} head forwards"
         else:
             T, D = spec_forwards(what, counts, weight_kernels(params), L,
-                                 runner.drafter_cfg.num_layers)
+                                 runner.drafter_cfg.num_layers,
+                                 batch_attention_kernel(runner.target_cfg))
             if rec["seconds"] < float(env["AUTO_DURATION"]):
                 fail(f"{what}: stopped after {rec['seconds']:.1f} s, before "
                      f"AUTO_DURATION {env['AUTO_DURATION']} s")
@@ -3592,7 +3695,7 @@ def phase_8b(device, card, workdir):
     rec = check_result_files("9c 8B", os.path.join(workdir, "llama_8b.json"),
                              "speculative", 4, limit)
     T, D = spec_forwards("9c 8B", counts, weight_kernels(runner.target_params),
-                         32, 4)
+                         32, 4, batch_attention_kernel(runner.target_cfg))
     rec.update(build_s=built["seconds"], build_peak_bytes=built["peak"],
                params_bytes=built["params"], target_forwards=T,
                drafter_forwards=D, wall_s=seconds,
@@ -3663,18 +3766,15 @@ def phase_vllm(device, card):
     each, greedy at GREEDY_T (the softmaxes saturate, so acceptance is
     exact-match and a request's tokens are the target's). Its pool is the
     default half of full reservation, so requests may be preempted and
-    prefilled again, another computation of the same tokens. Each request
-    equals batched greedy AR under the same KV format, or parts from it
-    first at a top-two tie (``check_greedy``, as the NASD and EAGLE serving
-    phases hold theirs); then every token of every request is held to the
-    target's argmax over its own prefix, within greedy_tie's two bf16
-    ulps, in a replay of the engine's shape (``teacher_forced``). Returns
-    (summary, launches by KV format)."""
+    prefilled again, another computation of the same tokens. Every token
+    of every request is held to the target's argmax over its own prefix,
+    within greedy_tie's two bf16 ulps, in a replay of the engine's shape
+    (``teacher_forced``), and each request equals greedy AR under the same
+    KV format from the same admission prefill (``admitted_greedy_ar``), or
+    parts from it first where the replay's top two logits are tied within
+    two bf16 ulps. Returns (summary, launches by KV format)."""
     from specdec_tpu_torch import bench
     from specdec_tpu_torch.core import model as tmodel
-    from specdec_tpu_torch.engine.batch_engine import (
-        batch_autoregressive_generate,
-    )
     from specdec_tpu_torch.engine.server_benchmark import run_server_benchmark
     from specdec_tpu_torch.engine.vllm_compat import (
         VLLMEngineManager, create_vllm_config_from_env,
@@ -3718,31 +3818,50 @@ def phase_vllm(device, card):
         # no request ended early, so the reference is greedy AR without
         # end tokens: an end token only cuts a stream short, and where AR
         # would end one (at a tie) the request parts from it there
-        refs = batch_autoregressive_generate(
-            prompts, t_cfg, target, gen_len=gen, eos_tokens_id=(),
-            device=device)
+        P, gamma = b.max_prompt_len, b.gamma
+        refs = admitted_greedy_ar(t_cfg, target, prompts, gen, P, b.S,
+                                  device)
         ar_equal = sum(o == r for o, r in zip(outs, refs))
-        ties = check_greedy(what, t_cfg, target, prompts, refs, outs,
-                            device, {})
+        if any(len(o) != len(r) for o, r in zip(outs, refs)):
+            fail(f"{what}: output lengths {[len(o) for o in outs]}, AR's "
+                 f"{[len(r) for r in refs]}")
+        # the reference prefills each prompt as the engine's admission
+        # does (the kernel's spans follow the cache's size, and the
+        # probabilities round to bf16 at each span's scale), then decodes
+        # on its own; where a request parts from it, a tie of the engine's
+        # own computation (the replay below)
+        parts = {i: next(j for j, (x, y) in enumerate(zip(o, r)) if x != y)
+                 for i, (o, r) in enumerate(zip(outs, refs)) if o != r}
+        ties = [parts[i] for i in sorted(parts)]
         # every token the target's argmax over its own prefix (within two
         # bf16 ulps) in a replay of the engine's computation: each
-        # prompt admitted alone, padded to max_prompt_len, then gamma + 1
-        # rows a token through the flash-decode kernel over a slotted cache
-        # of the page table's capacity, whose tiles and spans are those of
-        # the paged kernel the engine verifies through (K3 == K8a, K4 ==
-        # K8b over the same keys: phase 3c)
-        P, gamma = b.max_prompt_len, b.gamma
+        # prompt admitted alone, padded to max_prompt_len, on the
+        # admission's scratch cache of b.S positions through the
+        # flash-decode kernel, then gamma + 1 rows a token through the
+        # flash-decode kernel over a slotted cache of the page table's
+        # capacity, whose tiles and spans are those of the paged kernel the
+        # engine verifies through (K3 == K8a, K4 == K8b over the same keys:
+        # phase 3c)
+        flash = t_cfg.replace(attention_impl="flash")
         forced = teacher_forced(
-            what, t_cfg, target, prompts, outs, device,
-            (P, b.max_pages_per_seq * b.page_size, gamma + 1, True),
-            step_cfg=t_cfg.replace(attention_impl="flash"))
+            what, flash, target, prompts, outs, device,
+            (P, b.max_pages_per_seq * b.page_size, gamma + 1, b.S),
+            step_cfg=flash, ties_at=parts)
         paged = "K8b" if kv == "int8" else "K8a"
+        # the hybrid drafter's gamma forwards a window and each dense
+        # admission's two prefills attend through the flash-decode kernel
+        attn = batch_attention_kernel(t_cfg)
+        admissions = len(prompts) + b.preemptions
+        slotted = (b.drafter_cfg.num_layers * (gamma * paged_forwards
+                                               + admissions)
+                   + t_cfg.num_layers * admissions)
         if counts[paged] != t_cfg.num_layers * paged_forwards or \
-                not paged_forwards or not counts["K1b"] or any(
+                not paged_forwards or not counts["K1b"] or \
+                attn is None or counts[attn] != slotted or any(
                     n for k, n in counts.items()
-                    if k not in (paged, "K1b", "K1a")):
+                    if k not in (paged, attn, "K1b", "K1a")):
             fail(f"{what}: launches {counts} over {paged_forwards} paged "
-                 "forwards")
+                 f"forwards and {admissions} admissions")
         reqs = [r for bm in res.batches for r in bm.requests]
         ttft = [r.ttft * 1e3 for r in reqs]
         lat = [r.total_latency * 1e3 for r in reqs]
@@ -3770,7 +3889,7 @@ def phase_vllm(device, card):
             f"{rec['acceptance']:.3f}; {paged} {counts[paged]} over "
             f"{paged_forwards} paged forwards, K1b {counts['K1b']}, K1a "
             f"{counts['K1a']}; {b.preemptions} preemptions; {ar_equal} of "
-            f"{len(prompts)} requests == batched greedy AR, the rest parting "
+            f"{len(prompts)} requests == greedy AR, the rest parting "
             f"first at a bf16 tie (tokens {ties}); every token of every "
             f"request the target's argmax over its prefix in a replay: "
             f"{forced[1]} of {forced[0]} not, the largest gap "

@@ -6,10 +6,15 @@ RoPE, SwiGLU, GQA, optional qk-norm and qkv bias), gpt-neox (LayerNorm,
 parallel residual, partial rotary, biases) and gemma (embedding scale, tied
 head), with an optional logit softcap. ``forward_step`` processes a [B, T]
 block against the slotted cache at per-sequence offsets: prefill, one-token
-decode and the (gamma+1)-token verify are the same function with another T;
-it attends through the flash-decode kernel under ``attention_impl="flash"``
-(``attention``). ``forward_step_paged`` is the same forward over the paged
-pool (``core/paged_cache.py``), attending through the paged
+decode and the (gamma+1)-token verify are the same function with another T.
+It attends through the flash-decode kernel where its ``use_kernel`` says so
+(``attention``): by default under ``attention_impl="flash"`` alone, which
+keeps the plain attention for the single-sequence engines and for training
+(the kernel has no backward); the serving engine and the batch engine pass
+``kernel_route(cfg)``, so that their slotted forwards (the hybrid layout's
+drafter steps, the dense admission prefills) take the kernel whatever
+``attention_impl`` says. ``forward_step_paged`` is the same forward over
+the paged pool (``core/paged_cache.py``), attending through the paged
 decode-attention kernel. Both take the int8 cache formats of
 ``kv_quant="int8"`` as well. ``forward_step_features`` also returns the
 pre-final-norm residual stream (the features EAGLE drafts on), and
@@ -155,21 +160,40 @@ def kernel_route(cfg: ModelConfig) -> bool:
         cfg.head_dim, cfg.dtype, cfg.kv_quant == "int8")
 
 
+def checked_route(cfg: ModelConfig, use_kernel: bool, kernel: str) -> bool:
+    """``use_kernel`` after a check: True raises, before any launch, for a
+    config the attention kernels cannot take (a logit softcap, or a
+    head_dim and types they have no instance for)."""
+    if use_kernel and cfg.logit_softcap != 0.0:
+        raise ValueError(f"the {kernel} kernel has no logit softcap; "
+                         "use_kernel=True needs logit_softcap == 0")
+    if use_kernel and not kernel_route(cfg):
+        raise ValueError(f"the {kernel} kernel does not take head_dim "
+                         f"{cfg.head_dim} with {cfg.dtype} activations "
+                         f"(kv_quant={cfg.kv_quant!r})")
+    return use_kernel
+
+
 def attention(cfg: ModelConfig, q, k_all, v_all, q_pos,
               k_scale: Optional[torch.Tensor] = None,
               v_scale: Optional[torch.Tensor] = None,
-              tree: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+              tree: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              use_kernel: Optional[bool] = None):
     """Cached attention over dense [B, S, Hk, Dh] K/V (the counterpart of
     the JAX ``_attention``): the flash-decode kernel (K3, or K4 for int8
-    K/V; ``ops/decode_attention.py``) when ``cfg.attention_impl == "flash"``
-    and ``kernel_route(cfg)``, else ``masked_attention``. The kernel tiles
-    query rows over blocks, so any T takes it, dense prefills included.
-    A tree block (``tree`` given) always goes to ``masked_attention``,
-    under every ``attention_impl``: the kernel's mask is positional and
-    would attend past a node's ancestors. Returns [B, T, Hq * Dh]."""
+    K/V; ``ops/decode_attention.py``) or ``masked_attention``.
+    ``use_kernel=None`` takes the kernel when ``cfg.attention_impl ==
+    "flash"`` and ``kernel_route(cfg)``; True takes it (the forwards check
+    the config first, ``checked_route``), False never does. The kernel
+    tiles query rows over blocks, so any T takes it, dense prefills
+    included. A tree block (``tree`` given) always goes to
+    ``masked_attention``, under every ``use_kernel``: the kernel's mask is
+    positional and would attend past a node's ancestors. Returns
+    [B, T, Hq * Dh]."""
     B, T = q.shape[:2]
-    if (tree is None and cfg.attention_impl == "flash"
-            and kernel_route(cfg)):
+    if use_kernel is None:
+        use_kernel = cfg.attention_impl == "flash" and kernel_route(cfg)
+    if tree is None and use_kernel:
         from specdec_tpu_torch.ops import decode_attention as da
 
         if k_scale is not None:
@@ -355,45 +379,63 @@ def _positions(cache, T: int) -> torch.Tensor:
 
 
 def slotted_attend(cfg: ModelConfig, cache, q_pos: torch.Tensor,
-                   tree=None):
+                   tree=None, use_kernel: Optional[bool] = None):
     """``layer_attend`` over the slotted cache (``KVCache`` or
     ``QuantKVCache``): writes layer ``i``'s block at ``cache.length`` in
     place (quantized, for the int8 cache) and attends over layer ``i`` of
-    the cache through ``attention``, by ancestry where ``tree`` is given
-    (under autograd, over the written copy that carries the block's graph:
-    ``core/cache.py::write_block``)."""
+    the cache through ``attention`` (``use_kernel`` as it takes it), by
+    ancestry where ``tree`` is given (under autograd, over the written copy
+    that carries the block's graph: ``core/cache.py::write_block``)."""
     quant = isinstance(cache, QuantKVCache)
 
     def attend(i, q, k, v):
         scales = (cache.k_scale[i], cache.v_scale[i]) if quant else ()
         k_all, v_all, *scales = write_block(cache.k[i], cache.v[i], k, v,
                                             cache.length, scales)
-        return attention(cfg, q, k_all, v_all, q_pos, *scales, tree=tree)
+        return attention(cfg, q, k_all, v_all, q_pos, *scales, tree=tree,
+                         use_kernel=use_kernel)
     return attend
 
 
 def forward_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                 cache) -> Tuple[torch.Tensor, Any]:
+                 cache, use_kernel: Optional[bool] = None,
+                 ) -> Tuple[torch.Tensor, Any]:
     """Process a [B, T] token block against the slotted cache (``KVCache``
     or ``QuantKVCache``) at per-sequence offsets: writes the block's K/V
     (quantized, for the int8 cache) at ``cache.length`` in place, attends
     over everything written so far through ``attention`` (layer ``i`` of
     the cache, read in place), and returns (logits [B, T, V] f32, the cache
-    advanced by T)."""
-    logits, _, cache = forward_step_features(cfg, params, tokens, cache)
+    advanced by T).
+
+    ``use_kernel=None`` takes the flash-decode kernel under
+    ``attention_impl="flash"`` where ``kernel_route(cfg)``, and the plain
+    attention otherwise; True forces the kernel (and raises for a config
+    it cannot take before any launch), False the plain attention. The
+    serving engine passes ``kernel_route(cfg)``."""
+    logits, _, cache = forward_step_features(cfg, params, tokens, cache,
+                                             use_kernel)
     return logits, cache
 
 
 def forward_step_features(cfg: ModelConfig, params: Params,
                           tokens: torch.Tensor, cache,
+                          use_kernel: Optional[bool] = None,
                           ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
     """``forward_step`` that also returns the pre-final-norm residual
     stream, the features [B, T, D] that EAGLE drafters autoregress on
-    (``core/eagle.py``). Same cache semantics as ``forward_step``."""
+    (``core/eagle.py``). Same cache semantics and ``use_kernel`` as
+    ``forward_step``."""
     T = tokens.shape[1]
+    if use_kernel is None:
+        use_kernel = cfg.attention_impl == "flash" and kernel_route(cfg)
+    else:
+        use_kernel = checked_route(cfg, use_kernel, "flash-decode")
+    if use_kernel and TRACER.on:
+        _record_slotted_keys(cfg, cache, T)
     q_pos = _positions(cache, T)
-    logits, feats = _forward_common(cfg, params, tokens, q_pos,
-                                    slotted_attend(cfg, cache, q_pos))
+    logits, feats = _forward_common(
+        cfg, params, tokens, q_pos,
+        slotted_attend(cfg, cache, q_pos, use_kernel=use_kernel))
     return logits, feats, cache.with_length(cache.length + T)
 
 
@@ -467,13 +509,8 @@ def forward_step_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
     if use_kernel is None:
         use_kernel = kernel_route(cfg)
-    elif use_kernel and cfg.logit_softcap != 0.0:
-        raise ValueError("the paged attention kernel has no logit softcap; "
-                         "use_kernel=True needs logit_softcap == 0")
-    elif use_kernel and not kernel_route(cfg):
-        raise ValueError(f"the paged attention kernel does not take "
-                         f"head_dim {cfg.head_dim} with {cfg.dtype} "
-                         f"activations (kv_quant={cfg.kv_quant!r})")
+    else:
+        use_kernel = checked_route(cfg, use_kernel, "paged attention")
     B, T = tokens.shape
     q_pos = _positions(cache, T)
     table, offsets = cache.page_table, cache.length
@@ -514,11 +551,33 @@ def _record_live_keys(cfg: ModelConfig, cache, T: int, scales) -> None:
     tracer's drain."""
     live = (cache.page_table[:, 0] != 0).to(torch.int64)
     keys = (live * (cache.length.to(torch.int64) + T)).sum()
+    _record_attention("paged_attention", cfg, cache, bool(scales), keys,
+                      live.sum() * T)
+
+
+def _record_slotted_keys(cfg: ModelConfig, cache, T: int) -> None:
+    """The tracer's ``decode_attention`` record of one slotted forward that
+    attends through the flash-decode kernel, in the shape of
+    ``_record_live_keys``'s: every row attends its ``length`` plus the
+    block's T positions (finished rows too, which the batch keeps), and
+    brings T query rows."""
+    length = cache.length.to(torch.int64)
+    keys = (length + T).sum()
+    _record_attention("decode_attention", cfg, cache,
+                      isinstance(cache, QuantKVCache), keys,
+                      torch.full_like(keys, length.shape[0] * T))
+
+
+def _record_attention(kind: str, cfg: ModelConfig, cache, quant: bool,
+                      keys: torch.Tensor, rows: torch.Tensor) -> None:
+    """One attention record: layers, K/V bytes a position and layer (an
+    int8 cache's f32 scales included), q and out bytes a query row and
+    layer, then [live positions, query rows] on the device."""
     kv = 2 * cfg.num_kv_heads * (cfg.head_dim * cache.k.element_size()
-                                 + (4 if scales else 0))
-    TRACER.record("paged_attention", cfg.num_layers, kv,
+                                 + (4 if quant else 0))
+    TRACER.record(kind, cfg.num_layers, kv,
                   2 * cfg.num_heads * cfg.head_dim * cfg.dtype.itemsize,
-                  torch.stack([keys, live.sum() * T]))
+                  torch.stack([keys, rows]))
 
 
 # target paged forwards (a run's kernel launches are checked against it)

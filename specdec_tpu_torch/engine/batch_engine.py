@@ -11,7 +11,9 @@ commit nothing.
 
 The caches may be slotted (``KVCache``, ``QuantKVCache``) or paged
 (``PagedKVCache``, ``QuantPagedKVCache``): ``forward_step`` dispatches on
-the type.
+the type. Either way a forward attends through the attention kernels
+wherever ``kernel_route(cfg)`` holds, whatever ``attention_impl`` says:
+the batch never needs a gradient, which the kernels do not give.
 
 In place: where the JAX version donates ``state`` and returns a new one,
 the window and AR steps here write the caches and each unfinished row's
@@ -41,7 +43,7 @@ from specdec_tpu_torch import resolve_device
 from specdec_tpu_torch.core.cache import init_cache
 from specdec_tpu_torch.core.config import ModelConfig
 from specdec_tpu_torch.core.model import forward_step as _slotted_forward_step
-from specdec_tpu_torch.core.model import forward_step_paged
+from specdec_tpu_torch.core.model import forward_step_paged, kernel_route
 from specdec_tpu_torch.core.paged_cache import (
     PagedKVCache, QuantPagedKVCache,
 )
@@ -56,10 +58,14 @@ from specdec_tpu_torch.utils.profiling import TRACER
 
 def forward_step(cfg, params, tokens, cache):
     """Dispatch on the cache type: paged (``PagedKVCache``,
-    ``QuantPagedKVCache``) or slotted (``KVCache``, ``QuantKVCache``)."""
+    ``QuantPagedKVCache``) or slotted (``KVCache``, ``QuantKVCache``), each
+    on the attention kernel where ``kernel_route(cfg)`` holds (the slotted
+    forward on the flash-decode kernel, the paged one on the paged
+    kernel)."""
     if isinstance(cache, (PagedKVCache, QuantPagedKVCache)):
         return forward_step_paged(cfg, params, tokens, cache)
-    return _slotted_forward_step(cfg, params, tokens, cache)
+    return _slotted_forward_step(cfg, params, tokens, cache,
+                                 use_kernel=kernel_route(cfg))
 
 
 @dataclasses.dataclass
@@ -125,9 +131,14 @@ def batch_prefill(drafter_cfg: Optional[ModelConfig], drafter_params,
                   gen_len: int, gamma: int,
                   processor: LogitsProcessor, first_target: bool,
                   use_drafter: bool, eos_ids: Tuple[int, ...],
-                  generator: torch.Generator, samp=None) -> BatchState:
+                  generator: torch.Generator, samp=None,
+                  route: bool = True) -> BatchState:
     """Prefill both models on right-padded prompts [B, P] on new slotted
-    caches; optionally commit the first token from the target."""
+    caches; optionally commit the first token from the target.
+    ``route=False`` keeps the config's ``attention_impl`` rule in place of
+    the batch engine's kernel route, for a loop whose later forwards are
+    its own (the n-gram loop's)."""
+    fwd = forward_step if route else _slotted_forward_step
     device = prompts.device
     B, P = prompts.shape
     S = P + gen_len + gamma + 2
@@ -140,13 +151,11 @@ def batch_prefill(drafter_cfg: Optional[ModelConfig], drafter_params,
     total_len = torch.clamp_max(prompt_lens + gen_len, max_pos)
 
     t_cache = init_cache(target_cfg, B, S, device=device)
-    t_logits, t_cache = forward_step(target_cfg, target_params, prompts,
-                                     t_cache)
+    t_logits, t_cache = fwd(target_cfg, target_params, prompts, t_cache)
     d_cache = None
     if use_drafter:
         d_cache = init_cache(drafter_cfg, B, S, device=device)
-        _, d_cache = forward_step(drafter_cfg, drafter_params, prompts,
-                                  d_cache)
+        _, d_cache = fwd(drafter_cfg, drafter_params, prompts, d_cache)
 
     rows = torch.arange(B, device=device)
     if first_target:

@@ -132,10 +132,11 @@ def batch_ngram_assisted_generate(
 
     prompts_host = [[int(t) for t in p] for p in prompt_ids]
     prompts, lens = _pad_batch(prompts_host, pad_token_id, device)
+    # the prefill attends as the verify forwards do: by attention_impl
     state = batch_prefill(None, None, target_cfg, target_params, prompts,
                           lens, int(gen_len), gamma, processor, True, False,
                           tuple(sorted(eos_set)),
-                          prefill_generator(generator))
+                          prefill_generator(generator), route=False)
     cache = state.t_cache
     # one host read for the prefill's harvest
     buf0, pos0, plen0, _, _, finished0 = _unpack_state(

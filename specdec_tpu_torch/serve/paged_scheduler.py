@@ -6,7 +6,8 @@ come from a shared pool sized in tokens, sequences allocate pages as they
 grow (host free list; the device only sees int32 page tables), and a
 finished request's pages return to the pool at harvest. The window step is
 unchanged (``engine/batch_engine.py`` dispatches on the cache type); the
-target verifies through the paged decode-attention kernel.
+target verifies through the paged decode-attention kernel, and the
+hybrid layout's slotted drafter drafts through the flash-decode kernel.
 
 Admission is queued while the pool cannot cover the request's prompt plus
 one dispatch horizon; each step tops up active slots so the next dispatch's
@@ -35,10 +36,10 @@ import numpy as np
 import torch
 
 from specdec_tpu_torch.core.cache import (
-    init_cache, install_slot, with_row_length, write_scalar,
+    install_slot, with_row_length, write_scalar,
 )
 from specdec_tpu_torch.core.config import ModelConfig
-from specdec_tpu_torch.core.model import forward_step, forward_step_paged
+from specdec_tpu_torch.core.model import forward_step_paged
 from specdec_tpu_torch.core.paged_cache import (
     PageAllocator, init_paged_cache, install_sequence_pages, paged_view,
     required_pages,
@@ -48,7 +49,7 @@ from specdec_tpu_torch.engine.metrics import RequestMetrics
 from specdec_tpu_torch.sampling.processors import LogitsProcessor
 from specdec_tpu_torch.serve.prefix_cache import PrefixBlockCache, block_keys
 from specdec_tpu_torch.serve.scheduler import (
-    ContinuousBatcher, Request, _first_token, _install_row,
+    ContinuousBatcher, Request, _first_token, _install_row, _scratch_prefill,
 )
 from specdec_tpu_torch.utils.profiling import TRACER
 
@@ -100,18 +101,19 @@ def _admit_slot_hybrid(drafter_cfg: ModelConfig, drafter_params,
     ``_admit_slot_paged``), the drafter prefills the FULL prompt on a
     batch-of-one slotted scratch cache copied into its slotted row.
 
-    Why hybrid is the default: the window runs gamma sequential T=1 drafter
-    steps per verify, where the paged indirection costs most; a slotted
-    (shallow) drafter skips it, while the target's pool, which holds most
-    of the KV, keeps the memory elasticity."""
+    Why hybrid is the default: the target's pool, which holds most of the
+    KV, keeps the memory elasticity, while the shallow drafter's slotted
+    rows need no page table, no top-up and no pool of their own; its gamma
+    sequential steps a window attend through the flash-decode kernel (K3),
+    which reads a layer of the slotted cache in place, as the target's
+    verify attends through the paged kernel (K8a)."""
     S = state.buf.shape[1]
     t_cache = state.t_cache
     t_cache.page_table[slot] = t_row
     t_logits, _ = forward_step_paged(
         target_cfg, target_params, suffix[None, :],
         paged_view(t_cache, t_row, cached_len))
-    d1 = init_cache(drafter_cfg, 1, S, device=prompt.device)
-    _, d1 = forward_step(drafter_cfg, drafter_params, prompt[None, :], d1)
+    _, d1 = _scratch_prefill(drafter_cfg, drafter_params, prompt, S)
     tok0, pos, total, finished = _first_token(
         target_cfg, drafter_cfg, t_logits[:, :prompt_len - cached_len],
         prompt_len, max_new, processor, eos_ids, generator, prompt.device)
@@ -130,18 +132,16 @@ def _admit_slot_dense(drafter_cfg: ModelConfig, drafter_params,
                       generator: torch.Generator,
                       drafter_paged: bool = False) -> BatchState:
     """Dense-prefill admission: prefill the prompt on batch-of-one SLOTTED
-    scratch caches with the plain ``forward_step`` (the slotted scheduler's
-    admission, no paged attention over the prompt), then scatter the rows
-    into the pool pages with ONE scatter per array
-    (``install_sequence_pages``). Stored KV bits are those a paged prefill
-    would write; only the prompt forward's access pattern differs."""
+    scratch caches with the slotted ``forward_step`` on the flash-decode
+    kernel (the slotted scheduler's admission, ``_scratch_prefill``; no
+    paged attention over the prompt), then scatter the rows into the pool
+    pages with ONE scatter per array (``install_sequence_pages``). Stored KV
+    bits are those a paged prefill would write; only the prompt forward's
+    access pattern differs."""
     S = state.buf.shape[1]
     device = prompt.device
-    t1 = init_cache(target_cfg, 1, S, device=device)
-    t_logits, t1 = forward_step(target_cfg, target_params, prompt[None, :],
-                                t1)
-    d1 = init_cache(drafter_cfg, 1, S, device=device)
-    _, d1 = forward_step(drafter_cfg, drafter_params, prompt[None, :], d1)
+    t_logits, t1 = _scratch_prefill(target_cfg, target_params, prompt, S)
+    _, d1 = _scratch_prefill(drafter_cfg, drafter_params, prompt, S)
     tok0, pos, total, finished = _first_token(
         target_cfg, drafter_cfg, t_logits[:, :prompt_len], prompt_len,
         max_new, processor, eos_ids, generator, device)

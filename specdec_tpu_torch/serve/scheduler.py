@@ -9,6 +9,11 @@ admission refills them without touching other slots.
 
 - Admission prefills the new prompt as a batch-of-one on scratch caches and
   copies its KV rows, buffer row and counters into the slot, in place.
+- Every forward, admissions and windows alike, goes through the batch
+  engine's ``forward_step``, on the flash-decode kernel wherever
+  ``kernel_route(cfg)`` holds, whatever ``attention_impl`` says (serving
+  takes no gradient; the NASD and EAGLE batchers' own admissions and
+  windows keep ``attention_impl``'s rule).
 - The drive loop runs ``windows_per_sync`` windows per harvest, the host
   sync that reads positions back.
 - Per-request metrics: TTFT, end-to-end latency, tokens, acceptance
@@ -28,10 +33,9 @@ from specdec_tpu_torch.core.cache import (
     init_cache, install_slot, write_scalar,
 )
 from specdec_tpu_torch.core.config import ModelConfig
-from specdec_tpu_torch.core.model import forward_step
 from specdec_tpu_torch.engine.batch_engine import (
     BatchState, _pack_state, _unpack_state, batch_spec_window,
-    batch_spec_windows,
+    batch_spec_windows, forward_step,
 )
 from specdec_tpu_torch.engine.gamma_tuner import (
     best_gamma, conditional_from_reference_rate, expected_speedup,
@@ -76,6 +80,16 @@ def _first_token(target_cfg, drafter_cfg, t_logits, prompt_len: int,
     return tok0, pos, total, finished
 
 
+def _scratch_prefill(cfg: ModelConfig, params, prompt: torch.Tensor,
+                     S: int):
+    """Prefill ``prompt`` [P] as a batch of one on a new slotted cache of
+    ``S`` positions through the batch engine's ``forward_step`` (on the
+    flash-decode kernel where ``kernel_route(cfg)``). Returns (logits
+    [1, P, V], the cache advanced by P)."""
+    cache = init_cache(cfg, 1, S, device=prompt.device)
+    return forward_step(cfg, params, prompt[None, :], cache)
+
+
 def _install_row(state: BatchState, slot: int, prompt: torch.Tensor,
                  prompt_len: int, tok0, pos: int, total: int, finished):
     """Set slot ``slot``'s buffer row and counters in place."""
@@ -102,11 +116,8 @@ def _admit_slot(drafter_cfg: ModelConfig, drafter_params,
     and returns it with the new cache lengths."""
     device = prompt.device
     S = state.buf.shape[1]
-    t1 = init_cache(target_cfg, 1, S, device=device)
-    t_logits, t1 = forward_step(target_cfg, target_params, prompt[None, :],
-                                t1)
-    d1 = init_cache(drafter_cfg, 1, S, device=device)
-    _, d1 = forward_step(drafter_cfg, drafter_params, prompt[None, :], d1)
+    t_logits, t1 = _scratch_prefill(target_cfg, target_params, prompt, S)
+    _, d1 = _scratch_prefill(drafter_cfg, drafter_params, prompt, S)
     tok0, pos, total, finished = _first_token(
         target_cfg, drafter_cfg, t_logits[:, :prompt_len], prompt_len,
         max_new, processor, eos_ids, generator, device)
