@@ -7,8 +7,13 @@ import shutil
 from pathlib import Path
 
 import pytest
+import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+
+# the CPU rehearsals' steps must fit their slices when tests run side by
+# side: a few threads each, not every core each
+torch.set_num_threads(2)
 
 # tiny widths of each family (the 4-bit kernels' K: multiples of 256)
 TINY = {

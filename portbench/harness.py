@@ -6,7 +6,8 @@ The program is ``specdec_tpu_torch``: the configuration's published keys go
 through its ``config_from_hf``; the benchmark's dense draws (``weights.py``)
 through its ``quantize_params(kind="int4", fuse=True)``; the drafter is the
 target's first ``exit_layer`` layers (``layer_views``), sharing the
-embedding, the final norm and the head. The window drives
+embedding, the final norm and the head; a family file may stack its
+layers its own way (``build_layers``). The window drives
 ``PagedContinuousBatcher`` through ``submit()`` and ``step()`` alone, in the
 default hybrid layout. Due requests are submitted between steps, and the
 window ends at the first step boundary past ``seconds``, without
@@ -75,7 +76,8 @@ class Run:
     preemptions: int = 0
     queued: tuple = (0, 0)   # requests waiting at the open and the close
     reqs: Dict[int, Req] = dataclasses.field(default_factory=dict)
-    trace: Optional[object] = None   # trace.TraceResult of a traced run
+    trace: Optional[object] = None   # program_trace.TraceResult, traced
+    program: Optional[object] = None  # the program's drained spans, traced
     memory_peak_bytes: int = 0   # the window's peak, allocated by torch
     kv_tokens: int = 0   # the target's live K/V positions at the close
     outputs: Dict[int, List[int]] = dataclasses.field(default_factory=dict)
@@ -111,7 +113,8 @@ class Program:
             from specdec_tpu_torch.ops._build import build
             build()
         eng = cfg["engine"]
-        a = W.arch(cfg)
+        fam = W.family(cfg)
+        L = fam.arch(cfg)["L"]
         seed = cfg["weights"]["seed"]
         fmt = cfg["weights"]["format"]
         if fmt != "int4":
@@ -127,17 +130,23 @@ class Program:
         self.d_cfg = self.t_cfg.replace(
             num_layers=cfg["drafter"]["exit_layer"])
 
-        def layers():
-            for i in range(a["L"]):
-                dense = W.layer(cfg, seed, i, device)
-                yield quantize_params({"layers": dense}, kind=fmt,
-                                      fuse=True)["layers"]
-                del dense
+        def dense():
+            for i in range(L):
+                yield W.layer(cfg, seed, i, device)
 
+        def quantized():
+            for d in dense():
+                yield quantize_params({"layers": d}, kind=fmt,
+                                      fuse=True)["layers"]
+                del d
+
+        build = getattr(fam, "build_layers", None)
+        layers = (build(cfg, dense(), fmt) if build is not None
+                  else stack_layers(quantized(), L))
         fn = W.final_norm(cfg, seed, device)
         self.target = {
             "embed": W.embedding(cfg, seed, device),
-            "layers": stack_layers(layers(), a["L"]),
+            "layers": layers,
             "final_norm_w": fn["w"],
             "lm_head": quantize_chunked(quantize_int4,
                                         W.head(cfg, seed, device)),
@@ -189,11 +198,10 @@ class Driver:
     over as the queue runs short of one request a slot, which the batcher,
     taking its queue in order, cannot tell from handing them all at once."""
 
-    def __init__(self, batcher, traffic: Traffic, t0: float, spans=None):
+    def __init__(self, batcher, traffic: Traffic, t0: float):
         self.b, self.tr, self.t0 = batcher, traffic, t0
         self.next = 0
         self.reqs: Dict[int, Req] = {}
-        self.spans = spans
         self.backlog = traffic.mix["arrivals"]["kind"] == "backlog"
 
     def _due(self, now: float) -> bool:
@@ -216,12 +224,7 @@ class Driver:
     def step(self) -> bool:
         """Submit what is due, then one ``step()``; False when the batcher
         had nothing to do (it then waits for the next arrival)."""
-        now = time.time()
-        if self.spans is not None:
-            with self.spans.span("submit"):
-                self.submit_due(now)
-        else:
-            self.submit_due(now)
+        self.submit_due(time.time())
         if self.b.step():
             return True
         if self.next < self.tr.n:
@@ -237,17 +240,18 @@ def run_window(program: Program, cfg: dict, mix: dict, workload: str,
                seed: int, seconds: float, t_proc0: float,
                tracer=None) -> Run:
     """Set-up's traffic (the open loop's pre-roll, or the backlog's fill),
-    then the measured window. ``tracer`` (a ``trace.Tracer``) is started
-    at the window's start and stopped at its end."""
+    then the measured window. ``tracer`` (a ``program_trace.Tracer``) is
+    warmed in set-up and started at the first step boundary of the
+    window's last ``slice_s``; it is stopped at the close only if it
+    started (a step may run from before that boundary past the close),
+    and closed in any case."""
     b = program.batcher(cfg, mix, seed)
     a = W.arch(cfg)
     traffic = Traffic(mix, seed, a["V"], seconds)
-    spans = tracer.spans if tracer is not None else None
     if tracer is not None:
-        tracer.instrument(b)
         tracer.warm()
     t0 = time.time()
-    d = Driver(b, traffic, t0, spans)
+    d = Driver(b, traffic, t0)
     arr = mix["arrivals"]
     if arr["kind"] == "poisson":
         while time.time() < t0 + arr["preroll_s"]:
@@ -282,7 +286,10 @@ def run_window(program: Program, cfg: dict, mix: dict, workload: str,
             run.live_sum += d.live()
     run.t_end = time.time()
     if tracer is not None:
-        run.trace = tracer.stop()
+        if host is not None:
+            run.trace = tracer.stop()
+            run.program = tracer.drained
+        tracer.close()
     gc.unfreeze()
     end = _committed(b)
     if host is None:

@@ -1,6 +1,7 @@
 """The yardstick's arithmetic: percentiles, unions of intervals, the card's
-peaks, the weight kernel's roofline bound and the FLOPs a window's work
-requires. Plain Python and numpy; nothing here imports the program.
+peaks, the weight and paged attention kernels' roofline bounds and the
+FLOPs a window's work requires. Plain Python and numpy; nothing here
+imports the program.
 """
 from __future__ import annotations
 
@@ -79,46 +80,56 @@ def int4_bound_s(M: int, K: int, N: int) -> float:
     return max(t_bytes, t_ops)
 
 
-def layer_params(model: dict) -> int:
-    """Weights of the target's layer projections (biases and norms, which
-    add no matrix product, left out)."""
-    D, F, Dh = model["D"], model["F"], model["Dh"]
-    Hq, Hk = model["Hq"], model["Hk"]
-    per = D * (Hq + 2 * Hk) * Dh + Hq * Dh * D + D * F * (
-        2 if model["gated"] else 1) + F * D
-    return model["L"] * per
+def paged_attention_bound_s(layers: int, kv_bytes: int, q_bytes: int,
+                            keys: int, rows: int) -> float:
+    """Least time of one paged forward's attention over all its layers:
+    each live K/V position read once (``kv_bytes`` a position and layer,
+    K and V with their scales) and each live query row's q read and
+    output written once (``q_bytes`` a row and layer), at HBM_BYTES_PER_S.
+    The kernel's operations, a few per byte, never bound it."""
+    return layers * (keys * kv_bytes + rows * q_bytes) / HBM_BYTES_PER_S
 
 
-def attention_flops(model: dict, first: int, last: int) -> float:
-    """Causal attention FLOPs of processing the tokens at positions
-    first..last-1 of one sequence: a token at position p scores p + 1 keys
-    and sums as many values, 4 * Hq * Dh * (p + 1) operations a layer."""
+def causal_keys(first: int, last: int) -> int:
+    """Keys scored in one layer by the tokens at positions first..last-1 of
+    a sequence under causal attention: a token at position p scores p + 1."""
     if last <= first:
-        return 0.0
-    keys = (last * (last + 1) - first * (first + 1)) // 2
-    return 4.0 * model["L"] * model["Hq"] * model["Dh"] * keys
+        return 0
+    return (last * (last + 1) - first * (first + 1)) // 2
 
 
-def required_flops(model: dict, prompts: Sequence[int],
+def window_keys(first: int, last: int, window: int) -> int:
+    """``causal_keys`` in a layer whose tokens score the last ``window``
+    positions at most: min(p + 1, window) at position p."""
+    edge = min(max(window - 1, first), last)
+    return causal_keys(first, edge) + max(0, last - edge) * window
+
+
+def required_flops(family, model: dict, prompts: Sequence[int],
                    outputs: Sequence[Tuple[int, int, int]]) -> float:
     """FLOPs the window's work requires of the target alone.
 
-    ``prompts``: the unpadded length n of each prompt admitted in the
-    window (all n positions processed, the last one's head giving the
-    first output). ``outputs``: (n, k0, k1) for each request that
-    committed its output tokens k0..k1-1 in the window; output k >= 1
+    ``family`` gives the counts (``weights.family``): the layers' matrix
+    weights one token multiplies (``weights_per_token``, 2 operations
+    each) and the keys that tokens at given positions score, summed over
+    the layers (``keys_scored``, 4 * Hq * Dh operations each: the score and
+    the weighted value). ``prompts``: the unpadded length n of each prompt
+    admitted in the window (all n positions processed, the last one's head
+    giving the first output). ``outputs``: (n, k0, k1) for each request
+    that committed its output tokens k0..k1-1 in the window; output k >= 1
     needs the token at position n + k - 1 processed, and every output
     needs one head. Drafter work, rejected drafts and padding are not
     counted."""
-    per_token = 2.0 * layer_params(model)
+    per_token = 2.0 * family.weights_per_token(model)
+    per_key = 4.0 * model["Hq"] * model["Dh"]
     head = 2.0 * model["D"] * model["V"]
     total = 0.0
     for n in prompts:
-        total += per_token * n + attention_flops(model, 0, n)
+        total += per_token * n + per_key * family.keys_scored(model, 0, n)
     for n, k0, k1 in outputs:
         lo = max(k0, 1)
         if k1 > lo:
-            total += per_token * (k1 - lo) + attention_flops(
+            total += per_token * (k1 - lo) + per_key * family.keys_scored(
                 model, n + lo - 1, n + k1 - 1)
         total += head * max(0, k1 - k0)
     return total

@@ -13,8 +13,6 @@ from __future__ import annotations
 
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
-from portbench.measure import HBM_BYTES_PER_S
-
 NAME, START, END, PARENT, RID, ARGS = range(6)
 
 
@@ -69,14 +67,16 @@ def device_in(spans: Sequence[tuple], by_span: Dict[int, float],
                if ancestor(spans, i, name) in chosen)
 
 
-def paged_attention_bound_s(layers: int, kv_bytes: int, q_bytes: int,
-                            keys: int, rows: int) -> float:
-    """Least time of one paged forward's attention over all its layers:
-    each live K/V position read once (``kv_bytes`` a position and layer,
-    K and V with their scales) and each live query row's q read and
-    output written once (``q_bytes`` a row and layer), at HBM_BYTES_PER_S.
-    The kernel's operations, a few per byte, never bound it."""
-    return layers * (keys * kv_bytes + rows * q_bytes) / HBM_BYTES_PER_S
+def slice_records(run, kind: str) -> Optional[List[tuple]]:
+    """The program's ``kind`` records made in spans begun in the traced
+    slice (the slice opens and closes between steps, so no span crosses
+    it), or None without a program trace."""
+    p, part = program(run), traced_slice_ns(run)
+    if p is None or part is None:
+        return None
+    lo, hi = part
+    return [r for r in p.records.get(kind, [])
+            if r[0] >= 0 and lo <= p.spans[r[0]][START] <= hi]
 
 
 def window_part_ms(run, name: str) -> Optional[float]:

@@ -1,64 +1,41 @@
-"""A traced run of one cell with the program's own spans.
-
-    python3 -m portbench.program_trace --workload <cell> --seed <n> --seconds <s>
-
-It runs the cell through ``portbench.run``'s own ``main`` with
-``--trace 1``: the same program, traffic, window, profiled slice at the
-window's end, check and guards (the card count, the modules that may not
-be loaded), and the same result line. Two things are added:
+"""The traced run (``run.py --trace 1``): the program's own spans and
+records, and a torch.profiler trace of the device over the window's last
+``SLICE_S`` seconds, each kernel and idle gap tied to the program span
+that launched it.
 
 - The program's tracer (``specdec_tpu_torch.utils.profiling.TRACER``) is on
-  from the set-up's start to the window's close. Its spans and records
+  from the set-up's warming to the window's close. Its spans and records
   land in ``run.program``; the readers count only what began inside the
-  window's parts.
+  window's parts: the host-side metrics the part before the slice, which
+  the profiler does not slow, the device-side ones the slice.
 - The device trace keeps the CUDA runtime's events. Each kernel is tied,
   through its correlation id, to its launch, and so to the program span
   open at that moment. Each idle gap is labelled with the span open at the
   launch of the kernel that ends it.
 
-The line it prints adds the metrics of ``READERS`` to the cell's
-per-layer metrics, and to the ``breakdown`` ``idle_by_program_span`` and
-``device_by_program_span`` by span path (``step/window/draft``), the device
-operations by span path, the idle time of the gaps that began while the
-host waited in a synchronising call (by the ``sync.*`` span around the
-call), and the shares that tie the trace to the spans. A
-program without the tracer runs too: then those keys are empty and the
-readers return nothing. ``run.py`` does not call this module: this one
-swaps its own ``ProgramTracer`` and report in for the length of a call.
-
-The profiler stamps the runtime's events on the program's clock, and the
-device's kernels on one that drifts from it (``attribute``). The lead of
-the device's clock at the two fill marks is printed.
+A program without the tracer runs too: then the span-based readers
+return nothing. The profiler stamps the runtime's events on the
+program's clock, and the device's kernels on one that drifts from it
+(``attribute``). The slice opens and closes on an idle device with a
+one-element fill, whose launch brackets give the device clock's lead at
+both ends.
 """
 from __future__ import annotations
 
+import bisect
+import dataclasses
+import sys
 import time
+from typing import Dict, List, Sequence, Tuple
 
-T_PROC0 = time.time()
+import torch
 
-import bisect  # noqa: E402
-import contextlib  # noqa: E402
-import dataclasses  # noqa: E402
-import io  # noqa: E402
-import json  # noqa: E402
-import sys  # noqa: E402
-from typing import Dict, List, Sequence, Tuple  # noqa: E402
+from portbench import measure
+from portbench.program_spans import END, NAME, PARENT, START, path
 
-import torch  # noqa: E402
-
-from portbench import measure  # noqa: E402
-from portbench.program_spans import (  # noqa: E402
-    END, NAME, PARENT, START, path,
-)
-from portbench.trace import (  # noqa: E402
-    BASE, Tracer, TraceResult, _start_ns, reduce_trace,
-)
-
-# metric readers that need the program's spans, and their units
-READERS = {"window_dispatch_ms": "ms", "host_syncs_per_step": "count",
-           "draft_device_ms": "ms", "verify_device_ms": "ms",
-           "prefill_us_per_token": "us", "attention_roofline": "%",
-           "kv_pool_use": "%"}
+BASE = "harness"   # the label where no program span is open
+SLICE_S = 10.0     # seconds traced at the window's end
+TOP = 10           # entries of each list of the breakdown
 
 # runtime calls that block the host until the stream drains (the marks'
 # cudaDeviceSynchronize is left out)
@@ -76,7 +53,13 @@ def program_tracer():
 
 
 @dataclasses.dataclass
-class ProgramTraceResult(TraceResult):
+class TraceResult:
+    window_s: float = 0.0           # the traced slice, device clock
+    busy_s: float = 0.0             # union of device activity in it
+    device_ops: List[Tuple[str, float]] = dataclasses.field(
+        default_factory=list)       # seconds by kernel_label
+    int4_kernels: int = 0           # int4_pair_matmul launches traced
+    int4_device_s: float = 0.0      # their summed device time
     slice_ns: Tuple[int, int] = (0, 0)      # the slice, program clock
     clock_offset_us: Tuple[float, ...] = ()  # device lead, open and close
     device_by_span: Dict[int, float] = dataclasses.field(
@@ -177,7 +160,7 @@ def attribute(device: List[tuple], runtime: Dict[int, int],
     ahead over a loaded 10 s slice), which ``device_lead`` follows; it
     places a kernel with no launch event (the profiler keeps none for its
     first millisecond or so) and the start of each idle gap. Returns the
-    ``ProgramTraceResult`` fields past ``TraceResult``'s."""
+    ``TraceResult`` fields other than ``events_read`` and ``read_s``."""
     device = sorted(device, key=lambda e: e[1])
     first, last = device[0], device[-1]
     lead = device_lead(device, runtime, brackets)
@@ -197,18 +180,22 @@ def attribute(device: List[tuple], runtime: Dict[int, int],
     by_span: Dict[int, float] = {}
     attention: Dict[int, float] = {}
     by_path: Dict[str, float] = {}
+    by_label: Dict[str, float] = {}
     ops: Dict[Tuple[str, str], float] = {}
-    in_step = 0
+    in_step = k1 = 0
+    k1_s = 0.0
     for e in body:
         i, d = launched(e), (e[2] - e[1]) / 1e9
         by_span[i] = by_span.get(i, 0.0) + d
         if "flash_decode_kernel" in e[0] and "Paged" in e[0]:
             attention[i] = attention.get(i, 0.0) + d
-        p = label(i)
+        if "int4_pair_matmul" in e[0]:
+            k1, k1_s = k1 + 1, k1_s + d
+        p, k = label(i), measure.kernel_label(e[0])
         in_step += p == "step" or p.startswith("step/")
         by_path[p] = by_path.get(p, 0.0) + d
-        key = (p, measure.kernel_label(e[0]))
-        ops[key] = ops.get(key, 0.0) + d
+        by_label[k] = by_label.get(k, 0.0) + d
+        ops[(p, k)] = ops.get((p, k), 0.0) + d
     # each synchronising call and the sync.* span it lies in
     made_by = {}
     for k, (a, b) in enumerate(syncs):
@@ -245,6 +232,8 @@ def attribute(device: List[tuple], runtime: Dict[int, int],
             unpaired[label(i)] = unpaired.get(label(i), 0) + 1
     device_s = sum(by_span.values())
     return dict(
+        window_s=(hi - lo) / 1e9, busy_s=measure.covered(ivs) / 1e9,
+        device_ops=_top(by_label), int4_kernels=k1, int4_device_s=k1_s,
         slice_ns=(h0, h1),
         clock_offset_us=tuple(lead(e[1]) / 1e3 for e in (first, last)),
         device_by_span=by_span, attention_by_span=attention,
@@ -258,25 +247,33 @@ def attribute(device: List[tuple], runtime: Dict[int, int],
         device_in_span_s=device_s - by_span.get(-1, 0.0))
 
 
-class ProgramTracer(Tracer):
-    """``trace.Tracer`` with the program's tracer on and the runtime's
-    events kept."""
+class Tracer:
+    """The traced run's instruments: the program's tracer, on from
+    ``warm`` in set-up to ``stop`` or ``close``, and the profiler over the
+    slice from ``start`` to ``stop``, keeping the runtime's events."""
 
     def __init__(self, device):
-        super().__init__(device)
+        self.device = device
         self.program = program_tracer()
         self.drained = None
-        self.result = None
+        self._prof = None
         self._brackets: List[Tuple[int, int]] = []
 
-    def warm(self):
-        super().warm()
-        if self.program is not None:
-            self.program.drain()
-            self.program.enable()
+    @staticmethod
+    def slice_s(seconds: float) -> float:
+        """The traced slice: SLICE_S, or half of a shorter window."""
+        return min(SLICE_S, seconds / 2)
 
-    def _mark(self) -> int:
-        """``Tracer._mark``, keeping the host time after the launch too."""
+    def _profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        return profile(activities=[ProfilerActivity.CUDA
+                                   if self.device.type == "cuda"
+                                   else ProfilerActivity.CPU])
+
+    def _mark(self):
+        """A one-element fill launched on an idle device; its launch
+        bracket, host times before and after, is kept."""
         cuda = self.device.type == "cuda"
         if cuda:
             torch.cuda.synchronize()
@@ -285,18 +282,30 @@ class ProgramTracer(Tracer):
         self._brackets.append((t, time.time_ns()))
         if cuda:
             torch.cuda.synchronize()
-        return t
+
+    def warm(self):
+        """Start and stop a profiler once in set-up (the first start in a
+        process initialises CUPTI, which took ~8 s inside the window), then
+        turn the program's tracer on."""
+        with self._profile():
+            self._mark()
+        if self.program is not None:
+            self.program.drain()
+            self.program.enable()
 
     def start(self):
-        super().start()
-        self._brackets = self._brackets[-1:]
+        if self.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.time()
+        self._prof = self._profile()
+        self._prof.__enter__()
+        self.start_s = time.time() - t0
+        self._brackets = []
+        self._mark()
 
-    def stop(self) -> ProgramTraceResult:
-        h1 = self._mark()
-        self.spans.on = False
-        if self.program is not None:
-            self.program.disable()
-            self.drained = self.program.drain()
+    def stop(self) -> TraceResult:
+        self._mark()
+        self.close()
         t0 = time.time()
         self._prof.__exit__(None, None, None)
         cuda = self.device.type == "cuda"
@@ -317,95 +326,56 @@ class ProgramTracer(Tracer):
                         syncs.append((_start_ns(e),
                                       _start_ns(e) + e.duration_ns()))
         self._prof = None
-        self.close()
-        base = reduce_trace([e[:3] for e in device], self._h0, h1,
-                            self.spans, self.calls)
         spans = self.drained.spans if self.drained is not None else []
-        out = ProgramTraceResult(
-            **{f.name: getattr(base, f.name)
-               for f in dataclasses.fields(TraceResult)},
+        out = TraceResult(
             **attribute(device, runtime, syncs, spans, self._brackets),
             events_read=len(events), read_s=time.time() - t0)
-        print(f"[trace] {out.events_read} events read and tied to the "
-              f"program's spans in {out.read_s:.1f} s", file=sys.stderr,
-              flush=True)
-        self.result = out
+        print(f"[trace] profiler started in {self.start_s:.3f} s; "
+              f"{out.events_read} events read and tied to the program's "
+              f"spans in {out.read_s:.1f} s", file=sys.stderr, flush=True)
         return out
 
+    def close(self):
+        """Turn the program's tracer off and keep what it holds."""
+        if self.program is not None and self.program.on:
+            self.program.disable()
+            self.drained = self.program.drain()
 
-def breakdown(t: ProgramTraceResult) -> dict:
-    """What a traced run's breakdown gains over ``run.main``'s."""
+
+def _start_ns(e) -> int:
+    f = getattr(e, "start_ns", None)
+    return f() if f is not None else int(e.start_us() * 1000)
+
+
+def _pairs(rows, n: int = TOP) -> list:
+    return [list(r) for r in rows[:n]]
+
+
+def breakdown(t: TraceResult) -> dict:
+    """The result line's ``breakdown``: lists of [name, number], each at
+    most TOP long. ``device_ops`` by kernel; ``idle_gaps`` by the program
+    span path that launched the kernel ending each gap; device time by
+    launching span path, and by path and kernel; the idle that began while
+    the host waited in a synchronising call, by its ``sync.*`` span; the
+    synchronising runtime calls by the span paired with them, and the
+    ``sync.*`` spans with none; and how much of the slice the spans
+    account for (``attributed``)."""
     return {
-        "idle_by_program_span": [list(kv) for kv in t.idle_by_program_span],
-        "device_by_program_span": [list(kv)
-                                   for kv in t.device_by_program_span],
-        "ops_by_program_span": [list(kv) for kv in t.ops_by_program_span],
-        "idle_after_sync": [list(kv) for kv in t.idle_after_sync],
-        "syncs_by_program_span": [list(kv) for kv in t.syncs_by_program_span],
-        "unpaired_sync_spans": [list(kv) for kv in t.unpaired_sync_spans],
-        "attributed": {
-            "launches_in_step": t.launches_in_step / max(t.launches, 1),
-            "device_in_span": t.device_in_span_s / t.device_s
-            if t.device_s > 0 else None,
-            "runtime_syncs": sum(n for _, n in t.syncs_by_program_span),
-            "program_sync_spans": t.sync_spans,
-            "clock_offset_us": list(t.clock_offset_us),
-            "events_read": t.events_read, "read_s": t.read_s},
+        "device_ops": _pairs(t.device_ops),
+        "idle_gaps": _pairs(t.idle_by_program_span),
+        "device_by_program_span": _pairs(t.device_by_program_span),
+        "ops_by_program_span": [[f"{p} {k}", v] for p, k, v in
+                                t.ops_by_program_span[:TOP]],
+        "idle_after_sync": _pairs(t.idle_after_sync),
+        "syncs_by_program_span": _pairs(t.syncs_by_program_span),
+        "unpaired_sync_spans": _pairs(t.unpaired_sync_spans),
+        "attributed": [
+            ["launches_in_step", t.launches_in_step / max(t.launches, 1)],
+            ["device_in_span", t.device_in_span_s / t.device_s
+             if t.device_s > 0 else 0.0],
+            ["runtime_syncs", sum(n for _, n in t.syncs_by_program_span)],
+            ["program_sync_spans", t.sync_spans],
+            ["clock_offset_open_us", t.clock_offset_us[0]],
+            ["clock_offset_close_us", t.clock_offset_us[-1]],
+            ["events_read", t.events_read], ["read_s", t.read_s]],
     }
-
-
-def main(argv=None, root=None, device=None, t_proc0=None) -> int:
-    """Run the cell through ``run.main`` with ``--trace 1``, its tracer a
-    ``ProgramTracer``; returns the exit code. ``run.main`` builds, runs
-    and checks the cell and keeps its guards; this adds ``READERS`` to its
-    report and the program's breakdown to its line. ``device`` None means
-    the card; tests pass "cpu"."""
-    from portbench import run as R
-    from portbench import trace as T
-
-    made: List[ProgramTracer] = []
-
-    def tracer(device):
-        made.append(ProgramTracer(device))
-        return made[-1]
-
-    def report(run, entries, cell):
-        run.program = made[-1].drained if made else None
-        out = base_report(run, entries, cell)
-        for name, unit in READERS.items():
-            v = cell.reader(name)(run)
-            if v is not None:
-                out[name] = {"value": float(v), "unit": unit}
-        return out
-
-    argv = list(sys.argv[1:] if argv is None else argv) + ["--trace", "1"]
-    base_report, base_tracer = R.report, T.Tracer
-    R.report, T.Tracer = report, tracer
-    buf = io.StringIO()
-    try:
-        with contextlib.redirect_stdout(buf):
-            rc = R.main(argv, root=root, device=device,
-                        t_proc0=T_PROC0 if t_proc0 is None else t_proc0)
-    finally:
-        R.report, T.Tracer = base_report, base_tracer
-    lines = buf.getvalue().splitlines()
-    if rc != 0 or not made or not lines:
-        sys.stdout.write(buf.getvalue())
-        return rc
-    result = json.loads(lines[-1])
-    extra = breakdown(made[-1].result)
-    result["breakdown"].update(extra)
-    a = extra["attributed"]
-    R.log(f"[attribution] launches inside a step span "
-          f"{a['launches_in_step']}, device time tied to a span "
-          f"{a['device_in_span']}; synchronising runtime calls "
-          f"{a['runtime_syncs']} against {a['program_sync_spans']} sync.* "
-          f"spans; device clock ahead by {a['clock_offset_us']} us")
-    for line in lines[:-1]:
-        print(line)
-    print(json.dumps(result))
-    return 0
-
-
-if __name__ == "__main__":
-    sys.exit(main())

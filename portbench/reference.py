@@ -3,10 +3,10 @@ configurations in PyTorch (TF32 off), for the check that decides
 ``correct``. It imports nothing of the program: it draws the weights
 again from the configuration's seed (``weights.py``), quantizes them to INT4 with
 its own copy of the blockwise quantizer and dequantizes them to float32,
-then runs the published architecture (qwen3: RMSNorm, per-head q/k
-RMSNorm, rotate-half RoPE, grouped-query attention, SwiGLU; gpt-neox:
-LayerNorm, partial rotary, biases, exact GELU, parallel residual) over
-whole sequences, one layer at a time, with no cache and no batching.
+then runs the published architecture over whole sequences, one layer at
+a time, with no cache and no batching. Each layer is its family's
+``block`` (``families/<model_type>.py``), built from the helpers here:
+the norms, RoPE, and ``Ops``, which holds the control's rounding.
 
 The control is the same pass a precision below the configuration's
 bf16 activations: ``"fp8"`` rounds to float8 e4m3, with one scale a row,
@@ -51,17 +51,23 @@ def fp8_rows(x: torch.Tensor) -> torch.Tensor:
     return (x / s).to(torch.float8_e4m3fn).to(torch.float32) * s
 
 
-def _rms(x, w, eps):
+def rms(x, w, eps):
     return x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps) * w
 
 
-def _ln(x, w, b, eps):
+def ln(x, w, b, eps):
     m = x.mean(dim=-1, keepdim=True)
     v = ((x - m) ** 2).mean(dim=-1, keepdim=True)
     return (x - m) * torch.rsqrt(v + eps) * w + b
 
 
-def _rope(x, pos, rd, theta):
+def norm(a, x, w, b):
+    """The architecture's norm kind (``a["norm"]``): RMSNorm or LayerNorm."""
+    return rms(x, w, a["eps"]) if a["norm"] == "rms" else ln(x, w, b,
+                                                             a["eps"])
+
+
+def rope(x, pos, rd, theta):
     """Rotate-half RoPE on the first ``rd`` features of x [T, H, Dh]."""
     half = rd // 2
     inv = theta ** (-2.0 * torch.arange(half, dtype=torch.float32,
@@ -74,6 +80,44 @@ def _rope(x, pos, rd, theta):
     return torch.cat([r * cos + rot * sin, x[..., rd:]], -1)
 
 
+def _same(t):
+    return t
+
+
+class Ops:
+    """What a family's block computes with, at one precision (``quant``:
+    None, "fp8" or "w4a8"). ``r`` rounds a tensor the program holds in
+    bf16 (to float8 rows under "fp8"); ``mm`` is a weight product, its
+    input rounded to float8 rows under "fp8" and "w4a8" and its output,
+    bias added, by ``r``; ``attend`` is attention with its probabilities
+    and output rounded by ``r``."""
+
+    def __init__(self, quant: Optional[str]):
+        self.quant = quant
+        self.r = fp8_rows if quant == "fp8" else _same
+
+    def mm(self, h, w, b=None):
+        h = fp8_rows(h) if self.quant in ("fp8", "w4a8") else h
+        y = h @ w
+        return self.r(y + b if b is not None else y)
+
+    def attend(self, q, k, v, window: Optional[int] = None):
+        """q [T, Hq, Dh], k and v [T, Hk, Dh] -> [T, Hq, Dh]: each query
+        over the keys at its position and before (the last ``window`` of
+        them, given one), grouped-query heads sharing their K/V head."""
+        T, Hq, Dh = q.shape
+        rep = Hq // k.shape[1]
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+        s = torch.einsum("thd,shd->hts", q, k) / (Dh ** 0.5)
+        mask = torch.ones(T, T, dtype=torch.bool, device=q.device).tril_()
+        if window is not None:
+            mask &= ~torch.ones_like(mask).tril_(-window)
+        s = s.masked_fill(~mask, float("-inf"))
+        return self.r(torch.einsum("hts,shd->thd",
+                                   self.r(torch.softmax(s, -1)), v))
+
+
 class Reference:
     """The reference over a fixed set of sequences. ``run(seqs, starts)``
     returns, per sequence, the float32 logits at positions starts-1 ..
@@ -84,62 +128,26 @@ class Reference:
     def __init__(self, cfg: dict, device):
         self.cfg, self.device = cfg, device
         self.seed = cfg["weights"]["seed"]
-        self.a = W.arch(cfg)
-
-    def _norm(self, x, w, b):
-        a = self.a
-        return (_rms(x, w, a["eps"]) if a["norm"] == "rms"
-                else _ln(x, w, b, a["eps"]))
-
-    def _block(self, x, p, lw, quant):
-        a = self.a
-        T = x.shape[0]
-        Hq, Hk, Dh = a["Hq"], a["Hk"], a["Dh"]
-        r = fp8_rows if quant == "fp8" else (lambda t: t)
-
-        def mm(h, name):
-            h = fp8_rows(h) if quant in ("fp8", "w4a8") else h
-            y = h @ lw[name]
-            return r(y + lw["b" + name[1:]] if ("b" + name[1:]) in lw else y)
-
-        h = self._norm(x, lw["attn_norm_w"], lw.get("attn_norm_b"))
-        q = mm(h, "wq").view(T, Hq, Dh)
-        k = mm(h, "wk").view(T, Hk, Dh)
-        v = mm(h, "wv").view(T, Hk, Dh)
-        if a["qk_norm"]:
-            q = _rms(q, lw["q_norm_w"], a["eps"])
-            k = _rms(k, lw["k_norm_w"], a["eps"])
-        q = r(_rope(q, p, a["rotary_dim"], a["theta"]))
-        k = r(_rope(k, p, a["rotary_dim"], a["theta"]))
-        rep = Hq // Hk
-        k = k.repeat_interleave(rep, dim=1)
-        v = v.repeat_interleave(rep, dim=1)
-        s = torch.einsum("thd,shd->hts", q, k) / (Dh ** 0.5)
-        causal = torch.ones(T, T, dtype=torch.bool,
-                            device=x.device).tril_()
-        s = s.masked_fill(~causal, float("-inf"))
-        o = r(torch.einsum("hts,shd->thd", r(torch.softmax(s, -1)), v))
-        attn = mm(o.reshape(T, Hq * Dh), "wo")
-        if a["parallel_residual"]:
-            m = self._norm(x, lw["mlp_norm_w"], lw.get("mlp_norm_b"))
-        else:
-            x = x + attn
-            m = self._norm(x, lw["mlp_norm_w"], lw.get("mlp_norm_b"))
-        if a["gated"]:
-            u = torch.nn.functional.silu(mm(m, "w_gate")) * mm(m, "w_up")
-        else:
-            u = torch.nn.functional.gelu(mm(m, "w_up"), approximate="none")
-        mlp = mm(u, "w_down")
-        return r(x + attn + mlp if a["parallel_residual"] else x + mlp)
+        self.family = W.family(cfg)
+        self.a = self.family.arch(cfg)
 
     def _layer(self, i: int) -> Dict[str, torch.Tensor]:
-        """Layer i in float32: projections through the INT4 round trip,
-        norms and biases as drawn (bf16) in float32."""
+        """Layer i in float32: projections through the INT4 round trip
+        (each matrix of a stack alone), norms and biases as drawn (bf16) in
+        float32."""
         dense = W.layer(self.cfg, self.seed, i, self.device)
+        kinds = self.family.tensors(self.a, i)
         out = {}
         for k, v in dense.items():
             v = v[0]
-            out[k] = int4_roundtrip(v) if v.dim() == 2 else v.float()
+            if kinds[k][1] != "proj":
+                out[k] = v.float()
+            elif v.dim() == 2:
+                out[k] = int4_roundtrip(v)
+            else:
+                out[k] = torch.stack([int4_roundtrip(m) for m in
+                                      v.reshape(-1, *v.shape[-2:])]
+                                     ).reshape(v.shape)
         return out
 
     @torch.no_grad()
@@ -165,10 +173,11 @@ class Reference:
         xs = {q: [fp8_rows(emb[t].float()) if q == "fp8" else emb[t].float()
                   for t in toks] for q in act_quants}
         del emb
+        ops = {q: Ops(q) for q in act_quants}
         for i in range(self.a["L"]):
             lw = self._layer(i)
             for q in act_quants:
-                xs[q] = [self._block(x, p, lw, q)
+                xs[q] = [self.family.block(self.a, i, x, p, lw, ops[q])
                          for x, p in zip(xs[q], pos)]
             del lw
         fn = W.final_norm(self.cfg, self.seed, dev)
@@ -179,7 +188,7 @@ class Reference:
         for q in act_quants:
             rows = []
             for x, st in zip(xs[q], starts):
-                h = self._norm(x[st - 1:-1], fw, fb)
+                h = norm(self.a, x[st - 1:-1], fw, fb)
                 h = fp8_rows(h) if q in ("fp8", "w4a8") else h
                 rows.append(fp8_rows(h @ head) if q == "fp8" else h @ head)
             out[q] = rows

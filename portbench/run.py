@@ -5,11 +5,14 @@
 from the root of a checkout. The cell, its configuration
 (``configs/<name>.json``), its traffic mix (``traffic/<name>.json``) and
 its metrics (``metrics/<name>.py``, each a ``read(run)``) are found by the
-names in ``BENCHMARK.json``. ``--trace 0`` reports the cell's end-to-end
-metrics, ``--trace 1`` its per-layer metrics. Fails, printing no result,
-without a CUDA card (or with fewer than the cell asks for), without the
-program, or when JAX or the JAX package is loaded once the window has
-closed.
+names in ``BENCHMARK.json``, and the configuration's model family
+(``families/<model_type>.py``) by its ``model_type``. ``--trace 0``
+reports the cell's end-to-end metrics, ``--trace 1`` its per-layer
+metrics, read from the program's own spans and records and a device
+trace of the window's last seconds (``program_trace.py``). Fails,
+printing no result, without a CUDA card (or with fewer than the cell asks
+for), without the program, or when JAX or the JAX package is loaded once
+the window has closed.
 """
 import time
 
@@ -43,6 +46,8 @@ class Cell:
         self.root, self.name, self.entry = root, workload, wl[workload]
         conf = {c["name"]: c for c in spec["configs"]}[self.entry["config"]]
         self.config = json.loads((root / conf["file"]).read_text())
+        # the family file (``weights.family``) is found under this root too
+        self.config["family_dir"] = str(root / "portbench" / "families")
         self.mix = json.loads((root / "portbench" / "traffic" /
                                f"{self.entry['traffic']}.json").read_text())
         self.chips = int(self.entry["chips"])
@@ -148,7 +153,7 @@ def main(argv=None, root=None, device=None, t_proc0=T_PROC0) -> int:
 
     from portbench import check
     from portbench.harness import Program, run_window
-    from portbench.trace import Tracer
+    from portbench.program_trace import Tracer, breakdown
 
     t_build = time.time()
     program = Program(cell.config, device)
@@ -189,15 +194,16 @@ def main(argv=None, root=None, device=None, t_proc0=T_PROC0) -> int:
     if run.trace is not None:
         t = run.trace
         result["device"].update(busy_s=t.busy_s, window_s=t.window_s)
-        result["breakdown"] = {"device_ops": [list(kv) for kv in
-                                              t.device_ops[:10]],
-                               "idle_gaps": [list(kv) for kv in
-                                             t.idle_by_span[:10]]}
+        result["breakdown"] = breakdown(t)
         log(f"[trace] the window's last {run.t_end - run.t_host:.3f} s; "
-            f"busy {t.busy_s:.6f} of {t.window_s:.6f} s; INT4 "
-            f"products {t.int4_calls}, int4_pair_matmul launches "
-            f"{t.int4_kernels}; clock skew {t.clock_skew_us:.1f} us; "
-            f"longest gaps {t.longest_gaps}")
+            f"busy {t.busy_s:.6f} of {t.window_s:.6f} s; int4_pair_matmul "
+            f"launches {t.int4_kernels}; launches inside a step span "
+            f"{t.launches_in_step} of {t.launches}, device time tied to a "
+            f"span {t.device_in_span_s:.6f} of {t.device_s:.6f} s; "
+            f"synchronising runtime calls "
+            f"{sum(n for _, n in t.syncs_by_program_span)} against "
+            f"{t.sync_spans} sync.* spans; device clock ahead by "
+            f"{list(t.clock_offset_us)} us")
     result["checks"] = checks
     for name, c in checks.items():
         rule = (f"<= {c['max']}" if "max" in c else f">= {c['min']}")

@@ -10,11 +10,13 @@ import pytest
 
 from portbench import measure
 from portbench.harness import Req, Run
+from portbench.program_trace import TraceResult, attribute
 from portbench.run import main
-from portbench.trace import Spans, reduce_trace
+from portbench.weights import family
 
 METRICS = Path(__file__).resolve().parent / "metrics"
-MODEL = dict(L=2, D=8, F=16, V=10, Hq=2, Hk=1, Dh=4, gated=True)
+MODEL = dict(L=2, D=8, F=16, V=10, Hq=2, Hk=1, Dh=4)
+QWEN3 = family({"model_type": "qwen3"})
 
 
 def reader(name):
@@ -82,22 +84,21 @@ def test_union_and_idle_share():
     ivs = [(0, 2), (1, 3), (5, 6), (6, 7), (9, 12)]
     assert measure.union(ivs) == [(0, 3), (5, 7), (9, 12)]
     assert measure.gaps(ivs, 1, 10) == [(3, 5), (7, 9)]
-    spans = Spans()
-    spans.on = True
-    with spans.span("windows"):
-        pass
-    spans.times = [500, 1500]
     # two marks (launched at host 0 and 10000 ns, seen on the device
-    # 500 ns later), two kernels, one weight kernel
-    ev = [("mark", 500, 510), ("int4_pair_matmul_kernel<1>", 1510, 2510),
-          ("other", 2000, 4510), ("mark", 10500, 10510)]
-    t = reduce_trace(ev, 0, 10000, spans, [(1, 256, 256)])
+    # 500 ns later), two kernels, one of them the weight kernel; no span
+    ev = [("mark", 500, 510, 1),
+          ("int4_pair_matmul_kernel<1>", 1510, 2510, 2),
+          ("other", 2000, 4510, 3), ("mark", 10500, 10510, 4)]
+    out = attribute(ev, {1: 0, 2: 1000, 3: 1100, 4: 10000}, [], [],
+                    [(0, 1), (10000, 10001)])
+    t = TraceResult(**out)
     assert t.window_s == pytest.approx(9990e-9)
     assert t.busy_s == pytest.approx(3000e-9)
-    assert dict(t.idle_by_span) == pytest.approx(
-        {"windows": 1000e-9, "harness": 5990e-9})
-    assert t.int4_device_s == pytest.approx(1000e-9)
-    assert t.int4_bound_s == pytest.approx(measure.int4_bound_s(1, 256, 256))
+    assert dict(t.device_ops) == pytest.approx(
+        {"int4_pair_matmul": 1000e-9, "other": 2510e-9})
+    assert dict(t.idle_by_program_span) == pytest.approx(
+        {"harness": 6990e-9})
+    assert (t.int4_kernels, t.int4_device_s) == (1, pytest.approx(1e-6))
     run = run_of([], trace=t)
     assert reader("device_idle")(run) == pytest.approx(100 * 6990 / 9990)
 
@@ -111,15 +112,25 @@ def test_int4_bound_and_flops():
     assert measure.int4_bound_s(4096, K, N) == pytest.approx(
         2 * 4096 * K * N / 989e12)
     per_layer = 8 * 16 + 8 * 8 + 2 * 8 * 16 + 16 * 8     # qkv wo gate/up down
-    assert measure.layer_params(MODEL) == 2 * per_layer
+    assert QWEN3.weights_per_token(MODEL) == 2 * per_layer
     # a 3-token prompt: 3 tokens through the layers, keys 1 + 2 + 3
     attn = 4.0 * 2 * 2 * 4
-    assert measure.required_flops(MODEL, [3], []) == pytest.approx(
+    assert measure.required_flops(QWEN3, MODEL, [3], []) == pytest.approx(
         2 * 2 * per_layer * 3 + attn * 6)
     # outputs 0..2 of that request: outputs 1, 2 process positions 3, 4
     # (4 and 5 keys); three heads
-    assert measure.required_flops(MODEL, [], [(3, 0, 3)]) == pytest.approx(
-        2 * 2 * per_layer * 2 + attn * 9 + 3 * 2 * 8 * 10)
+    assert measure.required_flops(QWEN3, MODEL, [], [(3, 0, 3)]) == \
+        pytest.approx(2 * 2 * per_layer * 2 + attn * 9 + 3 * 2 * 8 * 10)
+
+
+@pytest.mark.parametrize("first,last", [(0, 0), (0, 1), (0, 9), (3, 4),
+                                        (5, 40), (30, 31), (40, 30)])
+@pytest.mark.parametrize("window", [1, 4, 32, 1000])
+def test_window_keys(first, last, window):
+    assert measure.window_keys(first, last, window) == sum(
+        min(p + 1, window) for p in range(first, last))
+    assert measure.causal_keys(first, last) == sum(
+        p + 1 for p in range(first, last))
 
 
 def _last_json(out: str) -> dict:
@@ -145,7 +156,10 @@ def test_cpu_rehearsal(tiny_root, capsys, family, arrivals, trace):
     names = set(line["metrics"])
     if trace:
         assert {"tiny_metric", "step_ms", "slot_occupancy", "acceptance",
-                "mfu", "device_idle"} <= names
+                "mfu", "device_idle", "host_syncs_per_step", "kv_pool_use",
+                "draft_device_ms", "verify_device_ms"} <= names
+        # no K1 or K8a launch on the CPU: nothing to read, no reading
+        assert not {"weight_mm_roofline", "attention_roofline"} & names
         assert line["device"]["busy_s"] > 0 and "breakdown" in line
     else:
         assert {"out_tok_s", "setup_s", "ttft_p90_ms"} <= names

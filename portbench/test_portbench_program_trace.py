@@ -1,7 +1,7 @@
 """The readers of the program's spans on a synthetic run, the tie of a
 device trace to those spans on synthetic events, and CPU rehearsals of
-``program_trace.py`` with a program that has the tracer and with one
-that has not."""
+the traced run (``run.py --trace 1``) with a program that has the tracer
+and with one that has not."""
 import importlib.util
 import json
 import sys
@@ -12,10 +12,14 @@ import pytest
 
 from portbench import measure
 from portbench.harness import Run
-from portbench.program_spans import paged_attention_bound_s
-from portbench.program_trace import (
-    READERS, ProgramTraceResult, attribute, innermost, main,
-)
+from portbench.measure import int4_bound_s, paged_attention_bound_s
+from portbench.program_trace import TraceResult, attribute, innermost
+from portbench.run import main
+
+# the readers of the program's spans and records
+READERS = ("window_dispatch_ms", "host_syncs_per_step", "draft_device_ms",
+           "verify_device_ms", "prefill_us_per_token", "attention_roofline",
+           "kv_pool_use", "weight_mm_roofline")
 
 METRICS = Path(__file__).resolve().parent / "metrics"
 MODEL = dict(L=2, D=8, F=16, V=10, Hq=2, Hk=1, Dh=4, gated=True)
@@ -114,16 +118,22 @@ def test_traced_slice_readers():
     rec = (2, 512, 64, 1000, 10)
     b.records["paged_attention"] = [(v0,) + rec, (v1,) + rec, (v2,) + rec]
     least = paged_attention_bound_s(*rec)
-    trace = ProgramTraceResult(
-        0.0, 0.0, [], [], [], 0, 0, 0.0, 0.0, 0.0,
+    # K1 products: two in the slice's drafts and verifies, one before it
+    b.records["int4_pair_matmul"] = [(draft[0], 64, 256, 768),
+                                     (v1, 256, 512, 256),
+                                     (draft[2], 1, 256, 256)]
+    k1_least = int4_bound_s(64, 256, 768) + int4_bound_s(256, 512, 256)
+    trace = TraceResult(
         slice_ns=(108 * S, 110 * S), device_by_span=by_span,
-        attention_by_span={v0: least * 4, v1: least * 4, v2: 1.0})
+        attention_by_span={v0: least * 4, v1: least * 4, v2: 1.0},
+        int4_kernels=2, int4_device_s=k1_least * 10)
     run = run_of(b.program(), trace)
     assert reader("draft_device_ms")(run) == pytest.approx(20.0)
     assert reader("verify_device_ms")(run) == pytest.approx(20.0)
     # 10 ms of admission over 20 prompt tokens
     assert reader("prefill_us_per_token")(run) == pytest.approx(500.0)
     assert reader("attention_roofline")(run) == pytest.approx(25.0)
+    assert reader("weight_mm_roofline")(run) == pytest.approx(10.0)
     assert least == pytest.approx(2 * (1000 * 512 + 10 * 64)
                                   / measure.HBM_BYTES_PER_S)
 
@@ -200,32 +210,37 @@ def _line(out: str) -> dict:
 
 @pytest.mark.parametrize("has_tracer", [True, False])
 def test_cpu_rehearsal(tiny_root, capsys, monkeypatch, has_tracer):
-    """The traced run on the CPU prints the program-span metrics; with a
-    program that has no tracer it prints the others and no new one."""
+    """The traced run on the CPU prints the program-span metrics and the
+    breakdown by program span; with a program that has no tracer it prints
+    the others and no span-based one."""
     from specdec_tpu_torch.utils import profiling
 
     if not has_tracer:
         monkeypatch.delattr(profiling, "TRACER")
     root = tiny_root(family="qwen3", arrivals="poisson")
     rc = main(["--workload", "tiny.poisson", "--seed", str(2 ** 31 + 7),
-               "--seconds", "4"], root=root, device="cpu")
+               "--seconds", "4", "--trace", "1"], root=root, device="cpu")
     assert rc == 0
     line = _line(capsys.readouterr().out)
     assert line["correct"] is True, line["checks"]
-    # the line is run.main's: its keys stay, the breakdown is added to
     assert line["attempted"] > 0 and line["failed"] == 0
     assert line["device"]["kind"] == "cpu" and list(line)[-1] == "checks"
-    assert {"device_ops", "idle_gaps"} <= set(line["breakdown"])
+    bd = line["breakdown"]
+    assert {"device_ops", "idle_gaps"} <= set(bd)
+    for key, rows in bd.items():     # lists of [name, number], 10 at most
+        assert len(rows) <= 10, key
+        assert all(isinstance(r[0], str) and len(r) == 2 for r in rows), key
     names = set(line["metrics"])
     assert {"step_ms", "slot_occupancy", "device_idle"} <= names
-    bd = line["breakdown"]
     program_metrics = {"window_dispatch_ms", "host_syncs_per_step",
-                       "kv_pool_use", "draft_device_ms", "verify_device_ms"}
+                       "kv_pool_use", "draft_device_ms", "verify_device_ms",
+                       "prefill_us_per_token"}
     if has_tracer:
         assert program_metrics <= names
         assert "attention_roofline" not in names   # no K8a on the CPU
-        assert bd["idle_by_program_span"] and bd["device_by_program_span"]
-        assert bd["attributed"]["launches_in_step"] > 0.9
+        assert bd["idle_gaps"] and bd["device_by_program_span"]
+        assert dict(bd["attributed"])["launches_in_step"] > 0.9
+        assert profiling.TRACER.on is False
     else:
         assert not names & set(READERS)
         # no span to tie the device time to
@@ -234,9 +249,43 @@ def test_cpu_rehearsal(tiny_root, capsys, monkeypatch, has_tracer):
 
 def test_refuses_with_a_forbidden_module_loaded(tiny_root, capsys,
                                                 monkeypatch):
-    """run.main's guard holds: with JAX loaded no line is printed."""
+    """run.main's guard holds in a traced run: with JAX loaded no line is
+    printed."""
     monkeypatch.setitem(sys.modules, "jax", types.ModuleType("jax"))
     root = tiny_root(family="qwen3", arrivals="backlog")
     rc = main(["--workload", "tiny.backlog", "--seed", "3", "--seconds",
-               "1"], root=root, device="cpu")
+               "1", "--trace", "1"], root=root, device="cpu")
     assert rc == 3 and capsys.readouterr().out == ""
+
+
+def test_a_step_past_the_slice_leaves_the_tracer_unstarted(monkeypatch):
+    """One step that runs from the window's open past its close: the
+    slice never starts, the window still closes, no trace is read and
+    the program's tracer is off again."""
+    import time
+
+    import torch
+
+    from portbench import harness
+    from portbench.conftest import tiny_config, tiny_mix
+    from portbench.program_trace import Tracer
+    from specdec_tpu_torch.utils.profiling import TRACER
+
+    cfg, mix = tiny_config("qwen3"), tiny_mix("poisson")
+    seconds = 2.0
+    step, long = harness.Driver.step, []
+
+    def slow_step(self):
+        if not long and time.time() >= self.t0 + mix["arrivals"][
+                "preroll_s"]:
+            long.append(time.time())
+            time.sleep(seconds + 0.5)
+        return step(self)
+    monkeypatch.setattr(harness.Driver, "step", slow_step)
+    program = harness.Program(cfg, torch.device("cpu"))
+    run = harness.run_window(program, cfg, mix, "tiny.poisson", 5, seconds,
+                             time.time(), Tracer(torch.device("cpu")))
+    assert long and run.t_start <= long[0] < run.t_start + seconds
+    assert run.t_end >= run.t_start + seconds
+    assert run.trace is None and run.program is None
+    assert run.t_host == run.t_end and TRACER.on is False

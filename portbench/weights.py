@@ -10,11 +10,14 @@ same for every run, whatever the run's seed, which draws the traffic. With
 weights drawn from the run's seed, LayerSkip acceptance moved from 31% to
 86% between seeds on the Pythia cell, and the tokens per second with it.
 
-``arch`` reads a configuration file's published keys into the sizes both
-sides use (llama-lineage qwen3 and gpt-neox families).
+A model family is a file: ``families/<model_type>.py`` gives the
+yardstick's side of one architecture (``family``), and this module draws
+whatever tensors it lists.
 """
 from __future__ import annotations
 
+import importlib.util
+from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
@@ -23,33 +26,45 @@ import torch
 # draws of the tensor groups: (seed, GROUP, layer)
 _LAYER, _EMBED, _HEAD, _FINAL = 0, 1, 2, 3
 
+# where a configuration's family files are, unless it names a directory
+# under ``family_dir`` (``run.Cell`` names its root's)
+FAMILIES = Path(__file__).resolve().parent / "families"
+_loaded: Dict[Path, object] = {}
+
+
+def family(cfg: dict):
+    """The family module of the configuration's ``model_type``, loaded by
+    path from ``<family_dir>/<model_type>.py``. It gives:
+
+    - ``arch(cfg)``: the sizes and flags both sides use, with at least
+      ``L``, ``D``, ``V``, ``Hq``, ``Hk``, ``Dh`` and ``norm`` ("rms" or
+      "layer": the final norm's kind);
+    - ``tensors(a, i)``: layer ``i``'s tensors in draw order, name ->
+      (shape, kind), the kind one of "proj", "norm_w", "norm_b", "bias";
+    - ``RESIDUAL``: the names the LayerSkip tail damping scales;
+    - ``block(a, i, x, pos, lw, ops)``: layer ``i`` of the float32
+      reference (``reference.Ops`` rounds for the control);
+    - ``weights_per_token(a)`` and ``keys_scored(a, first, last)``: the
+      counts of ``measure.required_flops``;
+    - optionally ``build_layers(cfg, dense, fmt)``: how the program stacks
+      the drawn layers (``harness.Program``), the one place a family file
+      may import the program, inside the function."""
+    mt = cfg["model_type"]
+    path = Path(cfg.get("family_dir", FAMILIES)) / f"{mt}.py"
+    if path not in _loaded:
+        if not path.is_file():
+            raise ValueError(f"no family file {path} for model_type {mt!r}")
+        spec = importlib.util.spec_from_file_location(
+            f"portbench_family_{mt}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _loaded[path] = mod
+    return _loaded[path]
+
 
 def arch(cfg: dict) -> dict:
     """Sizes and flags of a configuration file's published keys."""
-    mt = cfg["model_type"]
-    D, Hq = cfg["hidden_size"], cfg["num_attention_heads"]
-    if mt == "qwen3":
-        Dh = cfg.get("head_dim", D // Hq)
-        return dict(family=mt, L=cfg["num_hidden_layers"], D=D,
-                    F=cfg["intermediate_size"], V=cfg["vocab_size"], Hq=Hq,
-                    Hk=cfg["num_key_value_heads"], Dh=Dh, rotary_dim=Dh,
-                    theta=float(cfg["rope_theta"]),
-                    eps=float(cfg["rms_norm_eps"]), norm="rms", qk_norm=True,
-                    parallel_residual=False, bias=False, gated=True,
-                    act="silu", positions=cfg["max_position_embeddings"])
-    if mt == "gpt_neox":
-        Dh = D // Hq
-        rd = int(Dh * cfg["rotary_pct"])
-        return dict(family=mt, L=cfg["num_hidden_layers"], D=D,
-                    F=cfg["intermediate_size"], V=cfg["vocab_size"], Hq=Hq,
-                    Hk=Hq, Dh=Dh, rotary_dim=rd - rd % 2,
-                    theta=float(cfg["rotary_emb_base"]),
-                    eps=float(cfg["layer_norm_eps"]), norm="layer",
-                    qk_norm=False,
-                    parallel_residual=bool(cfg["use_parallel_residual"]),
-                    bias=True, gated=False, act=cfg["hidden_act"],
-                    positions=cfg["max_position_embeddings"])
-    raise ValueError(f"no architecture for model_type {mt!r}")
+    return family(cfg).arch(cfg)
 
 
 def _generator(seed: int, group: int, index: int, device) -> torch.Generator:
@@ -76,41 +91,30 @@ def _draw(shapes: Dict[str, tuple], g: torch.Generator, device,
 
 def layer(cfg: dict, seed: int, i: int, device,
           dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
-    """Layer ``i``'s dense weights, each with a leading layer axis of 1:
-    projections N(0, init_scale^2), norm weights 1 + N(0, norm_jitter^2)
-    (norm biases and projection biases N(0, norm_jitter^2) and
-    N(0, init_scale^2)). At and past the drafter's exit layer the residual
-    outputs (``wo``, ``w_down`` and their biases) are multiplied by the
-    tail damping."""
-    a = arch(cfg)
+    """Layer ``i``'s dense weights as its family lists them, each with a
+    leading layer axis of 1, in one draw: projections
+    N(0, init_scale^2), norm weights 1 + N(0, norm_jitter^2), norm biases
+    N(0, norm_jitter^2), other biases N(0, init_scale^2). At and past the
+    drafter's exit layer the family's residual outputs are multiplied by
+    the tail damping."""
+    fam = family(cfg)
+    listed = fam.tensors(fam.arch(cfg), i)
     w_cfg, dr = cfg["weights"], cfg["drafter"]
     scale, jitter = w_cfg["init_scale"], w_cfg["norm_jitter"]
-    D, F, Dh, Hq, Hk = a["D"], a["F"], a["Dh"], a["Hq"], a["Hk"]
-    shapes = {"wq": (1, D, Hq * Dh), "wk": (1, D, Hk * Dh),
-              "wv": (1, D, Hk * Dh), "wo": (1, Hq * Dh, D),
-              "w_up": (1, D, F), "w_down": (1, F, D)}
-    if a["gated"]:
-        shapes["w_gate"] = (1, D, F)
-    norms = {"attn_norm_w": (1, D), "mlp_norm_w": (1, D)}
-    if a["qk_norm"]:
-        norms.update(q_norm_w=(1, Dh), k_norm_w=(1, Dh))
-    biases = {}
-    if a["norm"] == "layer":
-        biases.update(attn_norm_b=(1, D), mlp_norm_b=(1, D))
-    if a["bias"]:
-        biases.update(bq=(1, Hq * Dh), bk=(1, Hk * Dh), bv=(1, Hk * Dh),
-                      bo=(1, D), b_up=(1, F), b_down=(1, D))
     g = _generator(seed, _LAYER, i, device)
-    out = _draw({**shapes, **norms, **biases}, g, device, torch.float32)
-    for name in shapes:
-        out[name] = out[name] * scale
-    for name in norms:
-        out[name] = 1.0 + out[name] * jitter
-    for name in biases:
-        s = jitter if name.endswith("norm_b") else scale
-        out[name] = out[name] * s
+    out = _draw({name: (1, *shape) for name, (shape, _) in listed.items()},
+                g, device, torch.float32)
+    for name, (_, kind) in listed.items():
+        if kind == "proj" or kind == "bias":
+            out[name] = out[name] * scale
+        elif kind == "norm_w":
+            out[name] = 1.0 + out[name] * jitter
+        elif kind == "norm_b":
+            out[name] = out[name] * jitter
+        else:
+            raise ValueError(f"{name}: unknown kind {kind!r}")
     if i >= dr["exit_layer"]:
-        for name in ("wo", "w_down", "bo", "b_down"):
+        for name in fam.RESIDUAL:
             if name in out:
                 out[name] = out[name] * dr["tail_damp"]
     return {k: v.to(dtype) for k, v in out.items()}
