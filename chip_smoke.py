@@ -61,7 +61,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    0, N % 32 = 8) and K = 1001, N = 1004 (odd K: x's rows are unaligned and
    take the scalar staging), each through both wrappers as in phase 3.
    Phase 2 rebuilds every kernel (K1, K6, K7,
-   the flash-decode and the paged attention kernels) and fails if ptxas
+   the flash-decode and the paged attention kernels, the expert kernel)
+   and fails if ptxas
    reports a register spill in any of their instances. With ``--against
    NAME=SRC`` (NAME a kernel's library in ``_build.SIGNATURES``; SRC
    another source of it, such as an earlier commit's from ``git show``,
@@ -114,6 +115,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    and with the plain attention; then float32 over float32 KV (2 layers)
    takes the plain route by config and ``use_kernel=True`` raises before
    any launch;
+4e. latent attention and experts at DeepSeek-V2-Lite's widths
+   (DEEPSEEK_V2_LITE through ``config_from_hf``, 3 layers: layer 0 dense,
+   then 64 experts top-6 and 2 shared; random INT4 weights): the grouped
+   INT4 expert kernel against its plain version on the layer's own
+   stacks, gate/up (K 2048, N 2816) and down (K 1408, N 2048), at ~6, ~30
+   and ~770 rows an expert and with 32 experts given no row (phase 3's
+   tolerance and bit-equal share), timed against its bound; the
+   decompressed form's K3 call, zero-padded to head width 256 with the
+   model's softmax scale, against the plain attention of the unpadded
+   heads at 4096- and 8192-row admissions (phase 3c's bf16 tolerance; the
+   padding's output columns zero), timed against the unpadded work's
+   bound; K3 and the expert kernel's launches over a prefill and two
+   steps, counted from zero;
 7. NASD on the INT4 target of phase 5, greedy (tools/bench_nasd.py's
    protocol, cut to 64 tokens: n = 3, gamma 5, prompts from
    default_rng(3)):
@@ -537,11 +551,11 @@ def phase_device():
 
 
 # kernels rebuilt on every run and failed on any ptxas register spill: the
-# INT4 kernel (K1), the NF4/FP4 kernel (K6), the INT8 kernel (K7) and the
-# attention kernels, flash-decode (K3/K4) and paged (K2/K8a, K5/K8b): every
-# kernel of the port
+# INT4 kernel (K1), the NF4/FP4 kernel (K6), the INT8 kernel (K7), the
+# attention kernels, flash-decode (K3/K4) and paged (K2/K8a, K5/K8b), and
+# the grouped INT4 expert kernel: every kernel of the port
 SPILL_CHECKED = ("int4_pair_matmul", "q4_halfplane_matmul", "int8_matmul",
-                 "decode_attention", "paged_attention")
+                 "decode_attention", "paged_attention", "int4_expert_matmul")
 # the kernels ``--against`` takes: the weight kernels and the attention
 # kernels
 AGAINST_LIBS = (sorted(set(WEIGHT_LIBS.values()))
@@ -2123,6 +2137,309 @@ def phase_gemma(device, card):
         "use_kernel=True raised before any launch")
     out["seconds"] = time.perf_counter() - t0
     return out, total
+
+
+# 4e: DeepSeek-V2-Lite's published config (deepseek-ai/DeepSeek-V2-Lite,
+# config.json: latent attention, 64 experts top-6 plus 2 shared, YaRN)
+# through ``config_from_hf``, cut to DEEPSEEK_LAYERS layers (layer 0 dense,
+# then expert layers), random weights from DEEPSEEK_SEED, INT4 and fused
+# by ``quantize_params``. The expert kernel's routings (label, tokens,
+# experts used), each token to 6 distinct experts: the longreason cell's
+# draft step (64 slots, ~6 rows an expert), its verify (64 x 5 rows, ~30)
+# and an 8192-token admission (~770), and a draft step over half the
+# experts (32 given no row). The decompressed form's K3 calls (label, T):
+# admissions of T rows at offset 0 over the cell's scratch cache of
+# DEEPSEEK_ADMIT_S = P + O + gamma + 2 positions
+DEEPSEEK_V2_LITE = {
+    "model_type": "deepseek_v2", "hidden_size": 2048,
+    "intermediate_size": 10944, "num_hidden_layers": 27,
+    "num_attention_heads": 16, "num_key_value_heads": 16,
+    "kv_lora_rank": 512, "q_lora_rank": None, "qk_nope_head_dim": 128,
+    "qk_rope_head_dim": 64, "v_head_dim": 128, "vocab_size": 102400,
+    "max_position_embeddings": 163840, "rope_theta": 10000,
+    "rms_norm_eps": 1e-6, "moe_intermediate_size": 1408,
+    "n_routed_experts": 64, "n_shared_experts": 2,
+    "num_experts_per_tok": 6, "first_k_dense_replace": 1,
+    "moe_layer_freq": 1, "n_group": 1, "topk_group": 1,
+    "topk_method": "greedy", "scoring_func": "softmax",
+    "norm_topk_prob": False, "routed_scaling_factor": 1,
+    "attention_bias": False, "tie_word_embeddings": False,
+    "rope_scaling": {"type": "yarn", "factor": 40,
+                     "original_max_position_embeddings": 4096,
+                     "beta_fast": 32, "beta_slow": 1, "mscale": 0.707,
+                     "mscale_all_dim": 0.707}}
+DEEPSEEK_LAYERS, DEEPSEEK_SEED = 3, 7
+EXPERT_ROUTINGS = (("draft", 64, 64), ("verify", 320, 64),
+                   ("admission", 8192, 64), ("half-empty", 64, 32))
+DEEPSEEK_ADMIT_S = 8192 + 1536 + 4 + 2
+MLA_PREFILLS = (("admission-4k", 4096), ("admission-8k", 8192))
+# phase 4e's launch-count run: a prefill of DEEPSEEK_PREFILL rows (the
+# decompressed form), then DEEPSEEK_STEPS steps of gamma + 1 rows (the
+# absorbed form)
+DEEPSEEK_PREFILL, DEEPSEEK_STEPS = 512, 2
+
+
+def deepseek_model(device):
+    """Phase 4e's model: DEEPSEEK_V2_LITE through ``config_from_hf`` at
+    DEEPSEEK_LAYERS layers, bf16, random weights N(0, 0.02^2) (norms 1)
+    from DEEPSEEK_SEED in the loader's layout (``params_from_hf``), INT4
+    through ``quantize_params`` (fused; each expert alone; W_UK/W_UV set
+    there). Returns (cfg, params)."""
+    from specdec_tpu_torch.core.hf_loader import config_from_hf
+    from specdec_tpu_torch.quant.core import quantize_params
+
+    cfg = config_from_hf(DEEPSEEK_V2_LITE, dtype=torch.bfloat16).replace(
+        num_layers=DEEPSEEK_LAYERS)
+    gen = torch.Generator(device=device).manual_seed(DEEPSEEK_SEED)
+    D, H, r = cfg.hidden_size, cfg.num_heads, cfg.kv_lora_rank
+    nope, rope, v = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                     cfg.v_head_dim)
+    E, Fe = cfg.n_routed_experts, cfg.moe_intermediate_size
+    Fs = Fe * cfg.n_shared_experts
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device=device)
+                * 0.02).to(torch.bfloat16)
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.bfloat16, device=device)
+
+    layers = []
+    for i in range(cfg.num_layers):
+        lay = {"attn_norm_w": ones(D), "mlp_norm_w": ones(D),
+               "kv_norm_w": ones(r), "wq": w(D, H * (nope + rope)),
+               "w_kva": w(D, r + rope), "w_kvb": w(r, H * (nope + v)),
+               "wo": w(H * v, D)}
+        if cfg.is_moe_layer(i):
+            lay.update(router=w(D, E), shared_gate=w(D, Fs),
+                       shared_up=w(D, Fs), shared_down=w(Fs, D),
+                       experts_gate=w(E, D, Fe), experts_up=w(E, D, Fe),
+                       experts_down=w(E, Fe, D))
+        else:
+            F_ = cfg.intermediate_size
+            lay.update(w_gate=w(D, F_), w_up=w(D, F_), w_down=w(F_, D))
+        layers.append(quantize_params({"layers": lay}, kind="int4",
+                                      fuse=True, cfg=cfg)["layers"])
+        del lay
+    params = quantize_params(
+        {"embed": w(cfg.vocab_size, D), "layers": [],
+         "final_norm_w": ones(D), "lm_head": w(D, cfg.vocab_size)},
+        kind="int4", fuse=True, cfg=cfg)
+    params["layers"] = layers
+    return cfg, params
+
+
+def expert_routing(T, used, E, k, gen, device):
+    """(offsets int32 [E + 1], rows int32 [T * k]) of T tokens, each to k
+    distinct experts drawn among the first ``used`` of E: the assignments
+    sorted by expert, as ``core/moe.py`` sorts them."""
+    idx = torch.rand((T, used), generator=gen, device=device).topk(k).indices
+    flat = idx.reshape(-1)
+    order = torch.sort(flat, stable=True).indices
+    counts = torch.zeros(E, dtype=torch.int32, device=device).scatter_add_(
+        0, flat, torch.ones_like(flat, dtype=torch.int32))
+    offsets = F.pad(torch.cumsum(counts, 0, dtype=torch.int32), (1, 0))
+    return offsets, (order // k).to(torch.int32)
+
+
+def phase_deepseek(device, card):
+    """Phase 4e, latent attention and experts at DeepSeek-V2-Lite's widths
+    (``deepseek_model``):
+
+    - the grouped INT4 expert kernel (``int4_expert_matmul``) against its
+      plain version (each expert's rows through K1's plain version) on
+      the same CUDA inputs, on layer 1's own expert stacks: gate/up (K
+      2048, N 2816) and down (K 1408, N 2048) at EXPERT_ROUTINGS. It
+      forms K1's bf16 weights and differs only in the f32 sums' order, so
+      phase 3's tolerance and share of bit-equal outputs hold; timed
+      against ``portbench/expert_bound.py``'s bound;
+    - the decompressed form's padded K3 call (head width 256, the model's
+      softmax scale) at MLA_PREFILLS, on q, K and V from layer 0's own
+      projections: ``mla.decompressed`` on the kernel against the plain
+      attention of the unpadded heads (phase 3c's bf16 tolerance), its
+      padding columns exactly zero; timed against the unpadded work's
+      bound (``attention_bound_ms`` at Dh (192 + 128) / 2 = 160 counts
+      its q, K, V and out bytes and q.k + p.v operations exactly);
+    - launches, counted from zero over a prefill of DEEPSEEK_PREFILL rows
+      and DEEPSEEK_STEPS steps of gamma + 1 rows: K3 once a layer of the
+      prefill, the expert kernel twice an expert layer of every forward,
+      no other attention kernel.
+
+    Returns (expert records, MLA records, launches)."""
+    from portbench.expert_bound import expert_bound_s
+    from specdec_tpu_torch.core import mla
+    from specdec_tpu_torch.core.cache import init_cache
+    from specdec_tpu_torch.core.model import (
+        forward_step, masked_attention, rms_norm,
+    )
+    from specdec_tpu_torch.core.rope import rope_cos_sin
+    from specdec_tpu_torch.ops import expert_matmul as em
+    from specdec_tpu_torch.ops.decode_attention import flash_decode_attention
+
+    t0 = time.perf_counter()
+    cfg, params = deepseek_model(device)
+    torch.cuda.synchronize()
+    say(f"[4e deepseek] built {DEEPSEEK_LAYERS} layers at DeepSeek-V2-Lite "
+        f"widths (INT4) in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=device).manual_seed(DEEPSEEK_SEED + 1)
+    flush = torch.zeros(256 * 2 ** 20, dtype=torch.uint8, device=device)
+    lay = params["layers"][1]
+    E, k = cfg.n_routed_experts, cfg.num_experts_per_tok
+    D, Fe = cfg.hidden_size, cfg.moe_intermediate_size
+    expert_records = []
+    for label, T, used in EXPERT_ROUTINGS:
+        offsets, rows = expert_routing(T, used, E, k, gen, device)
+        touched = int((offsets[1:] > offsets[:-1]).sum())
+        x = torch.randn((T, D), generator=gen, device=device).to(
+            torch.bfloat16)
+        u = torch.randn((T * k, Fe), generator=gen, device=device).to(
+            torch.bfloat16)
+        for name, w, xin, r in (("gate_up", lay["experts_gateup"], x, rows),
+                                ("down", lay["experts_down"], u, None)):
+            K, N = xin.shape[1], w.packed.shape[-1]
+            got = em.int4_expert_matmul(xin, w, offsets, r).float()
+            plain = em.int4_expert_matmul_reference(xin, w, offsets,
+                                                    r).float()
+            err, rel, ok = kernel_vs_plain(got, plain)
+            equal = (got == plain).float().mean().item()
+            what = f"4e expert {label} {name} ({T} tokens, {touched} experts)"
+            if not ok:
+                fail(f"{what}: kernel vs plain max abs err {err:.3g}, "
+                     f"relative Frobenius {rel:.3g}")
+            if equal < MIN_BIT_EQUAL:
+                fail(f"{what}: only {equal:.3%} of the kernel's outputs "
+                     f"bit-equal to the plain version's (at least "
+                     f"{MIN_BIT_EQUAL:.0%})")
+            bound = expert_bound_s(T * k, K, N, touched) * 1e3
+            t_ops = 2.0 * (T * k) * K * N / BF16_OPS_PER_S * 1e3
+            rec = {"name": f"{label} {name}", "tokens": T, "rows": T * k,
+                   "K": K, "N": N, "experts_touched": touched,
+                   "max_abs_err": err, "rel_fro_err": rel, "bit_equal": equal,
+                   "ms": gpu_ms(lambda: em.int4_expert_matmul(
+                       xin, w, offsets, r), flush),
+                   "plain_ms": gpu_ms(lambda: em.int4_expert_matmul_reference(
+                       xin, w, offsets, r), flush),
+                   "bound_ms": bound,
+                   "bound_by": "operations" if t_ops >= bound else "bytes"}
+            expert_records.append(rec)
+            say(f"[4e deepseek] expert {label:10s} {name:7s} rows={T * k:5d} "
+                f"K={K} N={N} experts={touched}: kernel "
+                f"{rec['ms'] * 1e3:8.1f} us, plain {rec['plain_ms'] * 1e3:9.1f}"
+                f" us (a host loop over the experts), bound "
+                f"{bound * 1e3:7.1f} us ({rec['bound_by']}, "
+                f"{100 * bound / rec['ms']:.1f}%); max abs err {err:.3g}, "
+                f"rel {rel:.2g}, bit-equal {equal:.3%}")
+
+    # the decompressed form over layer 0's projections of random hidden
+    # states, as an admission's prefill computes them
+    lay0 = params["layers"][0]
+    H, v = cfg.num_heads, cfg.v_head_dim
+    mla_records = []
+    for label, T in MLA_PREFILLS:
+        q_pos = torch.arange(T, dtype=torch.int32, device=device)[None]
+        cos, sin = rope_cos_sin(q_pos, cfg.rotary_dim, cfg.rope_theta,
+                                scaling=cfg.rope_scaling)
+        h = rms_norm(torch.randn((1, T, D), generator=gen, device=device).to(
+            torch.bfloat16), lay0["attn_norm_w"], cfg.norm_eps)
+        q_nope, q_pe, lat = mla.project(cfg, lay0, h, cos, sin)
+        q, kh, vh = mla.decompressed_heads(cfg, lay0, q_nope, q_pe, lat)
+        got = mla.decompressed(cfg, lay0, q_nope, q_pe, lat, q_pos,
+                               True).reshape(1, T, H, v)
+        plain = masked_attention(q, kh, vh, q_pos, H,
+                                 scale=cfg.attn_scale).reshape(1, T, H, v)
+        pv = masked_attention(q.float(), kh.float(), vh.float().abs(), q_pos,
+                              H, scale=cfg.attn_scale).reshape(1, T, H, v)
+        what = f"4e mla {label}"
+        rec = {"name": label, "B": 1, "S": DEEPSEEK_ADMIT_S, "T": T,
+               "heads": [H, H, mla.KERNEL_HEAD_DIM], "scale": cfg.attn_scale,
+               **check_attention(what, got, plain, pv)}
+        del plain, pv
+
+        def pad(t):
+            return F.pad(t, (0, mla.KERNEL_HEAD_DIM - t.shape[-1])
+                         ).contiguous()
+
+        # the padded call as the prefill makes it, over the scratch cache's
+        # S positions (those past T are never read: offset 0)
+        kp, vp = (torch.zeros((1, DEEPSEEK_ADMIT_S, H, mla.KERNEL_HEAD_DIM),
+                              dtype=torch.bfloat16, device=device)
+                  for _ in range(2))
+        kp[:, :T], vp[:, :T] = pad(kh), pad(vh)
+        qp, off = pad(q), torch.zeros(1, dtype=torch.int32, device=device)
+        padded = flash_decode_attention(qp, kp, vp, off, scale=cfg.attn_scale)
+        if torch.count_nonzero(padded[..., v:]).item():
+            fail(f"{what}: the padded call's columns past v are not zero")
+        b, by = attention_bound_ms(T, 1, T, H, H, (192 + 128) // 2,
+                                   T * (T + 1) // 2)
+        rec.update(ms=gpu_ms(lambda: flash_decode_attention(
+            qp, kp, vp, off, scale=cfg.attn_scale), flush),
+            plain_ms=gpu_ms(lambda: masked_attention(
+                q, kh, vh, q_pos, H, scale=cfg.attn_scale), flush),
+            bound_ms=b, bound_by=by)
+        mla_records.append(rec)
+        say(f"[4e deepseek] K3 padded {label} T={T} S={DEEPSEEK_ADMIT_S} "
+            f"Dh=256 scale={cfg.attn_scale:.6g}: kernel "
+            f"{rec['ms'] * 1e3:9.1f} us, plain {rec['plain_ms'] * 1e3:9.1f} "
+            f"us, bound {b * 1e3:7.1f} us ({by}, {100 * b / rec['ms']:.1f}%); "
+            f"max abs err {rec['max_abs_err']:.3g} ({rec['max_ulps']:.0f} "
+            f"ulps at worst, {rec['within_1ulp']:.1%} within one; "
+            f"{rec['bound_ratio']:.2f} of the allowance); padding columns "
+            "zero")
+        del q, kh, vh, qp, kp, vp, padded
+        torch.cuda.empty_cache()
+
+    # launches from zero over a prefill and the steps after it
+    L = cfg.num_layers
+    moe_layers = sum(cfg.is_moe_layer(i) for i in range(L))
+    gamma = 4
+    cache = init_cache(cfg, 1, DEEPSEEK_PREFILL + DEEPSEEK_STEPS * (gamma + 1),
+                       device=device)
+    toks = torch.randint(0, cfg.vocab_size, (1, DEEPSEEK_PREFILL),
+                         generator=gen, device=device)
+    reset_launches()
+    em.int4_expert_matmul.launches = 0
+    logits, cache = forward_step(cfg, params, toks, cache, use_kernel=True)
+    for _ in range(DEEPSEEK_STEPS):
+        logits, cache = forward_step(cfg, params, toks[:, :gamma + 1], cache,
+                                     use_kernel=True)
+    torch.cuda.synchronize()
+    counts = dict(launches(), expert=em.int4_expert_matmul.launches)
+    forwards = 1 + DEEPSEEK_STEPS
+    attn = {k: n for k, n in counts.items() if k in ATTENTION_KERNELS and n}
+    if (counts["K3"] != L or counts["expert"] != 2 * moe_layers * forwards
+            or attn != {"K3": L}
+            or not bool(torch.isfinite(logits).all())):
+        fail(f"4e deepseek: launches {counts} over a prefill and "
+             f"{DEEPSEEK_STEPS} steps; expected K3 {L} (the prefill's "
+             f"layers), the expert kernel {2 * moe_layers * forwards} (two "
+             "an expert layer and forward), no other attention kernel, and "
+             "finite logits")
+    say(f"[4e deepseek] launches over a {DEEPSEEK_PREFILL}-row prefill and "
+        f"{DEEPSEEK_STEPS} steps of {gamma + 1} rows: K3 {counts['K3']}, the "
+        f"expert kernel {counts['expert']}, K1a {counts['K1a']} ({card})")
+    del params
+    torch.cuda.empty_cache()
+    return expert_records, mla_records, counts
+
+
+def expert_entry(records, counts):
+    """The ``kernels`` line's entry of the grouped expert kernel: the
+    top-level times are one verify forward's expert layer (its gate/up and
+    down launches at ~30 rows an expert)."""
+    top = [r for r in records if r["name"] in ("verify gate_up",
+                                               "verify down")]
+    return {"name": "int4_expert_matmul (grouped experts)", "route": "cuda",
+            "source": "specdec_tpu_torch/ops/csrc/int4_expert_matmul.cu",
+            "replaces": None, "launches": counts["expert"],
+            "launches_by_path": {"deepseek_v2_width": counts["expert"]},
+            "max_abs_err": max(r["max_abs_err"] for r in records),
+            **{k: sum(r[k] for r in top)
+               for k in ("ms", "plain_ms", "bound_ms")},
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                       for r in top) else "operations",
+            "work": "an expert layer of a verify: 320 tokens x 6 experts, "
+                    "gate/up K 2048 N 2816 and down K 1408 N 2048",
+            "shapes": records}
 
 
 def nasd_prompts():
@@ -5834,6 +6151,9 @@ def main():
     stamp("4-4b oracles")
     summary_gemma, launches_gemma = phase_gemma(device, card)
     stamp("4c head_dim 256 at gemma-2b widths")
+    expert_records, mla_records, launches_deepseek = phase_deepseek(device,
+                                                                    card)
+    stamp("4e latent attention and experts at DeepSeek-V2-Lite widths")
     int8_pair = with_config(pair, **KVINT8_FLASH)
     summary, launches_main = phase_main(pair, device)
     stamp("5 single sequence, bf16 KV")
@@ -6047,9 +6367,11 @@ def main():
         {"spec_decode_flash": launches_flash["K3"],
          "tree_oracle_flash": tree_oracle["bf16 KV, flash"]["K3"],
          "gemma_2b_width": launches_gemma["K3"],
+         "deepseek_v2_width": launches_deepseek["K3"],
          "pipeline_gloo_flash": launches_14b["K3"]},
         head_dim_256={n: head_dim_256(flash_records["K3"], n)
-                      for n in ("gemma-decode", "gemma-verify")}))
+                      for n in ("gemma-decode", "gemma-verify")},
+        latent_attention_padded=mla_records))
     entries.append(kernel_entry(
         "flash_decode_attention_quant (K4)", flash_src,
         "specdec_tpu/ops/decode_attention.py:159", flash_records["K4"],
@@ -6065,6 +6387,7 @@ def main():
          "gemma_2b_width_kvint8": launches_gemma["K4"]},
         head_dim_256={n: head_dim_256(flash_records["K4"], n)
                       for n in ("gemma-decode", "gemma-verify")}))
+    entries.append(expert_entry(expert_records, launches_deepseek))
     say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; "
         f"largest kernel-vs-plain abs error {max_err:.3g} (INT4), "
         + ", ".join(f"{fmt_records[q][1]:.3g} ({q})" for q in QUANTS) + ", "

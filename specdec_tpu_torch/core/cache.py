@@ -36,7 +36,10 @@ from specdec_tpu_torch.utils.profiling import TRACER
 @dataclasses.dataclass
 class KVCache:
     """k/v: [num_layers, batch, max_seq, num_kv_heads, head_dim];
-    length: int32 [batch] on the cache's device."""
+    length: int32 [batch] on the cache's device. A latent (MLA) cache holds
+    its one stream in k, [L, B, S, 1, kv_lora_rank + qk_rope_head_dim],
+    and a v of width 0 (``ModelConfig.cache_dims``), so every primitive
+    here and in ``paged_cache.py`` carries it unchanged."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -75,10 +78,12 @@ def init_cache(cfg, batch_size: int, max_seq_len: int, dtype=None,
     ``cfg.kv_quant`` selects: every decode loop and scheduler allocates
     through here."""
     device = resolve_device(device)
-    shape = (cfg.num_layers, batch_size, max_seq_len, cfg.num_kv_heads,
-             cfg.head_dim)
+    Hk, Dk, Dv = cfg.cache_dims
+    shape = (cfg.num_layers, batch_size, max_seq_len, Hk, Dk)
     length = torch.zeros((batch_size,), dtype=torch.int32, device=device)
     if cfg.kv_quant == "int8":
+        if Dv != Dk:
+            raise ValueError("kv_quant='int8' has no latent (MLA) cache")
         return QuantKVCache(
             k=torch.zeros(shape, dtype=torch.int8, device=device),
             v=torch.zeros(shape, dtype=torch.int8, device=device),
@@ -90,7 +95,7 @@ def init_cache(cfg, batch_size: int, max_seq_len: int, dtype=None,
     dtype = dtype or cfg.dtype
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape[:-1] + (Dv,), dtype=dtype, device=device),
         length=length,
     )
 

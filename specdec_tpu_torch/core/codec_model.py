@@ -176,8 +176,9 @@ def codec_cache(cfg: CodecConfig, batch_size: int, cache_len: int,
     shim of the decoder-only config's fields (the codec caches K/V at the
     config's dtype, never int8)."""
     shim = types.SimpleNamespace(
-        num_layers=cfg.num_decoder_layers, num_kv_heads=cfg.num_heads,
-        head_dim=cfg.d_kv, dtype=cfg.dtype, kv_quant="none")
+        num_layers=cfg.num_decoder_layers,
+        cache_dims=(cfg.num_heads, cfg.d_kv, cfg.d_kv), dtype=cfg.dtype,
+        kv_quant="none")
     return init_cache(shim, batch_size, cache_len, device=device)
 
 

@@ -62,13 +62,69 @@ class ModelConfig:
     def q_per_kv(self) -> int:
         return self.num_heads // self.num_kv_heads
 
+    # latent attention and experts: none here (``LatentMoEConfig``)
+    kv_lora_rank = 0
+    n_routed_experts = 0
+
     @property
     def rotary_dim(self) -> int:
         d = int(self.head_dim * self.rotary_pct)
         return d - (d % 2)
 
+    @property
+    def cache_dims(self) -> tuple:
+        """(KV heads, K width, V width) a cached position holds."""
+        return self.num_kv_heads, self.head_dim, self.head_dim
+
+    def is_moe_layer(self, i: int) -> bool:
+        return False
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class LatentMoEConfig(ModelConfig):
+    """deepseek_v2's architecture (``core/mla.py``, ``core/moe.py``): a
+    ``ModelConfig`` with multi-head latent attention and DeepSeekMoE. The
+    JAX package has neither, so they extend the port's ``ModelConfig``
+    rather than change its fields.
+
+    Latent attention: q is qk_nope + qk_rope wide a head (``head_dim``),
+    v is v_head_dim wide, and the cache holds a position's normed latent
+    (kv_lora_rank) and the rotated rope key every head shares (qk_rope):
+    one stream and no V. The scores' scale is ``attn_scale``; rope
+    rotates interleaved pairs.
+
+    Experts: layers from first_k_dense_replace on route each token over a
+    softmax of the routed experts to its num_experts_per_tok best,
+    weighted by their probabilities times routed_scaling_factor, beside
+    n_shared_experts shared
+    experts fused as one SwiGLU; every expert is moe_intermediate_size
+    wide."""
+
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    attn_scale: float = 0.0
+    n_routed_experts: int = 0
+    n_shared_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    first_k_dense_replace: int = 0
+    routed_scaling_factor: float = 1.0
+
+    @property
+    def rotary_dim(self) -> int:
+        return self.qk_rope_head_dim
+
+    @property
+    def cache_dims(self) -> tuple:
+        return 1, self.kv_lora_rank + self.qk_rope_head_dim, 0
+
+    def is_moe_layer(self, i: int) -> bool:
+        return self.n_routed_experts > 0 and i >= self.first_k_dense_replace
 
 
 def tiny_config(vocab_size: int = 256, **kw) -> ModelConfig:

@@ -9,9 +9,11 @@ family's ``transformers`` config class, as ``AutoConfig`` would fill it.
 
 Supported families: llama/mistral/tinyllama, qwen2 (qkv bias), qwen3
 (qk-norm), gemma (explicit head_dim, sqrt(hidden) embedding scale, (1+w)
-norms folded into the weights, tanh-GeGLU, tied head) and gpt-neox
-(pythia). ``load_hf_model`` (every family, the whole state dict at once)
-imports ``transformers`` when called; the llama lineage streams through
+norms folded into the weights, tanh-GeGLU, tied head), gpt-neox
+(pythia) and deepseek_v2 (latent attention, experts, YaRN; its layers are
+a list of per-layer dicts, layer 0 dense and the rest expert layers).
+``load_hf_model`` (every family, the whole state dict at once) imports
+``transformers`` when called; the llama lineage streams through
 ``core/stream_loader.py`` instead.
 """
 from __future__ import annotations
@@ -22,7 +24,8 @@ import numpy as np
 import torch
 
 from specdec_tpu_torch import resolve_device
-from specdec_tpu_torch.core.config import ModelConfig
+from specdec_tpu_torch.core.config import LatentMoEConfig, ModelConfig
+from specdec_tpu_torch.core.rope import yarn_attention_factor, yarn_mscale
 
 Params = Dict[str, Any]
 
@@ -47,6 +50,10 @@ _FAMILY_DEFAULTS = {
                      rotary_pct=1.0, use_parallel_residual=True,
                      attention_bias=True, tie_word_embeddings=False,
                      max_position_embeddings=2048),
+    "deepseek_v2": dict(rms_norm_eps=1e-6, rope_theta=10000.0,
+                        max_position_embeddings=2048,
+                        tie_word_embeddings=False, first_k_dense_replace=0,
+                        routed_scaling_factor=1.0),
 }
 
 
@@ -70,10 +77,12 @@ def _cfg_value(hf_cfg, key: str, default=None):
     return v
 
 
-def _rope_scaling_from_hf(hf_cfg) -> tuple:
+def _rope_scaling_from_hf(hf_cfg, yarn: bool = False) -> tuple:
     """HF ``rope_scaling`` -> the hashable ModelConfig tuple: llama3,
-    linear, default/none; any other type (yarn, dynamic, longrope) raises
-    rather than rotating with the wrong frequencies."""
+    linear, default/none, and with ``yarn`` (deepseek_v2, whose YaRN the
+    tests hold to transformers') YaRN; any other type (dynamic, longrope,
+    YaRN elsewhere) raises rather than rotating with the wrong
+    frequencies."""
     rs = _get(hf_cfg, "rope_scaling")
     if not rs:
         return ()
@@ -86,7 +95,66 @@ def _rope_scaling_from_hf(hf_cfg) -> tuple:
         return ("llama3", float(rs["factor"]), float(rs["low_freq_factor"]),
                 float(rs["high_freq_factor"]),
                 float(rs["original_max_position_embeddings"]))
+    if kind == "yarn" and yarn:
+        factor = float(rs["factor"])
+        af = rs.get("attention_factor")
+        if af is None:
+            af = yarn_attention_factor(factor, rs.get("mscale") or 0.0,
+                                       rs.get("mscale_all_dim") or 0.0)
+        return ("yarn", factor, float(
+            rs.get("original_max_position_embeddings")
+            or _get(hf_cfg, "max_position_embeddings")),
+            float(rs.get("beta_fast") or 32), float(rs.get("beta_slow") or 1),
+            float(af))
     raise ValueError(f"unsupported rope_scaling type: {kind!r}")
+
+
+def _deepseek_v2(hf_cfg, common: dict) -> ModelConfig:
+    """deepseek_v2: multi-head latent attention without a q low-rank
+    (``q_lora_rank`` null), interleaved YaRN rope, DeepSeekMoE with greedy
+    softmax routing after ``first_k_dense_replace`` dense layers. Keys of
+    variants the port does not implement raise, naming the key. The
+    softmax scale carries YaRN's mscale(factor, mscale_all_dim) squared,
+    as DeepSeek's own code (and transformers' deepseek_v3) applies it."""
+    def want(key, ok, value):
+        if not ok(value):
+            raise ValueError(f"deepseek_v2: {key}={value!r} is not "
+                             "implemented")
+    want("q_lora_rank", lambda v: v is None, _get(hf_cfg, "q_lora_rank"))
+    want("topk_method", lambda v: v in (None, "greedy"),
+         _get(hf_cfg, "topk_method"))
+    want("n_group", lambda v: v is None or v <= 1, _get(hf_cfg, "n_group"))
+    want("scoring_func", lambda v: v in (None, "softmax"),
+         _get(hf_cfg, "scoring_func"))
+    want("moe_layer_freq", lambda v: v in (None, 1),
+         _get(hf_cfg, "moe_layer_freq"))
+    want("attention_bias", lambda v: not v, _get(hf_cfg, "attention_bias"))
+    want("norm_topk_prob", lambda v: not v, _get(hf_cfg, "norm_topk_prob"))
+    nope = _get(hf_cfg, "qk_nope_head_dim")
+    rope = _get(hf_cfg, "qk_rope_head_dim")
+    scaling = _rope_scaling_from_hf(hf_cfg, yarn=True)
+    scale = (nope + rope) ** -0.5
+    rs = _get(hf_cfg, "rope_scaling") or {}
+    if scaling and scaling[0] == "yarn" and rs.get("mscale_all_dim"):
+        m = yarn_mscale(scaling[1], rs["mscale_all_dim"])
+        scale = scale * m * m
+    H = common["num_heads"]
+    return LatentMoEConfig(
+        **common, num_kv_heads=H, head_dim=nope + rope,
+        rope_theta=_cfg_value(hf_cfg, "rope_theta"), rope_scaling=scaling,
+        norm_eps=_cfg_value(hf_cfg, "rms_norm_eps"), norm_type="rmsnorm",
+        act="silu", gated_mlp=True,
+        tie_embeddings=bool(_cfg_value(hf_cfg, "tie_word_embeddings")),
+        kv_lora_rank=_get(hf_cfg, "kv_lora_rank"), qk_nope_head_dim=nope,
+        qk_rope_head_dim=rope, v_head_dim=_get(hf_cfg, "v_head_dim"),
+        attn_scale=float(scale),
+        n_routed_experts=_get(hf_cfg, "n_routed_experts") or 0,
+        n_shared_experts=_get(hf_cfg, "n_shared_experts") or 0,
+        num_experts_per_tok=_get(hf_cfg, "num_experts_per_tok") or 0,
+        moe_intermediate_size=_get(hf_cfg, "moe_intermediate_size"),
+        first_k_dense_replace=_cfg_value(hf_cfg, "first_k_dense_replace"),
+        routed_scaling_factor=float(_cfg_value(hf_cfg,
+                                               "routed_scaling_factor")))
 
 
 def config_from_hf(hf_cfg, dtype=torch.float32) -> ModelConfig:
@@ -139,6 +207,8 @@ def config_from_hf(hf_cfg, dtype=torch.float32) -> ModelConfig:
             parallel_residual=_cfg_value(hf_cfg, "use_parallel_residual"),
             attn_qkv_bias=bias, attn_out_bias=bias, mlp_bias=True,
             tie_embeddings=bool(_cfg_value(hf_cfg, "tie_word_embeddings")))
+    if mt == "deepseek_v2":
+        return _deepseek_v2(hf_cfg, common)
     raise ValueError(f"unsupported model_type: {mt}")
 
 
@@ -170,6 +240,8 @@ def params_from_hf(hf_model, cfg: ModelConfig, device=None) -> Params:
         return _params_from_llama_sd(sd, cfg, mt, device)
     if mt == "gpt_neox":
         return _params_from_neox_sd(sd, cfg, device)
+    if mt == "deepseek_v2":
+        return _params_from_deepseek_sd(sd, cfg, device)
     raise ValueError(f"unsupported model_type: {mt}")
 
 
@@ -268,6 +340,56 @@ def _params_from_neox_sd(sd, cfg: ModelConfig, device=None) -> Params:
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = c(np.swapaxes(sd["embed_out.weight"], 0, 1))
+    return params
+
+
+def _params_from_deepseek_sd(sd, cfg: ModelConfig, device=None) -> Params:
+    """deepseek_v2's state dict -> params whose ``layers`` is a list of
+    per-layer dicts (``core/mla.py``, ``core/moe.py`` name the tensors):
+    every projection [in, out]; the routed experts stacked [E, in, out];
+    the router dense [D, E]; kv_b's absorbed weights ``w_uk``/``w_uv`` in
+    float32."""
+    from specdec_tpu_torch.core.mla import absorbed_weights
+
+    device = resolve_device(device)
+
+    def c(a):
+        return _cast(a, cfg, device)
+
+    def lin(key):
+        return c(np.swapaxes(sd[key], -1, -2))
+
+    layers = []
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        a = p + "self_attn."
+        lay = {"attn_norm_w": c(sd[p + "input_layernorm.weight"]),
+               "mlp_norm_w": c(sd[p + "post_attention_layernorm.weight"]),
+               "kv_norm_w": c(sd[a + "kv_a_layernorm.weight"]),
+               "wq": lin(a + "q_proj.weight"),
+               "w_kva": lin(a + "kv_a_proj_with_mqa.weight"),
+               "w_kvb": lin(a + "kv_b_proj.weight"),
+               "wo": lin(a + "o_proj.weight")}
+        lay["w_uk"], lay["w_uv"] = absorbed_weights(cfg, lay["w_kvb"])
+        m = p + "mlp."
+        if cfg.is_moe_layer(i):
+            lay["router"] = lin(m + "gate.weight")
+            for name in ("gate", "up", "down"):
+                lay[f"shared_{name}"] = lin(
+                    m + f"shared_experts.{name}_proj.weight")
+                lay[f"experts_{name}"] = c(np.stack([
+                    np.swapaxes(sd[m + f"experts.{e}.{name}_proj.weight"],
+                                0, 1)
+                    for e in range(cfg.n_routed_experts)]))
+        else:
+            for name in ("gate", "up", "down"):
+                lay[f"w_{name}"] = lin(m + f"{name}_proj.weight")
+        layers.append(lay)
+    params: Params = {"embed": c(sd["model.embed_tokens.weight"]),
+                      "layers": layers,
+                      "final_norm_w": c(sd["model.norm.weight"])}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = lin("lm_head.weight")
     return params
 
 

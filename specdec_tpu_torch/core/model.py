@@ -16,12 +16,15 @@ drafter steps, the dense admission prefills) take the kernel whatever
 ``attention_impl`` says. ``forward_step_paged`` is the same forward over
 the paged pool (``core/paged_cache.py``), attending through the paged
 decode-attention kernel. Both take the int8 cache formats of
-``kv_quant="int8"`` as well. ``forward_step_features`` also returns the
-pre-final-norm residual stream (the features EAGLE drafts on), and
-``forward_step_tree`` / ``forward_step_tree_features`` process a block of
-tree-structured tokens on the slotted cache, attending by ancestry
-(``masked_attention``'s ``tree``): tree blocks never take an attention
-kernel, whose mask is positional.
+``kv_quant="int8"`` as well. A config with ``kv_lora_rank``
+(deepseek_v2) runs each layer through ``core/mla.py``'s latent attention
+over a latent cache and, past its dense layers, ``core/moe.py``'s expert
+layer; its layers are a list of per-layer dicts. ``forward_step_features``
+also returns the pre-final-norm residual stream (the features EAGLE drafts
+on), and ``forward_step_tree`` / ``forward_step_tree_features`` process a
+block of tree-structured tokens on the slotted cache, attending by
+ancestry (``masked_attention``'s ``tree``): tree blocks never take an
+attention kernel, whose mask is positional.
 
 Params are a dict of tensors whose layer leaves are STACKED with a leading
 L axis. The layer loop is a Python loop over ``range(L)``: dense leaves are
@@ -96,9 +99,12 @@ def masked_attention(q, k_all, v_all, q_pos, num_kv_heads: int,
                      logit_softcap: float = 0.0,
                      k_scale: Optional[torch.Tensor] = None,
                      v_scale: Optional[torch.Tensor] = None,
-                     tree: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
-    """q: [B, T, Hq, Dh]; k_all/v_all: [B, S, Hk, Dh]; q_pos: [B, T].
-    Returns [B, T, Hq * Dh] in v's dtype, or in q's for int8 K/V.
+                     tree: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                     scale: Optional[float] = None):
+    """q: [B, T, Hq, Dh]; k_all/v_all: [B, S, Hk, Dh] (v may be narrower,
+    as latent attention's is); q_pos: [B, T]. Returns [B, T, Hq * Dv] in
+    v's dtype, or in q's for int8 K/V. ``scale``: the scores' factor,
+    1/sqrt(Dh) where None.
 
     The mask admits key position s iff s <= q_pos[b, t]; it covers
     causality, cache validity and staleness after rollback. Scores and
@@ -121,7 +127,8 @@ def masked_attention(q, k_all, v_all, q_pos, num_kv_heads: int,
     Hk = num_kv_heads
     qg = q.reshape(B, T, Hk, Hq // Hk, Dh)
     # the f32 number 1/sqrt(Dh), as a host scalar (no host-to-device copy)
-    scale = float(np.float32(1.0) / np.sqrt(np.float32(Dh)))
+    if scale is None:
+        scale = float(np.float32(1.0) / np.sqrt(np.float32(Dh)))
     scores = torch.einsum("bthgd,bshd->bhgts", qg.to(torch.float32),
                           k_all.to(torch.float32)) * scale
     if k_scale is not None:
@@ -147,7 +154,7 @@ def masked_attention(q, k_all, v_all, q_pos, num_kv_heads: int,
                            v_all.to(q.dtype))
     else:
         out = torch.einsum("bhgts,bshd->bthgd", probs.to(v_all.dtype), v_all)
-    return out.reshape(B, T, Hq * Dh)
+    return out.reshape(B, T, -1)
 
 
 def kernel_route(cfg: ModelConfig) -> bool:
@@ -155,7 +162,13 @@ def kernel_route(cfg: ModelConfig) -> bool:
     logit softcap (the kernels have none) and a head_dim and activation
     type the kernel body takes (``ops/attention_args.kernel_takes``; int8
     K/V under ``kv_quant="int8"``). Decided from the config alone, before
-    any launch, as the JAX dispatch decides what its kernel cannot hold."""
+    any launch, as the JAX dispatch decides what its kernel cannot hold.
+    Latent attention (``core/mla.py``) takes the kernel for its
+    decompressed form, padded to ``mla.KERNEL_HEAD_DIM``."""
+    if cfg.kv_lora_rank:
+        from specdec_tpu_torch.core.mla import KERNEL_HEAD_DIM
+        return cfg.logit_softcap == 0.0 and kernel_takes(
+            KERNEL_HEAD_DIM, cfg.dtype, False)
     return cfg.logit_softcap == 0.0 and kernel_takes(
         cfg.head_dim, cfg.dtype, cfg.kv_quant == "int8")
 
@@ -286,9 +299,12 @@ def _block(cfg: ModelConfig, lp: Params, x, cos, sin, attend, mesh=None):
     return x + mlp
 
 
-def _layer_params(layers: Params, i: int) -> Params:
+def _layer_params(layers, i: int) -> Params:
     """Layer ``i``'s params: views of the dense stacks, ``StackedSlice``s of
-    the quantized containers."""
+    the quantized containers; or, for layers that differ by index (a list
+    of per-layer dicts, deepseek_v2's), the layer's own dict."""
+    if isinstance(layers, (list, tuple)):
+        return layers[i]
     return {name: StackedSlice(v, i) if isinstance(v, QUANTIZED) else v[i]
             for name, v in layers.items()}
 
@@ -352,6 +368,14 @@ def _layers(cfg: ModelConfig, layers: Params, x, q_pos, layer_attend,
     is the params' (shard-local layers) or None."""
     cos, sin = rope_cos_sin(q_pos, cfg.rotary_dim, cfg.rope_theta,
                             scaling=cfg.rope_scaling)
+    if cfg.kv_lora_rank:
+        if mesh is not None:
+            raise ValueError("latent attention (MLA) takes no mesh")
+        from specdec_tpu_torch.core import mla
+        for i in range(cfg.num_layers):
+            x = mla.block(cfg, _layer_params(layers, i), i, x, cos, sin,
+                          layer_attend)
+        return x
     for i in range(cfg.num_layers):
         x = _block(cfg, _layer_params(layers, i), x, cos, sin,
                    functools.partial(layer_attend, i), mesh)
@@ -430,12 +454,15 @@ def forward_step_features(cfg: ModelConfig, params: Params,
         use_kernel = cfg.attention_impl == "flash" and kernel_route(cfg)
     else:
         use_kernel = checked_route(cfg, use_kernel, "flash-decode")
-    if use_kernel and TRACER.on:
-        _record_slotted_keys(cfg, cache, T)
     q_pos = _positions(cache, T)
-    logits, feats = _forward_common(
-        cfg, params, tokens, q_pos,
-        slotted_attend(cfg, cache, q_pos, use_kernel=use_kernel))
+    if cfg.kv_lora_rank:
+        from specdec_tpu_torch.core import mla
+        attend = mla.slotted_attend(cfg, cache, q_pos, T, use_kernel)
+    else:
+        if use_kernel and TRACER.on:
+            _record_slotted_keys(cfg, cache, T)
+        attend = slotted_attend(cfg, cache, q_pos, use_kernel=use_kernel)
+    logits, feats = _forward_common(cfg, params, tokens, q_pos, attend)
     return logits, feats, cache.with_length(cache.length + T)
 
 
@@ -479,6 +506,9 @@ def forward_step_tree_features(cfg: ModelConfig, params: Params,
 
 def _tree_forward(cfg, params, tokens, cache, depths, tree_mask, tree_start,
                   head):
+    if cfg.kv_lora_rank:
+        raise ValueError("tree blocks do not attend over a latent (MLA) "
+                         "cache")
     start, q_pos = _tree_positions(cache, depths, tree_start)
     logits, feats = _forward_common(
         cfg, params, tokens, q_pos,
@@ -513,6 +543,12 @@ def forward_step_paged(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         use_kernel = checked_route(cfg, use_kernel, "paged attention")
     B, T = tokens.shape
     q_pos = _positions(cache, T)
+    if cfg.kv_lora_rank:
+        from specdec_tpu_torch.core import mla
+        logits, _ = _forward_common(cfg, params, tokens, q_pos,
+                                    mla.paged_attend(cfg, cache, q_pos, T))
+        forward_step_paged.calls += 1
+        return logits, cache.with_length(cache.length + T)
     table, offsets = cache.page_table, cache.length
     # an int8 pool's scale stacks, written and read beside the values
     scales = ((cache.k_scale, cache.v_scale)
@@ -685,8 +721,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, scale: float = 0.02,
 
 def layer_views(layers: Params, n: int) -> Params:
     """The first ``n`` layers of a stacked layer dict, as views (each field
-    of a quantized container sliced): a LayerSkip drafter shares the
-    target's storage."""
+    of a quantized container sliced), or of a list of per-layer dicts: a
+    LayerSkip drafter shares the target's storage."""
+    if isinstance(layers, (list, tuple)):
+        return list(layers[:n])
     return {k: type(v)(**{f.name: getattr(v, f.name)[:n]
                           for f in dataclasses.fields(v)})
             if isinstance(v, QUANTIZED) else v[:n]

@@ -40,7 +40,9 @@ class PagedKVCache:
     """k/v pools: [L, num_pages, Hk, page_size, Dh];
     page_table: int32 [B, max_pages] (pool page of each logical page;
     unused entries point at page 0, masked by length);
-    length: int32 [B] valid tokens per sequence."""
+    length: int32 [B] valid tokens per sequence. A latent (MLA) pool holds
+    its stream in k, [L, num_pages, 1, page_size, kv_lora_rank +
+    qk_rope_head_dim], beside a v of width 0 (``core/cache.py``)."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -133,12 +135,14 @@ def init_paged_cache(cfg, batch_size: int, num_pages: int, page_size: int,
     """Zeroed pools and an all-garbage (page 0) table on ``device``
     (``None``: the card), in the format ``cfg.kv_quant`` selects."""
     device = resolve_device(device)
-    shape = (cfg.num_layers, num_pages, cfg.num_kv_heads, page_size,
-             cfg.head_dim)
+    Hk, Dk, Dv = cfg.cache_dims
+    shape = (cfg.num_layers, num_pages, Hk, page_size, Dk)
     table = torch.zeros((batch_size, max_pages_per_seq), dtype=torch.int32,
                         device=device)
     length = torch.zeros((batch_size,), dtype=torch.int32, device=device)
     if cfg.kv_quant == "int8":
+        if Dv != Dk:
+            raise ValueError("kv_quant='int8' has no latent (MLA) pool")
         return QuantPagedKVCache(
             k=torch.zeros(shape, dtype=torch.int8, device=device),
             v=torch.zeros(shape, dtype=torch.int8, device=device),
@@ -150,7 +154,7 @@ def init_paged_cache(cfg, batch_size: int, num_pages: int, page_size: int,
     dtype = dtype or cfg.dtype
     return PagedKVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape[:-1] + (Dv,), dtype=dtype, device=device),
         page_table=table, length=length)
 
 

@@ -189,7 +189,8 @@ def _trained(name: str, dtype, quantization: str = "none",
     out = {"cfg": cfg, "params": params, "stream_spec": stream,
            "pretrain_nll": nll}
     if quantization != "none":
-        out["params"] = quantize_params(params, kind=quantization, fuse=True)
+        out["params"] = quantize_params(params, kind=quantization, fuse=True,
+                                        cfg=cfg)
         out["quantized"] = quantization
     return out
 
@@ -383,12 +384,13 @@ def load_models(
     # quantize here
     if quantization != "none" and "quantized" not in target:
         target["params"] = quantize_params(target["params"],
-                                           kind=quantization, fuse=True)
+                                           kind=quantization, fuse=True,
+                                           cfg=target["cfg"])
     if (drafter is not None and drafter_quantization != "none"
             and "quantized" not in drafter):
         drafter["params"] = quantize_params(drafter["params"],
                                             kind=drafter_quantization,
-                                            fuse=True)
+                                            fuse=True, cfg=drafter["cfg"])
 
     t_cfg = target["cfg"]
     if layerskip:

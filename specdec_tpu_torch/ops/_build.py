@@ -39,6 +39,8 @@ SIGNATURES = {
                        + [_c_ll, _c_ll, _c_float, _c_void_p],
     "decode_attention": [_c_void_p] * 7 + [_c_int] * 8
                         + [_c_float, _c_void_p],
+    "int4_expert_matmul": [_c_void_p] * 7 + [_c_int] * 4 + [_c_ll] * 2
+                          + [_c_int, _c_void_p],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -46,15 +46,17 @@ def decode_attention_reference(q: torch.Tensor, k_all: torch.Tensor,
                                v_all: torch.Tensor, offsets: torch.Tensor,
                                k_scale: Optional[torch.Tensor] = None,
                                v_scale: Optional[torch.Tensor] = None,
+                               scale: Optional[float] = None,
                                ) -> torch.Tensor:
     """Plain version. q: [B, T, Hq, Dh]; k_all/v_all: [B, S, Hk, Dh] (int8
-    with scales [B, S, Hk], or neither); offsets: [B]. Returns
-    [B, T, Hq, Dh] in v's dtype (q's for int8 K/V)."""
+    with scales [B, S, Hk], or neither); offsets: [B]; ``scale`` the
+    scores' factor (1/sqrt(Dh) where None). Returns [B, T, Hq, Dh] in v's
+    dtype (q's for int8 K/V)."""
     B, T, Hq, Dh = q.shape
     q_pos = offsets.to(torch.int32)[:, None] + torch.arange(
         T, dtype=torch.int32, device=q.device)[None, :]
     out = masked_attention(q, k_all, v_all, q_pos, k_all.shape[2],
-                           k_scale=k_scale, v_scale=v_scale)
+                           k_scale=k_scale, v_scale=v_scale, scale=scale)
     return out.reshape(B, T, Hq, Dh)
 
 
@@ -73,7 +75,7 @@ def _check_args(name, q, k_all, v_all, k_scale, v_scale, offsets):
         raise ValueError(f"{name}: {Hq} query heads over {Hk} KV heads")
 
 
-def _launch(q, k_all, v_all, k_scale, v_scale, offsets):
+def _launch(q, k_all, v_all, k_scale, v_scale, offsets, scale=None):
     """Launch the kernel on the current stream."""
     from specdec_tpu_torch.ops._build import load
 
@@ -81,7 +83,8 @@ def _launch(q, k_all, v_all, k_scale, v_scale, offsets):
     S, Hk = k_all.shape[1], k_all.shape[2]
     off = offsets.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    scale = float(np.float32(1.0) / np.sqrt(np.float32(Dh)))
+    if scale is None:
+        scale = float(np.float32(1.0) / np.sqrt(np.float32(Dh)))
     quant = k_scale is not None
     fn = load("decode_attention").decode_attention
     err = fn(q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
@@ -97,17 +100,19 @@ def _launch(q, k_all, v_all, k_scale, v_scale, offsets):
 
 
 def flash_decode_attention(q: torch.Tensor, k_all: torch.Tensor,
-                           v_all: torch.Tensor,
-                           offsets: torch.Tensor) -> torch.Tensor:
+                           v_all: torch.Tensor, offsets: torch.Tensor,
+                           scale: Optional[float] = None) -> torch.Tensor:
     """q: [B, T, Hq, Dh]; k_all/v_all: [B, S, Hk, Dh] of q's dtype (one
     layer of the slotted cache); offsets: [B] (query t of sequence b sits
-    at position offsets[b] + t). Returns [B, T, Hq, Dh] in q's dtype."""
+    at position offsets[b] + t); ``scale``: the scores' factor, 1/sqrt(Dh)
+    where None (latent attention gives its own). Returns [B, T, Hq, Dh] in
+    q's dtype."""
     refuse_grad("flash-decode kernel", q, k_all, v_all)
     if q.device.type == "cpu":
-        return decode_attention_reference(q, k_all, v_all,
-                                          offsets).to(q.dtype)
+        return decode_attention_reference(q, k_all, v_all, offsets,
+                                          scale=scale).to(q.dtype)
     _check_args("flash-decode kernel", q, k_all, v_all, None, None, offsets)
-    out = _launch(q, k_all, v_all, None, None, offsets)
+    out = _launch(q, k_all, v_all, None, None, offsets, scale)
     flash_decode_attention.launches += 1
     return out
 

@@ -321,12 +321,31 @@ def qmatmul(x: torch.Tensor, w: Any) -> torch.Tensor:
     return torch.matmul(x, w)
 
 
-_QUANTIZABLE = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+# the projections a layer dict may hold; the expert stacks (an [E, in,
+# out] stack, or [L, E, in, out] stacked over layers) quantize each
+# expert's matrix alone, as every quantizer does past two axes
+_QUANTIZABLE = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                "w_kva", "w_kvb", "shared_gate", "shared_up", "shared_down",
+                "experts_gate", "experts_up", "experts_down")
 
 
-def _quantize_layer_dict(layers: dict, fn, fuse: bool) -> dict:
-    """Quantize one layer dict (stacked or single-layer) by copy."""
+def _quantize_layer_dict(layers: dict, fn, fuse: bool, cfg=None) -> dict:
+    """Quantize one layer dict (stacked or single-layer) by copy. A latent
+    attention layer's (``w_kva``) fuses q with kv_a into ``wq_kva``, and
+    gate with up into ``w_gateup``, ``shared_gateup`` and
+    ``experts_gateup``; its absorbed weights ``w_uk``/``w_uv`` are set
+    from the quantized ``w_kvb``, dequantized once (``cfg``'s heads split
+    them)."""
     layers = dict(layers)
+    if fuse and "w_kva" in layers:
+        for parts, name in ((("wq", "w_kva"), "wq_kva"),
+                            (("w_gate", "w_up"), "w_gateup"),
+                            (("shared_gate", "shared_up"), "shared_gateup"),
+                            (("experts_gate", "experts_up"),
+                             "experts_gateup")):
+            if all(p in layers for p in parts):
+                layers[name] = fn(torch.cat([layers.pop(p) for p in parts],
+                                            dim=-1))
     if fuse and "wq" in layers:
         layers["wqkv"] = fn(torch.cat(
             [layers.pop("wq"), layers.pop("wk"), layers.pop("wv")], dim=-1))
@@ -342,6 +361,14 @@ def _quantize_layer_dict(layers: dict, fn, fuse: bool) -> dict:
     for name in _QUANTIZABLE:
         if name in layers:
             layers[name] = fn(layers[name])
+    if "w_kvb" in layers:
+        if cfg is None:
+            raise ValueError("quantize_params: a latent attention layer "
+                             "(w_kvb) needs cfg, whose heads split its "
+                             "absorbed weights")
+        from specdec_tpu_torch.core.mla import absorbed_weights
+        layers["w_uk"], layers["w_uv"] = absorbed_weights(cfg,
+                                                          layers["w_kvb"])
     return layers
 
 
@@ -350,14 +377,20 @@ _QUANTIZERS = {"int8": quantize_int8, "nf4": quantize_nf4,
 
 
 def quantize_params(params: dict, kind: str = "int8",
-                    quantize_lm_head: bool = True, fuse: bool = False) -> dict:
+                    quantize_lm_head: bool = True, fuse: bool = False,
+                    cfg=None) -> dict:
     """Quantize the layer projection weights (and the untied ``lm_head``)
     of a params dict; embeddings and norms stay dense. ``fuse=True``
     concatenates q/k/v into ``wqkv`` and gate/up into ``w_gateup`` first, so
-    each runs as one kernel launch."""
+    each runs as one kernel launch. ``cfg``, the model's config, is needed
+    for latent attention layers only (their absorbed weights)."""
     fn = _QUANTIZERS[kind]
     out = dict(params)
-    out["layers"] = _quantize_layer_dict(params["layers"], fn, fuse)
+    layers = params["layers"]
+    out["layers"] = ([_quantize_layer_dict(lay, fn, fuse, cfg)
+                      for lay in layers]
+                     if isinstance(layers, (list, tuple))
+                     else _quantize_layer_dict(layers, fn, fuse, cfg))
     if quantize_lm_head and "lm_head" in params:
         out["lm_head"] = fn(params["lm_head"])
     return out

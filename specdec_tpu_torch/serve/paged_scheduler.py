@@ -192,6 +192,9 @@ class PagedContinuousBatcher(ContinuousBatcher):
                  prefill_chunk: Optional[int] = None,
                  drafter_paged: bool = False,
                  **kw):
+        if target_cfg.kv_lora_rank and (prefix_caching or prefill_chunk):
+            raise ValueError("a latent (MLA) cache takes neither prefix "
+                             "caching nor chunked prefill")
         super().__init__(drafter_cfg, drafter_params, target_cfg,
                          target_params, num_slots=num_slots, gamma=gamma,
                          max_prompt_len=max_prompt_len,

@@ -11,6 +11,16 @@ and drained by whoever enabled it.
   ``drain`` reads every such tensor of a kind in one copy, so a site costs
   the device no host read.
 
+Record kinds: each weight kernel's name (``int4_pair_matmul`` and the
+others: M, K, N a launch, ``ops/quant_matmul.py``); ``paged_attention``
+and ``decode_attention`` (``core/model.py``); for deepseek_v2,
+``int4_expert_matmul`` (rows, K, N and, on the device, the experts given
+a row: ``ops/expert_matmul.py``), ``moe_route`` (rows routed, then on the
+device the most rows an expert got and the experts given a row:
+``core/moe.py``) and ``mla_attention`` (``core/mla.py``, in
+``paged_attention``'s layout), with an ``mla_attend`` span around each
+latent attention call.
+
 Off by default. Off, a span site costs one attribute test: ``span``
 returns a shared inert context and allocates nothing; ``note`` and
 ``record`` sites test ``on`` themselves.
