@@ -126,8 +126,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    model's softmax scale, against the plain attention of the unpadded
    heads at 4096- and 8192-row admissions (phase 3c's bf16 tolerance; the
    padding's output columns zero), timed against the unpadded work's
-   bound; K3 and the expert kernel's launches over a prefill and two
-   steps, counted from zero;
+   bound; K3, the MLA decode kernel's and the expert kernel's launches
+   over a prefill and two steps, counted from zero;
+4f. the MLA decode kernel (the absorbed form of latent attention) against
+   its plain version at longreason's shapes (64 slots, T = 1, 2 and 5,
+   live lengths 4,096-9,728, pages of 64 with a dead row and the slotted
+   cache; then T = 15 and short ragged sequences), phase 3c's bf16
+   allowance, timed against its bytes bound and the plain version;
 7. NASD on the INT4 target of phase 5, greedy (tools/bench_nasd.py's
    protocol, cut to 64 tokens: n = 3, gamma 5, prompts from
    default_rng(3)):
@@ -552,14 +557,17 @@ def phase_device():
 
 # kernels rebuilt on every run and failed on any ptxas register spill: the
 # INT4 kernel (K1), the NF4/FP4 kernel (K6), the INT8 kernel (K7), the
-# attention kernels, flash-decode (K3/K4) and paged (K2/K8a, K5/K8b), and
-# the grouped INT4 expert kernel: every kernel of the port
+# attention kernels, flash-decode (K3/K4) and paged (K2/K8a, K5/K8b), the
+# grouped INT4 expert kernel and the MLA decode kernel: every kernel of the
+# port
 SPILL_CHECKED = ("int4_pair_matmul", "q4_halfplane_matmul", "int8_matmul",
-                 "decode_attention", "paged_attention", "int4_expert_matmul")
+                 "decode_attention", "paged_attention", "int4_expert_matmul",
+                 "mla_decode_attention")
 # the kernels ``--against`` takes: the weight kernels and the attention
 # kernels
 AGAINST_LIBS = (sorted(set(WEIGHT_LIBS.values()))
-                + ["decode_attention", "paged_attention"])
+                + ["decode_attention", "paged_attention",
+                   "mla_decode_attention"])
 
 
 def phase_build():
@@ -2262,8 +2270,9 @@ def phase_deepseek(device, card):
       its q, K, V and out bytes and q.k + p.v operations exactly);
     - launches, counted from zero over a prefill of DEEPSEEK_PREFILL rows
       and DEEPSEEK_STEPS steps of gamma + 1 rows: K3 once a layer of the
-      prefill, the expert kernel twice an expert layer of every forward,
-      no other attention kernel.
+      prefill, the MLA decode kernel once a layer of every step (the
+      absorbed form), the expert kernel twice an expert layer of every
+      forward, no other attention kernel.
 
     Returns (expert records, MLA records, launches)."""
     from portbench.expert_bound import expert_bound_s
@@ -2274,6 +2283,7 @@ def phase_deepseek(device, card):
     )
     from specdec_tpu_torch.core.rope import rope_cos_sin
     from specdec_tpu_torch.ops import expert_matmul as em
+    from specdec_tpu_torch.ops import mla_attention as ma
     from specdec_tpu_torch.ops.decode_attention import flash_decode_attention
 
     t0 = time.perf_counter()
@@ -2398,25 +2408,29 @@ def phase_deepseek(device, card):
                          generator=gen, device=device)
     reset_launches()
     em.int4_expert_matmul.launches = 0
+    ma.mla_decode_attention.launches = 0
     logits, cache = forward_step(cfg, params, toks, cache, use_kernel=True)
     for _ in range(DEEPSEEK_STEPS):
         logits, cache = forward_step(cfg, params, toks[:, :gamma + 1], cache,
                                      use_kernel=True)
     torch.cuda.synchronize()
-    counts = dict(launches(), expert=em.int4_expert_matmul.launches)
+    counts = dict(launches(), expert=em.int4_expert_matmul.launches,
+                  mla=ma.mla_decode_attention.launches)
     forwards = 1 + DEEPSEEK_STEPS
     attn = {k: n for k, n in counts.items() if k in ATTENTION_KERNELS and n}
     if (counts["K3"] != L or counts["expert"] != 2 * moe_layers * forwards
-            or attn != {"K3": L}
+            or counts["mla"] != L * DEEPSEEK_STEPS or attn != {"K3": L}
             or not bool(torch.isfinite(logits).all())):
         fail(f"4e deepseek: launches {counts} over a prefill and "
              f"{DEEPSEEK_STEPS} steps; expected K3 {L} (the prefill's "
              f"layers), the expert kernel {2 * moe_layers * forwards} (two "
-             "an expert layer and forward), no other attention kernel, and "
-             "finite logits")
+             f"an expert layer and forward), the MLA decode kernel "
+             f"{L * DEEPSEEK_STEPS} (a layer of every step), no other "
+             "attention kernel, and finite logits")
     say(f"[4e deepseek] launches over a {DEEPSEEK_PREFILL}-row prefill and "
         f"{DEEPSEEK_STEPS} steps of {gamma + 1} rows: K3 {counts['K3']}, the "
-        f"expert kernel {counts['expert']}, K1a {counts['K1a']} ({card})")
+        f"expert kernel {counts['expert']}, the MLA decode kernel "
+        f"{counts['mla']}, K1a {counts['K1a']} ({card})")
     del params
     torch.cuda.empty_cache()
     return expert_records, mla_records, counts
@@ -2439,6 +2453,152 @@ def expert_entry(records, counts):
                                        for r in top) else "operations",
             "work": "an expert layer of a verify: 320 tokens x 6 experts, "
                     "gate/up K 2048 N 2816 and down K 1408 N 2048",
+            "shapes": records}
+
+
+# phase 4f's shapes of the MLA decode kernel (label, layout, B, T, capacity,
+# live offsets low..high): longreason's 64 slots at T = 1, 2 (draft steps)
+# and 5 (the verify at gamma 4) over its live lengths, paged (pages of 64,
+# 153 a slot) and slotted (the drafter's cache of DEEPSEEK_ADMIT_S
+# positions); then a T = 15 verify (three row groups) and short ragged
+# sequences, fewer live tiles than the card has SMs
+MLA_PAGE = 64
+MLA_SHAPES = (
+    ("draft-paged", "paged", 64, 1, 153 * MLA_PAGE, 4096, 9728),
+    ("draft2-paged", "paged", 64, 2, 153 * MLA_PAGE, 4096, 9728),
+    ("verify-paged", "paged", 64, 5, 153 * MLA_PAGE, 4096, 9728),
+    ("draft-slotted", "slotted", 64, 1, DEEPSEEK_ADMIT_S, 4096, 9728),
+    ("draft2-slotted", "slotted", 64, 2, DEEPSEEK_ADMIT_S, 4096, 9728),
+    ("verify-slotted", "slotted", 64, 5, DEEPSEEK_ADMIT_S, 4096, 9728),
+    ("verify15-paged", "paged", 4, 15, 40 * MLA_PAGE, 100, 2400),
+    ("short-slotted", "slotted", 3, 2, 256, 0, 200),
+)
+
+
+def mla_inputs(layout, B, T, cap, lo, hi, gen, device):
+    """The kernel's inputs at one of MLA_SHAPES: q [B, T, 16, 576] bf16
+    (N(0, 0.25): scores of a few units at the model's scale), offsets drawn
+    in [lo, min(hi, cap) - T], the latent N(0, 1) bf16; paged: a pool of
+    B * MP + 1 pages in a random order behind the tables, sequence 1 dead
+    (its table all page 0); slotted: the cache [B, cap, 1, 576]. Returns
+    (q, lat, offsets, table or None, live: the rows that are not dead)."""
+    H, D = 16, 576
+    q = (torch.randn((B, T, H, D), generator=gen, device=device) * 0.5
+         ).to(torch.bfloat16)
+    offsets = torch.randint(lo, min(hi, cap) - T + 1, (B,), generator=gen,
+                            device=device, dtype=torch.int32)
+    live = torch.ones(B, dtype=torch.bool, device=device)
+    if layout == "slotted":
+        lat = torch.randn((B, cap, 1, D), generator=gen,
+                          device=device).to(torch.bfloat16)
+        return q, lat, offsets, None, live
+    MP = cap // MLA_PAGE
+    pages = torch.randperm(B * MP, generator=gen, device=device) + 1
+    table = pages.reshape(B, MP).to(torch.int32)
+    if B > 1:
+        table[1] = 0
+        live[1] = False
+    lat = torch.randn((B * MP + 1, 1, MLA_PAGE, D), generator=gen,
+                      device=device).to(torch.bfloat16)
+    return q, lat, offsets, table, live
+
+
+def phase_mla_kernel(device, card, against=None):
+    """Phase 4f, the MLA decode kernel (``ops/mla_attention.py``, the
+    absorbed form of latent attention) against its plain version on the
+    same CUDA inputs at MLA_SHAPES (``mla_inputs``): live rows within phase
+    3c's bf16 allowance (one bf16 ulp + 2 * 2**-8 * P.|V|, the plain
+    attention of |V|: the kernel rounds the probabilities to bf16 for P.V
+    once, the plain version keeps them in float32; q and the latent are the
+    same bf16 values on both sides), a dead row's output finite (zeros);
+    its launches, one a call (each call a split kernel and its combine);
+    timed (CUDA events after an L2 flush, as phase 3) against its bytes
+    bound, ``portbench/measure.py::paged_attention_bound_s`` on one layer's
+    ``mla_attention`` record (1,152 bytes a live position, 34,816 a query
+    row), and against the plain version. ``against``: build_against's
+    (NAME, library); where NAME is ``mla_decode_attention``, that library
+    is timed in turns with this one (``against_ms``) and its outputs must
+    be within the same allowance. Returns the records."""
+    from portbench.measure import paged_attention_bound_s
+    from specdec_tpu_torch.ops import mla_attention as ma
+
+    gen = torch.Generator(device=device).manual_seed(DEEPSEEK_SEED + 2)
+    flush = torch.zeros(256 * 2 ** 20, dtype=torch.uint8, device=device)
+    scale = 0.1147  # ~ DeepSeek-V2-Lite's attn_scale (1/sqrt(192) * 1.59)
+    records = []
+    for label, layout, B, T, cap, lo, hi in MLA_SHAPES:
+        q, lat, off, table, live = mla_inputs(layout, B, T, cap, lo, hi, gen,
+                                              device)
+        before = ma.mla_decode_attention.launches
+        got = ma.mla_decode_attention(q, lat, off, scale, 512, table)
+        torch.cuda.synchronize()
+        if ma.mla_decode_attention.launches != before + 1:
+            fail(f"4f mla {label}: the wrapper did not count its launch")
+        plain = ma.mla_attention_reference(q, lat, off, scale, 512, table)
+        vabs = lat.abs()
+        pv = ma.mla_attention_reference(q, vabs, off, scale, 512, table)
+        what = f"4f mla {label}"
+        if not bool(torch.isfinite(got).all()):
+            fail(f"{what}: non-finite outputs")
+        if not bool((got[~live] == 0).all()):
+            fail(f"{what}: a dead row's output is not zeros")
+        plain_live, pv_live = plain[live], pv[live]
+        rec = {"name": label, "layout": layout, "B": B, "T": T, "H": 16,
+               "capacity": cap, "offsets": [int(off.min()), int(off.max())],
+               "dead_rows": int((~live).sum()),
+               **check_attention(what, got[live], plain_live, pv_live)}
+        del plain, pv, vabs
+        keys = int(((off.long() + T) * live).sum())
+        rows = int(live.sum()) * T
+        bound = paged_attention_bound_s(1, 576 * 2, 16 * (2 * 512 + 64) * 2,
+                                        keys, rows) * 1e3
+        rec.update(live_positions=keys, query_rows=rows,
+                   ms=gpu_ms(lambda: ma.mla_decode_attention(
+                       q, lat, off, scale, 512, table), flush),
+                   plain_ms=gpu_ms(lambda: ma.mla_attention_reference(
+                       q, lat, off, scale, 512, table), flush),
+                   bound_ms=bound, bound_by="bytes")
+        rec["roofline"] = bound / rec["ms"]
+        if against and against[0] == "mla_decode_attention":
+            with launching(*against):
+                other = ma.mla_decode_attention(q, lat, off, scale, 512,
+                                                table)
+                check_attention(f"{what} (--against)", other[live],
+                                plain_live, pv_live)
+                rec["against_ms"] = gpu_ms(lambda: ma.mla_decode_attention(
+                    q, lat, off, scale, 512, table), flush)
+            rec["ms_after"] = gpu_ms(lambda: ma.mla_decode_attention(
+                q, lat, off, scale, 512, table), flush)
+            say(f"[4f mla] {label}: --against {rec['against_ms'] * 1e3:.1f} "
+                f"us, this kernel {rec['ms'] * 1e3:.1f} / "
+                f"{rec['ms_after'] * 1e3:.1f} us (before / after it)")
+        records.append(rec)
+        say(f"[4f mla] {label:15s} B={B} T={T:2d} cap={cap} offsets "
+            f"{rec['offsets'][0]}-{rec['offsets'][1]}: kernel "
+            f"{rec['ms'] * 1e3:8.1f} us, plain {rec['plain_ms'] * 1e3:9.1f} "
+            f"us, bound {bound * 1e3:7.1f} us ({100 * rec['roofline']:.1f}%);"
+            f" max abs err {rec['max_abs_err']:.3g} ({rec['bound_ratio']:.2f}"
+            f" of the allowance) ({card})")
+        del q, lat, off, table, got, plain_live, pv_live
+        torch.cuda.empty_cache()
+    return records
+
+
+def mla_entry(records, launches):
+    """The ``kernels`` line's entry of the MLA decode kernel: the top-level
+    times are one verify layer over the paged pool at longreason's
+    shapes."""
+    top = next(r for r in records if r["name"] == "verify-paged")
+    return {"name": "mla_decode_attention (absorbed latent attention)",
+            "route": "cuda",
+            "source": "specdec_tpu_torch/ops/csrc/mla_decode_attention.cu",
+            "replaces": None, "launches": launches,
+            "launches_by_path": {"deepseek_v2_width": launches},
+            "max_abs_err": max(r["max_abs_err"] for r in records),
+            **{k: top[k] for k in ("ms", "plain_ms", "bound_ms")},
+            "bound_by": "bytes",
+            "work": "one verify layer: 64 slots x 5 positions x 16 heads "
+                    "over 4,096-9,728 live latent positions, pages of 64",
             "shapes": records}
 
 
@@ -6154,6 +6314,8 @@ def main():
     expert_records, mla_records, launches_deepseek = phase_deepseek(device,
                                                                     card)
     stamp("4e latent attention and experts at DeepSeek-V2-Lite widths")
+    mla_kernel_records = phase_mla_kernel(device, card, against)
+    stamp("4f the MLA decode kernel at longreason's shapes")
     int8_pair = with_config(pair, **KVINT8_FLASH)
     summary, launches_main = phase_main(pair, device)
     stamp("5 single sequence, bf16 KV")
@@ -6388,6 +6550,7 @@ def main():
         head_dim_256={n: head_dim_256(flash_records["K4"], n)
                       for n in ("gemma-decode", "gemma-verify")}))
     entries.append(expert_entry(expert_records, launches_deepseek))
+    entries.append(mla_entry(mla_kernel_records, launches_deepseek["mla"]))
     say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; "
         f"largest kernel-vs-plain abs error {max_err:.3g} (INT4), "
         + ", ".join(f"{fmt_records[q][1]:.3g} ({q})" for q in QUANTS) + ", "

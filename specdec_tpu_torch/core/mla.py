@@ -25,11 +25,14 @@ Two forms of one attention, the same function up to rounding:
   score and fill output columns that are dropped, and the kernel takes the
   model's softmax scale; otherwise through ``masked_attention``.
 - absorbed (the draft and verify steps): q_nope goes through ``w_uk`` to
-  a latent-wide query a head, which with q_pe scores the cached stream as
-  it is stored; the probabilities weight the cached latents, and ``w_uv``
-  takes that latent output to each head's V width. Plain PyTorch
-  products in float32, the softmax in float32: the slotted cache is read
-  in place, the paged pool gathered through the page table.
+  a latent-wide query a head (float32 products with the float32 weights,
+  then the activation dtype beside q_pe), which scores the cached stream
+  as it is stored; the probabilities weight the cached latents, and
+  ``w_uv`` takes that float32 latent output to each head's V width. The
+  attention between is ``ops/mla_attention.py``'s MLA decode kernel
+  (``csrc/mla_decode_attention.cu``; its plain float32 version on the
+  CPU): it reads the slotted cache's layer, or the paged pool's layer
+  through the page table, in place, with nothing gathered or copied.
 
 Rollback stays length arithmetic: a position past a row's length is
 masked and later overwritten. While the tracer is on, each forward that
@@ -37,7 +40,7 @@ attends in the absorbed form records ``mla_attention`` in
 ``paged_attention``'s layout (layers, latent bytes a position and layer,
 q and out bytes a query row and layer, then on the device the live
 positions and query rows), and every attention call runs inside an
-``mla_attend`` span.
+``mla_attend`` span (the decompressed form's page gather included).
 """
 from __future__ import annotations
 
@@ -58,8 +61,6 @@ from specdec_tpu_torch.utils.profiling import TRACER
 DECOMPRESSED_MIN_ROWS = 16
 # the flash-decode kernel's head width for the decompressed form
 KERNEL_HEAD_DIM = 256
-
-_NEG_INF = -1e30
 
 
 def absorbed_weights(cfg, w_kvb) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -129,35 +130,39 @@ def decompressed(cfg, lp, q_nope, q_pe, lat_all, q_pos, use_kernel: bool):
     return out[..., :v.shape[-1]].reshape(B, T, -1)
 
 
-def absorbed(cfg, lp, q_nope, q_pe, lat_all, q_pos):
-    """The block against the cached stream as stored, in float32; returns
-    [B, T, H * v] in q's dtype."""
+def absorbed(cfg, lp, q_nope, q_pe, lat, q_pos, page_table=None):
+    """The block against the cached stream as stored: ``lat`` one layer of
+    the slotted cache [B, S, 1, r + rope], or of the page pool [NP, 1,
+    page, r + rope] read through ``page_table``. Returns [B, T, H * v] in
+    q's dtype."""
+    from specdec_tpu_torch.ops.mla_attention import mla_decode_attention
+
     B, T, H, _ = q_nope.shape
-    S, r = lat_all.shape[1], cfg.kv_lora_rank
     if "w_uk" not in lp:
         raise ValueError("latent attention's absorbed form needs the "
                          "layer's w_uk and w_uv (added at build by "
                          "params_from_hf and quantize_params)")
-    w_uk, w_uv = lp["w_uk"], lp["w_uv"]
-    q_lat = torch.einsum("bthn,hrn->bthr", q_nope.to(torch.float32), w_uk)
-    q = torch.cat([q_lat, q_pe.to(torch.float32)], dim=-1)
-    lat = lat_all.to(torch.float32)
-    scores = torch.einsum("bthd,bsd->bhts", q, lat) * cfg.attn_scale
-    k_pos = torch.arange(S, device=q.device)
-    mask = k_pos[None, None, :] <= q_pos[:, :, None]            # [B, T, S]
-    probs = torch.softmax(scores.masked_fill(~mask[:, None], _NEG_INF),
-                          dim=-1)
-    o_lat = torch.einsum("bhts,bsr->bthr", probs, lat[..., :r])
-    out = torch.einsum("bthr,hrv->bthv", o_lat, w_uv)
+    q_lat = torch.einsum("bthn,hrn->bthr", q_nope.to(torch.float32),
+                         lp["w_uk"])
+    q = torch.cat([q_lat, q_pe.to(torch.float32)], dim=-1).to(q_nope.dtype)
+    o_lat = mla_decode_attention(q, lat, q_pos[:, 0].contiguous(),
+                                 cfg.attn_scale, cfg.kv_lora_rank,
+                                 page_table)
+    out = torch.einsum("bthr,hrv->bthv", o_lat, lp["w_uv"])
     return out.to(q_nope.dtype).reshape(B, T, -1)
 
 
-def _attend(cfg, lp, q_nope, q_pe, lat_all, q_pos, use_kernel):
-    """The form the block's rows ask for (called inside ``mla_attend``)."""
-    if q_nope.shape[1] >= DECOMPRESSED_MIN_ROWS:
-        return decompressed(cfg, lp, q_nope, q_pe, lat_all, q_pos,
-                            use_kernel)
-    return absorbed(cfg, lp, q_nope, q_pe, lat_all, q_pos)
+def _attend(cfg, lp, q_nope, q_pe, lat, q_pos, use_kernel, table=None):
+    """The form the block's rows ask for (called inside ``mla_attend``):
+    ``lat`` is the layer as stored, slotted [B, S, 1, r + rope] or the page
+    pool's [NP, 1, page, r + rope] read through ``table``, whose pages the
+    decompressed form gathers."""
+    if q_nope.shape[1] < DECOMPRESSED_MIN_ROWS:
+        return absorbed(cfg, lp, q_nope, q_pe, lat, q_pos, table)
+    if table is not None:
+        lat = gather_pages(lat, table)
+    return decompressed(cfg, lp, q_nope, q_pe, lat[:, :, 0], q_pos,
+                        use_kernel)
 
 
 def _record(cfg, keys: torch.Tensor, rows: torch.Tensor) -> None:
@@ -183,15 +188,16 @@ def slotted_attend(cfg, cache, q_pos, T: int, use_kernel: bool):
                                  lat.new_empty(lat.shape[:2] + (1, 0)),
                                  cache.length)
         with TRACER.span("mla_attend"):
-            return _attend(cfg, lp, q_nope, q_pe, lat_all[:, :, 0], q_pos,
-                           use_kernel)
+            return _attend(cfg, lp, q_nope, q_pe, lat_all, q_pos, use_kernel)
     return attend
 
 
 def paged_attend(cfg, cache, q_pos, T: int):
     """The layer attention over a paged latent pool: writes the block
-    through the page table and attends over the gathered pages. A row
-    whose table starts at the garbage page counts for nothing."""
+    through the page table, then attends over the pool's layer through the
+    table (the absorbed form) or over the gathered pages (the decompressed
+    one). A row whose table starts at the garbage page counts for
+    nothing."""
     table, offsets = cache.page_table, cache.length
     if TRACER.on and T < DECOMPRESSED_MIN_ROWS:
         live = (table[:, 0] != 0).to(torch.int64)
@@ -203,8 +209,8 @@ def paged_attend(cfg, cache, q_pos, T: int):
                                   lat.new_empty(lat.shape[:2] + (1, 0)),
                                   table, offsets, cache.page_size)
         with TRACER.span("mla_attend"):
-            lat_all = gather_pages(cache.k[i], table)[:, :, 0]
-            return _attend(cfg, lp, q_nope, q_pe, lat_all, q_pos, False)
+            return _attend(cfg, lp, q_nope, q_pe, cache.k[i], q_pos, False,
+                           table)
     return attend
 
 

@@ -41,6 +41,8 @@ SIGNATURES = {
                         + [_c_float, _c_void_p],
     "int4_expert_matmul": [_c_void_p] * 7 + [_c_int] * 4 + [_c_ll] * 2
                           + [_c_int, _c_void_p],
+    "mla_decode_attention": [_c_void_p] * 7 + [_c_int] * 4 + [_c_ll]
+                            + [_c_int] * 5 + [_c_float, _c_void_p],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -251,6 +251,42 @@ def test_port_matches_reference_through_prefill_decode_and_rollback(
         _close(got, want[pos], 2e-5)
 
 
+def test_paged_absorbed_form_reads_the_pool_in_place(model, monkeypatch):
+    """The paged forward's absorbed form (blocks under 16 rows) attends
+    through the MLA decode kernel's wrapper over the pool's layer and the
+    page table, once a layer, and gathers no page; the decompressed form of
+    an admission-sized block still gathers its layer's pages."""
+    from specdec_tpu_torch.core import paged_cache
+    from specdec_tpu_torch.ops import mla_attention as ma
+
+    _, _, cfg, params = model
+    calls = {"gather": 0, "kernel": 0}
+    real_gather, real_kernel = paged_cache.gather_pages, ma.mla_decode_attention
+
+    def gather(*args):
+        calls["gather"] += 1
+        return real_gather(*args)
+
+    def kernel(q, lat, offsets, scale, rank, page_table=None):
+        calls["kernel"] += 1
+        assert page_table is not None and lat.shape[1] == 1  # [NP, 1, page, D]
+        return real_kernel(q, lat, offsets, scale, rank, page_table)
+
+    monkeypatch.setattr(paged_cache, "gather_pages", gather)
+    monkeypatch.setattr(mla, "gather_pages", gather)
+    monkeypatch.setattr(ma, "mla_decode_attention", kernel)
+    pool, row = _paged_cache(cfg, 48)
+    cache = paged_view(pool, row, 0)
+    toks = torch.arange(1, 17)[None]
+    L = cfg.num_layers
+    logits, cache = forward_step_paged(cfg, params, toks, cache)
+    assert calls == {"gather": L, "kernel": 0}
+    for T in (1, 2, 5):
+        logits, cache = forward_step_paged(cfg, params, toks[:, :T], cache)
+        assert bool(torch.isfinite(logits).all())
+    assert calls == {"gather": L, "kernel": 3 * L}
+
+
 def test_decompressed_form_through_padded_kernel_is_exact(model):
     """K3's padded head width adds zeros to every score and fills dropped
     output columns: on the kernel's plain path the padded call gives the
