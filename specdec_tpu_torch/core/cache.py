@@ -186,14 +186,20 @@ def with_row_length(cache, slot: int, new_len):
     return cache.with_length(length)
 
 
-def install_slot(dst, src, slot: int, new_len):
+def copy_slot(dst, src, slot: int) -> None:
     """Copy the batch-of-one cache ``src`` into ``dst``'s batch row ``slot``
     across every storage field (the scheduler's admission primitive; values
-    and scales alike keep batch at axis 1) and set that row's length. The
-    rows are copied IN PLACE into ``dst``'s storage, so ``dst`` never aliases
-    ``src``; returns ``dst`` with the new length."""
+    and scales alike keep batch at axis 1). The rows are copied IN PLACE
+    into ``dst``'s storage, so ``dst`` never aliases ``src``; the lengths
+    are left as they are."""
     for name in storage_fields(dst):
         getattr(dst, name)[:, slot].copy_(getattr(src, name)[:, 0])
+
+
+def install_slot(dst, src, slot: int, new_len):
+    """``copy_slot``, then set that row's length; returns ``dst`` with the
+    new length."""
+    copy_slot(dst, src, slot)
     return with_row_length(dst, slot, new_len)
 
 

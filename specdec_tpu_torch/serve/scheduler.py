@@ -9,6 +9,12 @@ admission refills them without touching other slots.
 
 - Admission prefills the new prompt as a batch-of-one on scratch caches and
   copies its KV rows, buffer row and counters into the slot, in place.
+  ``_admit_slot`` is the one admission program of the model-drafter
+  batchers, this one and the paged one (``serve/paged_scheduler.py``).
+- Every batcher builds its state here: the options, the queue, the slot
+  bookkeeping and the per-slot buffer and counters are this class's; a
+  subclass supplies only the caches it keeps (``_caches``) and its state's
+  type (``State``).
 - Every forward, admissions and windows alike, goes through the batch
   engine's ``forward_step``, on the flash-decode kernel wherever
   ``kernel_route(cfg)`` holds, whatever ``attention_impl`` says (serving
@@ -30,9 +36,12 @@ import torch
 
 from specdec_tpu_torch import resolve_device
 from specdec_tpu_torch.core.cache import (
-    init_cache, install_slot, write_scalar,
+    copy_slot, init_cache, with_row_length, write_scalar,
 )
 from specdec_tpu_torch.core.config import ModelConfig
+from specdec_tpu_torch.core.paged_cache import (
+    PagedKVCache, QuantPagedKVCache, install_sequence_pages, paged_view,
+)
 from specdec_tpu_torch.engine.batch_engine import (
     BatchState, _pack_state, _unpack_state, batch_spec_window,
     batch_spec_windows, forward_step,
@@ -62,24 +71,6 @@ class Request:
     metrics: Optional[RequestMetrics] = None
 
 
-def _first_token(target_cfg, drafter_cfg, t_logits, prompt_len: int,
-                 max_new: int, processor, eos_ids, generator, device):
-    """The admission's commit: tok0 from the prompt's last logits, and the
-    slot's (pos, total, finished). prompt_len is a host int; t_logits
-    [1, T, V] covers the prompt's last position at index prompt_len-1 of
-    the forwarded block (callers slice for partial prefills)."""
-    p0 = processor(t_logits[0, -1])
-    tok0 = processor.sample(p0, generator)
-    max_pos = min(target_cfg.max_position_embeddings,
-                  drafter_cfg.max_position_embeddings)
-    total = min(max_pos, prompt_len + max_new)
-    pos = prompt_len + 1
-    with TRACER.span("sync.h2d"):
-        done = torch.tensor(pos >= total, device=device)
-    finished = eos_mask(tok0, eos_ids) | done
-    return tok0, pos, total, finished
-
-
 def _scratch_prefill(cfg: ModelConfig, params, prompt: torch.Tensor,
                      S: int):
     """Prefill ``prompt`` [P] as a batch of one on a new slotted cache of
@@ -90,18 +81,31 @@ def _scratch_prefill(cfg: ModelConfig, params, prompt: torch.Tensor,
     return forward_step(cfg, params, prompt[None, :], cache)
 
 
-def _install_row(state: BatchState, slot: int, prompt: torch.Tensor,
-                 prompt_len: int, tok0, pos: int, total: int, finished):
-    """Set slot ``slot``'s buffer row and counters in place."""
+def _commit_first_token(target_cfg, drafter_cfg, state, slot: int,
+                        prompt: torch.Tensor, prompt_len: int, t_logits,
+                        max_new: int, processor, eos_ids, generator):
+    """The admission's commit, shared by every batcher: tok0 from the
+    prompt's last logits, then slot ``slot``'s buffer row and counters
+    (pos, total, finished, accepted, speculated) set in place. prompt_len
+    is a host int; t_logits [1, T, V] ends at the prompt's last position
+    (callers slice the forwarded block). Returns (tok0, pos)."""
+    tok0 = processor.sample(processor(t_logits[0, -1]), generator)
+    max_pos = min(target_cfg.max_position_embeddings,
+                  drafter_cfg.max_position_embeddings)
+    total = min(max_pos, prompt_len + max_new)
+    pos = prompt_len + 1
+    with TRACER.span("sync.h2d"):
+        done = torch.tensor(pos >= total, device=prompt.device)
     state.buf[slot].zero_()
     state.buf[slot, :prompt.shape[0]] = prompt
     state.buf[slot, prompt_len] = tok0
     write_scalar(state.pos, slot, pos)
     write_scalar(state.prompt_len, slot, prompt_len)
     write_scalar(state.total_len, slot, total)
-    state.finished[slot] = finished
+    state.finished[slot] = eos_mask(tok0, eos_ids) | done
     write_scalar(state.accepted, slot, 0)
     write_scalar(state.speculated, slot, 0)
+    return tok0, pos
 
 
 def _admit_slot(drafter_cfg: ModelConfig, drafter_params,
@@ -109,24 +113,63 @@ def _admit_slot(drafter_cfg: ModelConfig, drafter_params,
                 state: BatchState, slot: int, prompt: torch.Tensor,
                 prompt_len: int, max_new: int,
                 processor: LogitsProcessor, eos_ids: Tuple[int, ...],
-                generator: torch.Generator) -> BatchState:
-    """Prefill ``prompt`` (padded [P]) as a batch-of-one and install it in
-    ``slot``: buffer row, position and limit, both models' KV rows (copied,
-    so the slot never aliases the scratch caches). Edits ``state`` in place
-    and returns it with the new cache lengths."""
-    device = prompt.device
+                generator: torch.Generator,
+                t_row: Optional[torch.Tensor] = None,
+                suffix: Optional[torch.Tensor] = None,
+                offset: int = 0) -> BatchState:
+    """The admission program of the model-drafter batchers: prefill the
+    target, prefill the drafter, commit tok0. Installs ``prompt`` (padded
+    [P], ``prompt_len`` tokens) in ``slot``, editing ``state`` in place
+    (KV rows or pages, buffer row, counters), and returns it with the new
+    cache lengths.
+
+    The target's route follows its cache and ``offset``:
+    - slotted: prefill on a batch-of-one scratch cache, rows copied into
+      the slot (so the slot never aliases the scratch);
+    - paged, nothing cached or chunked (``offset`` 0): the same scratch
+      prefill on the flash-decode kernel, scattered into the pages of
+      ``t_row`` with ONE scatter per array (``install_sequence_pages``).
+      Stored KV bits are those a paged prefill would write; only the
+      prompt forward's access pattern differs;
+    - paged past ``offset`` positions already in the pool (a prefix-cache
+      hit, the earlier chunks of a chunked prefill): ``suffix``
+      (prompt[offset:], zero-padded to its bucket) through a batch-of-one
+      view of the pool at length ``offset``. RoPE positions and the causal
+      mask come out exactly as a full prefill's; padding past prompt_len
+      writes into this slot's own future pages (or garbage page 0), never
+      attended before being overwritten, since a query at position p only
+      admits keys <= p.
+
+    The drafter prefills the whole prompt into its slotted row. Why the
+    drafter stays slotted under a paged target: the target's pool, which
+    holds most of the KV, keeps the memory elasticity, while the shallow
+    drafter's rows need no page table, no top-up and no pool of their own;
+    its gamma sequential steps a window attend through the flash-decode
+    kernel, which reads a layer of the slotted cache in place."""
     S = state.buf.shape[1]
-    t_logits, t1 = _scratch_prefill(target_cfg, target_params, prompt, S)
+    t_cache = state.t_cache
+    paged = isinstance(t_cache, (PagedKVCache, QuantPagedKVCache))
+    if paged:
+        t_cache.page_table[slot] = t_row
+    if offset:
+        t_logits, _ = forward_step(target_cfg, target_params, suffix[None, :],
+                                   paged_view(t_cache, t_row, offset))
+    else:
+        t_logits, t1 = _scratch_prefill(target_cfg, target_params, prompt, S)
+        if paged:
+            install_sequence_pages(t_cache, t_row, t1)
+        else:
+            copy_slot(t_cache, t1, slot)
     _, d1 = _scratch_prefill(drafter_cfg, drafter_params, prompt, S)
-    tok0, pos, total, finished = _first_token(
-        target_cfg, drafter_cfg, t_logits[:, :prompt_len], prompt_len,
-        max_new, processor, eos_ids, generator, device)
-    _install_row(state, slot, prompt, prompt_len, tok0, pos, total, finished)
+    copy_slot(state.d_cache, d1, slot)
+    _, pos = _commit_first_token(
+        target_cfg, drafter_cfg, state, slot, prompt, prompt_len,
+        t_logits[:, :prompt_len - offset], max_new, processor, eos_ids,
+        generator)
     return dataclasses.replace(
-        state,
-        t_cache=install_slot(state.t_cache, t1, slot, pos - 1),
+        state, t_cache=with_row_length(t_cache, slot, pos - 1),
         # drafter invariant: covers pos-2 (two-token first draft step)
-        d_cache=install_slot(state.d_cache, d1, slot, pos - 2))
+        d_cache=with_row_length(state.d_cache, slot, pos - 2))
 
 
 def data_slots(target_params, num_slots: int):
@@ -157,6 +200,9 @@ class ContinuousBatcher:
     so they match the unsharded batcher in distribution, not token for
     token."""
 
+    # the device state's type; ``_caches`` gives its cache fields
+    State = BatchState
+
     def __init__(self, drafter_cfg: ModelConfig, drafter_params,
                  target_cfg: ModelConfig, target_params,
                  num_slots: int = 4, gamma: int = 4,
@@ -184,10 +230,11 @@ class ContinuousBatcher:
         self.auto_gamma_min_drafts = auto_gamma_min_drafts
         # the drafter/target cost ratio: the layer ratio scaled by the
         # per-call inflation the JAX package calibrated (1.37); a prior only
-        self.gamma_cost_ratio = (
-            gamma_cost_ratio
-            if gamma_cost_ratio is not None
-            else 1.37 * drafter_cfg.num_layers / max(1, target_cfg.num_layers))
+        # (a batcher with no drafter model never retunes)
+        if gamma_cost_ratio is None and drafter_cfg is not None:
+            gamma_cost_ratio = (1.37 * drafter_cfg.num_layers
+                                / max(1, target_cfg.num_layers))
+        self.gamma_cost_ratio = gamma_cost_ratio
         self.gamma_window_overhead = gamma_window_overhead
         self._auto_drafts = [0, 0]  # accepted, speculated since last retune
         self._gamma_switches = 0
@@ -204,24 +251,17 @@ class ContinuousBatcher:
         S = max_prompt_len + max_new_tokens + self.auto_gamma_max + 2
         self.S = S
         dev, B = self.device, self.B
-        # empty state: every slot finished until admitted
-        self.state = BatchState(
+        # empty state: every slot finished until admitted; pos=1 keeps the
+        # window's pos-1 reads in bounds for slots never admitted
+        self.state = self.State(
             buf=torch.zeros((B, S), dtype=torch.int64, device=dev),
             pos=torch.ones((B,), dtype=torch.int32, device=dev),
             prompt_len=torch.ones((B,), dtype=torch.int32, device=dev),
             total_len=torch.ones((B,), dtype=torch.int32, device=dev),
             finished=torch.ones((B,), dtype=torch.bool, device=dev),
-            d_cache=init_cache(drafter_cfg, B, S, device=dev),
-            t_cache=init_cache(target_cfg, B, S, device=dev),
             accepted=torch.zeros((B,), dtype=torch.int32, device=dev),
             speculated=torch.zeros((B,), dtype=torch.int32, device=dev),
-        )
-        self._init_host_state()
-
-    def _init_host_state(self):
-        """Queue and slot bookkeeping, shared by every batcher (the NASD
-        batcher builds its own device state and reuses this)."""
-        B = self.B
+            **self._caches())
         self.queue: List[Request] = []
         self.slot_req: List[Optional[Request]] = [None] * B
         self._slot_first_token: List[Optional[float]] = [None] * B
@@ -231,6 +271,15 @@ class ContinuousBatcher:
         # it anyway (admission stamp, window harvest); the paged page top-up
         # reads this instead of the device
         self._host_pos = np.zeros((B,), np.int64)
+
+    def _caches(self) -> dict:
+        """The caches this batcher keeps, by state field, each built once:
+        here both models' slotted [B, S] caches."""
+        return dict(
+            d_cache=init_cache(self.drafter_cfg, self.B, self.S,
+                               device=self.device),
+            t_cache=init_cache(self.target_cfg, self.B, self.S,
+                               device=self.device))
 
     # ------------------------------------------------------------------ API
     def submit(self, prompt_ids: Sequence[int],
@@ -258,31 +307,44 @@ class ContinuousBatcher:
         self.queue.append(req)
         return rid
 
-    def _padded_prompt(self, req: Request) -> Tuple[torch.Tensor, int]:
-        P = self.max_prompt_len
-        prompt = np.zeros((P,), np.int64)
-        n = min(len(req.prompt_ids), P)
-        prompt[:n] = req.prompt_ids[:n]
+    def _tokens(self, ids: List[int], length: int) -> torch.Tensor:
+        """``ids`` zero-padded to ``length``, on the device."""
+        arr = np.zeros((length,), np.int64)
+        arr[:len(ids)] = ids
         with TRACER.span("sync.h2d"):
-            return torch.from_numpy(prompt).to(self.device), n
+            return torch.from_numpy(arr).to(self.device)
 
     def _admit(self, slot: int, req: Request, sync: bool = True):
         with TRACER.span("admit", req.request_id):
-            prompt, n = self._padded_prompt(req)
+            n = min(len(req.prompt_ids), self.max_prompt_len)
+            prompt = self._tokens(req.prompt_ids[:n], self.max_prompt_len)
             if TRACER.on:
                 TRACER.note(prompt=n)
             with TRACER.span("prefill"):
-                self.state = _admit_slot(
-                    self.drafter_cfg, self.drafter_params, self.target_cfg,
-                    self.target_params, self.state, slot, prompt, n,
-                    req.max_new_tokens, self.processor, self.eos_ids,
-                    self.generator)
-            self.slot_req[slot] = req
-            req.metrics = RequestMetrics(
-                prompt_tokens=n, start_time=req.submit_time,
-                queue_seconds=time.time() - req.submit_time)
+                self._prefill_slot(slot, prompt, n, req.max_new_tokens)
+            self._take(slot, req, n)
             if sync:
                 self._stamp_admissions([slot])
+
+    def _prefill_slot(self, slot: int, prompt: torch.Tensor, n: int,
+                      max_new: int):
+        """Run the admission program: ``prompt`` (padded, ``n`` tokens)
+        into ``slot``."""
+        self.state = _admit_slot(
+            self.drafter_cfg, self.drafter_params, self.target_cfg,
+            self.target_params, self.state, slot, prompt, n, max_new,
+            self.processor, self.eos_ids, self.generator)
+
+    def _take(self, slot: int, req: Request, n: int):
+        """Slot ``slot`` takes ``req``, its ``n`` prompt tokens prefilled:
+        the slot's bookkeeping and the request's metrics. The queue wait
+        ends at the request's first dequeue where a batcher stamped one,
+        else now."""
+        self.slot_req[slot] = req
+        req.metrics = RequestMetrics(
+            prompt_tokens=n, start_time=req.submit_time,
+            queue_seconds=(req.dequeue_time or time.time())
+            - req.submit_time)
 
     def _stamp_admissions(self, slots: List[int]):
         """The admission prefill commits the first generated token, so TTFT

@@ -389,12 +389,11 @@ BATCHER = dict(num_slots=2, gamma=3, max_prompt_len=32, max_new_tokens=GEN,
 
 
 @pytest.mark.parametrize("kw", [
-    None, dict(), dict(prefix_caching=True, prefill_chunk=8),
-    dict(drafter_paged=True, prefix_caching=True, prefill_chunk=8)],
-    ids=["slotted", "default", "prefix+chunked", "both-paged-prefix+chunked"])
+    None, dict(), dict(prefix_caching=True, prefill_chunk=8)],
+    ids=["slotted", "default", "prefix+chunked"])
 def test_batchers_over_int8_match_greedy_ar(serve_models, kw):
-    """The slotted batcher and the default engine over int8 KV (int8 pools
-    for the paged target, and for the drafter when both are paged) give
+    """The slotted batcher and the default engine over int8 KV (an int8
+    pool for the paged target, int8 slotted rows for the drafter) give
     every request greedy AR's tokens with acceptance 1.0, with prefix
     caching and chunked prefill too; prompts sharing a 16-token prefix
     cross pages and chunks, and every page comes home."""

@@ -29,12 +29,17 @@ from specdec_tpu.serve.scheduler import ContinuousBatcher as JaxBatcher
 
 import specdec_tpu_torch.serve as serve
 from specdec_tpu_torch.bridge import params_from_numpy
+from specdec_tpu_torch.core import cache as tc
+from specdec_tpu_torch.core import paged_cache as tpc
 from specdec_tpu_torch.core.config import ModelConfig
 from specdec_tpu_torch.core.model import forward_full
 from specdec_tpu_torch.engine import batch_engine as tbe
 from specdec_tpu_torch.engine import gamma_tuner as tgt
 from specdec_tpu_torch.sampling import processors as tp
 from specdec_tpu_torch.sampling.base_decoding import autoregressive_generate
+from specdec_tpu_torch.serve import (
+    eagle_scheduler, nasd_scheduler, paged_scheduler, scheduler,
+)
 from specdec_tpu_torch.serve.streaming import stream_generate
 
 torch.set_num_threads(2)
@@ -182,17 +187,14 @@ def test_batched_window_output_distribution(models):
 @pytest.fixture(scope="module")
 def jax_batcher_outputs(models):
     """Outputs of the JAX package's slotted batcher and paged batcher in
-    both layouts, self-draft greedy."""
+    the hybrid layout (paged target, slotted drafter), self-draft greedy."""
     jtarget = models[0]
     out = {}
     for name, make in (
             ("slotted", lambda: JaxBatcher(JCFG, jtarget, JCFG, jtarget,
                                            **BATCHER)),
             ("hybrid", lambda: JaxPagedBatcher(JCFG, jtarget, JCFG, jtarget,
-                                               page_size=8, **BATCHER)),
-            ("both-paged", lambda: JaxPagedBatcher(
-                JCFG, jtarget, JCFG, jtarget, page_size=8,
-                drafter_paged=True, **BATCHER))):
+                                               page_size=8, **BATCHER))):
         b = make()
         ids = [b.submit(p) for p in PROMPTS]
         done = b.run()
@@ -209,7 +211,7 @@ def run_batcher(batcher, prompts=PROMPTS):
         done[i].metrics.acceptance_rate for i in ids]
 
 
-@pytest.mark.parametrize("layout", ["slotted", "hybrid", "both-paged"])
+@pytest.mark.parametrize("layout", ["slotted", "hybrid"])
 def test_batchers_match_jax_and_ar(models, greedy_ar, jax_batcher_outputs,
                                    layout):
     target = models[2]
@@ -218,8 +220,7 @@ def test_batchers_match_jax_and_ar(models, greedy_ar, jax_batcher_outputs,
                                     **BATCHER)
     else:
         b = serve.PagedContinuousBatcher(
-            CFG, target, CFG, target, page_size=8, device="cpu",
-            drafter_paged=layout == "both-paged", **BATCHER)
+            CFG, target, CFG, target, page_size=8, device="cpu", **BATCHER)
     outs, rates = run_batcher(b)
     assert [(o, r) for o, r in zip(outs, rates)] == jax_batcher_outputs[layout]
     assert outs == greedy_ar
@@ -237,11 +238,9 @@ def test_default_batcher_needs_cuda_unless_told_cpu(models):
 
 @pytest.mark.parametrize("kw", [dict(windows_per_sync=4),
                                 dict(prefill_chunk=8),
-                                dict(drafter_paged=True, prefill_chunk=8),
                                 dict(auto_gamma=True, auto_gamma_min_drafts=8,
                                      windows_per_sync=2)],
-                         ids=["windows4", "chunked", "chunked-both-paged",
-                              "auto-gamma"])
+                         ids=["windows4", "chunked", "auto-gamma"])
 def test_paged_batcher_options_keep_outputs(models, kw):
     """Multi-window dispatch (page provisioning over the whole horizon),
     chunked prefill (partial admissions through the paged kernel's plain
@@ -278,9 +277,7 @@ def test_preemption_and_page_recycling(models):
     assert len(b._alloc_t.free) == b.num_pages - 1
 
 
-@pytest.mark.parametrize("drafter_paged", [False, True],
-                         ids=["hybrid", "both-paged"])
-def test_prefix_caching_hits_keep_outputs(models, drafter_paged):
+def test_prefix_caching_hits_keep_outputs(models):
     """Prompts sharing a 16-token prefix (two pages) reuse its pages once
     the first prompt's prefill has registered them (the second prompt
     admits while the first is still prefilling in chunks, so it misses);
@@ -292,7 +289,7 @@ def test_prefix_caching_hits_keep_outputs(models, drafter_paged):
     prompts = [shared + list(rng.integers(1, VOCAB, size=n))
                for n in (5, 11, 2, 8)]
     args = (CFG, target, CFG, target)
-    kw = dict(BATCHER, page_size=8, device="cpu", drafter_paged=drafter_paged)
+    kw = dict(BATCHER, page_size=8, device="cpu")
     ref, _ = run_batcher(serve.PagedContinuousBatcher(*args, **kw), prompts)
     b = serve.PagedContinuousBatcher(*args, prefix_caching=True,
                                      prefill_chunk=16, **kw)
@@ -301,6 +298,50 @@ def test_prefix_caching_hits_keep_outputs(models, drafter_paged):
     assert b.prefix_cache.hit_tokens == 2 * 16
     cached = len(b.prefix_cache)
     assert len(b._alloc_t.free) + cached == b.num_pages - 1
+
+
+@pytest.mark.parametrize("kind", ["paged-bf16", "paged-int8", "slotted",
+                                  "eagle", "nasd"])
+def test_batchers_build_only_the_caches_they_keep(models, monkeypatch, kind):
+    """Constructing a batcher allocates each slotted cache once, at
+    [num_slots, S], and keeps every one in its state: the paged batcher
+    makes only the drafter's (its target's KV lives in the page pool),
+    over bf16 and int8 KV alike."""
+    target = models[2]
+    cfg = CFG.replace(dtype=torch.bfloat16,
+                      kv_quant="int8" if kind == "paged-int8" else "none")
+    made = []
+    real = tc.init_cache
+
+    def spy(c, batch_size, max_seq_len, *a, **kw):
+        made.append((batch_size, max_seq_len,
+                     real(c, batch_size, max_seq_len, *a, **kw)))
+        return made[-1][-1]
+    for mod in (scheduler, paged_scheduler, eagle_scheduler, nasd_scheduler):
+        if hasattr(mod, "init_cache"):
+            monkeypatch.setattr(mod, "init_cache", spy)
+    kw = dict(BATCHER, device="cpu")
+    if kind.startswith("paged"):
+        b = serve.PagedContinuousBatcher(cfg, target, cfg, target,
+                                         page_size=8, **kw)
+    elif kind == "slotted":
+        b = serve.ContinuousBatcher(cfg, target, cfg, target, **kw)
+    elif kind == "eagle":
+        b = serve.EagleContinuousBatcher(cfg.replace(num_layers=1), target,
+                                         cfg, target, **kw)
+    else:
+        b = serve.NasdContinuousBatcher(cfg, target, **kw)
+    monkeypatch.undo()
+    kept = [getattr(b.state, f.name) for f in dataclasses.fields(b.state)
+            if f.name.endswith("_cache")]
+    slotted = [c for c in kept if isinstance(c, (tc.KVCache,
+                                                  tc.QuantKVCache))]
+    assert sorted(id(c) for _, _, c in made) == sorted(map(id, slotted))
+    assert all((n, s) == (b.B, b.S) for n, s, _ in made)
+    if kind.startswith("paged"):
+        assert len(made) == 1 and made[0][2] is b.state.d_cache
+        assert isinstance(b.state.t_cache, (tpc.PagedKVCache,
+                                            tpc.QuantPagedKVCache))
 
 
 def test_stream_generate_concatenates_to_output(models, greedy_ar):

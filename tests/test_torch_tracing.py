@@ -136,11 +136,11 @@ def test_sync_spans_match_the_exchanges(pair, monkeypatch):
     assert ex.reads == (c["sync.finished_check"] + c["sync.harvest_read"]
                         + c["sync.stamp"])
     assert ex.uploads == c["sync.h2d"] + c["sync.scalar_write"]
-    # an admission uploads two table rows, the prompt and the first
-    # token's limit, and writes five counters and two cache lengths
+    # an admission uploads the target's table row, the prompt and the
+    # first token's limit, and writes five counters and two cache lengths
     in_admit = [s[0] for s in trace.spans if s[0].startswith("sync.")
                 and trace.spans[s[3]][0] in ("admit", "prefill")]
-    assert in_admit.count("sync.h2d") == 4 * len(PROMPTS)
+    assert in_admit.count("sync.h2d") == 3 * len(PROMPTS)
     assert in_admit.count("sync.scalar_write") == 7 * len(PROMPTS)
     assert c["sync.harvest_read"] == c["step"]
 
