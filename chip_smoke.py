@@ -14,15 +14,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    draft step, verify and admission prefill; 4 for a beam step, 6, 24, 48
    for NASD's verify at B = 1, 4, 8 and 512 for its B = 8 prefill; 3, 15,
    16 for the trees' drafter levels and verifies, 5 and 9 for EAGLE's
-   catch-up and gamma-8 verify; M = 33 and up share one kernel instance),
+   catch-up and gamma-8 verify; M = 33-159 share one instance, and from
+   the library's threshold, 160, the tiled instance takes 256 and 512),
    on the main path's own weights; its time beside the plain version's, a
    bf16 ``torch.matmul`` on pre-dequantized weights (a yardstick the port
    never calls) and the bound; the share of output elements bit-equal to
    the plain version's (at least MIN_BIT_EQUAL); a check that a row's
-   result does not depend on how many rows share the call; and the two
+   result does not depend on how many rows share the call (bit for bit
+   within each of K1's two designs, within the kernel-vs-plain tolerance
+   across the threshold, where the order of the sums changes); and the two
    ragged shapes of K6 below, on random weights quantized on the card,
    through the 2D wrapper and through the stacked one (layer 1 of a stack
-   of 2, whose fields start off any 16-byte line);
+   of 2, whose fields start off any 16-byte line); then K1 at the
+   benchmark's served widths (SERVED: Qwen3-8B's, Pythia-6.9B's and
+   DeepSeek-V2-Lite's layers and heads) at M = 160, 320, 512, 1536, 2048
+   and 8192 on random weights, held to the plain version and timed against
+   ``portbench.measure.int4_bound_s`` and a bf16 ``torch.matmul``, each
+   call's rows bit-equal to the same rows of the 8192-row call; K1's
+   wrappers must count as tiled exactly the calls at or above the
+   threshold;
 3b. kernel vs plain, paged attention: the paged decode-attention kernel,
    through both wrappers (a 4D pool, and a layer of stacked pools, which
    must agree bit for bit), against its plain version in float32 and bf16
@@ -371,9 +381,32 @@ WEIGHT_LIBS = {"int4": "int4_pair_matmul", "int8": "int8_matmul",
 # nodes: 3 and 6 for (3, 2, 1)), the verify of (4, 2), (2, 2, 2) and (3, 2,
 # 1) (13, 15, 16 nodes); EAGLE: the chain verify at gamma 3, 5, 8 (4, 6,
 # 9), the head's catch-up (gamma + 1, a tree's depth + 2: 4, 5) on the
-# lm_head, its serving verify (48). K1's instances split M at 8, 16 and
-# 32: each instance of every main path is held to the plain version
+# lm_head, its serving verify (48). K1's instances split M at 8, 16, 32
+# and the tiled instance's threshold (160): each instance of every main
+# path is held to the plain version
 ROWS = (1, 2, 3, 4, 5, 6, 8, 9, 13, 15, 16, 24, 48, 64, 72, 256, 512)
+# K1 at the benchmark's served widths (portbench/configs: Qwen3-8B,
+# Pythia-6.9B and DeepSeek-V2-Lite as quantize_params(fuse=True) lays them
+# out; DeepSeek's wq with w_kva fused is wq_kva, the unfused pair kept as
+# the loaders without fusion give it), at the row counts its cells give
+# them: verifies (160: 32 slots x 5; 320: 64 x 5), admissions (512, 1536,
+# 2048, 8192 rows) and the latent attention's kv_b over the cached rows
+SERVED = [("qwen3-8b wqkv", 4096, 6144), ("qwen3-8b/pythia-6.9b wo", 4096, 4096),
+          ("qwen3-8b w_gateup", 4096, 24576), ("qwen3-8b w_down", 12288, 4096),
+          ("qwen3-8b lm_head", 4096, 151936),
+          ("pythia-6.9b wqkv", 4096, 12288), ("pythia-6.9b w_up", 4096, 16384),
+          ("pythia-6.9b w_down", 16384, 4096),
+          ("pythia-6.9b lm_head", 4096, 50432),
+          ("deepseek-v2-lite wq_kva", 2048, 3648),
+          ("deepseek-v2-lite wq", 2048, 3072),
+          ("deepseek-v2-lite w_kva", 2048, 576),
+          ("deepseek-v2-lite w_kvb", 512, 4096),
+          ("deepseek-v2-lite wo", 2048, 2048),
+          ("deepseek-v2-lite shared gate/up", 2048, 5632),
+          ("deepseek-v2-lite shared down", 2816, 2048),
+          ("deepseek-v2-lite layer-0 gate/up", 2048, 21888),
+          ("deepseek-v2-lite lm_head", 2048, 102400)]
+SERVED_ROWS = (160, 320, 512, 1536, 2048, 8192)
 # kernel vs plain: relative Frobenius error and elementwise tolerance (the
 # JAX package's kernel-vs-oracle tolerance, tests/test_quant.py); both
 # sides round x and y to bf16 (and NF4/FP4 each weight, identically) and
@@ -689,6 +722,12 @@ def phase_kernel(target, device, phase="3 kernel", against=None):
     fmt, plain_fn = weight_format(target["lm_head"])
     other = (against[1] if against and against[0] == WEIGHT_LIBS[fmt]
              else None)
+    # K1's calls of M at or above its library's threshold take the tiled
+    # instance, whose sums run in another order: a row is bit-equal across
+    # M within each of K1's two designs, and within tolerance across them
+    tiled = (lambda M: M >= qm.int4_tiled_min_rows()) if fmt == "int4" \
+        else (lambda M: False)
+    counts, calls = k1_counts(), {"all": 0, "tiled": 0}
     gen = torch.Generator(device=device).manual_seed(1234)
     flush = torch.zeros(256 * 2 ** 20, dtype=torch.uint8, device=device)
     records, max_err = [], 0.0
@@ -718,6 +757,8 @@ def phase_kernel(target, device, phase="3 kernel", against=None):
 
             def kern(x, w=w, layer=layer):
                 return qm.quant_matmul_stacked(x, w, layer)
+        if fmt == "int4":
+            kern = counted(kern, calls)
         lw = layer_of(w, layer)
         a, b = (lw.q, lw.scale) if fmt == "int8" else (lw.packed, lw.absmax)
         want = (K, N) if fmt == "int8" else (K // 8, N)
@@ -728,10 +769,19 @@ def phase_kernel(target, device, phase="3 kernel", against=None):
         ys = {M: kern(x_all[:M]) for M in ROWS}
         torch.cuda.synchronize()
         for M in ROWS:
-            # a row's result must not depend on how many rows share the call
-            if not torch.equal(ys[M], ys[max(ROWS)][:M]):
+            # a row's result must not depend on how many rows share the
+            # call: bit for bit within a design, within the kernel-vs-plain
+            # tolerance across K1's two
+            ref = max(m for m in ROWS if tiled(m) == tiled(M))
+            if not torch.equal(ys[M], ys[ref][:M]):
                 fail(f"{fmt} {name} layer {layer}: rows of the M={M} call "
-                     f"differ from the same rows of the M={max(ROWS)} call")
+                     f"differ from the same rows of the M={ref} call")
+            err, rel, ok = kernel_vs_plain(ys[M].float(),
+                                           ys[max(ROWS)][:M].float())
+            if not ok:
+                fail(f"{fmt} {name} layer {layer}: rows of the M={M} call "
+                     f"differ from the M={max(ROWS)} call's beyond the "
+                     f"tolerance (max abs {err:.3g}, relative {rel:.3g})")
         w_bf16 = dequantize(lw, torch.bfloat16)
         for M in ROWS:
             x = x_all[:M]
@@ -774,11 +824,14 @@ def phase_kernel(target, device, phase="3 kernel", against=None):
                     f"{b_ms * 1e3:6.1f} us ({by}); max abs err {err:.3g}, "
                     f"rel {rel:.2g}, bit-equal {rec['bit_equal']:.3%}")
             records.append(rec)
+    if fmt == "int4":
+        check_k1_counts(phase, counts, calls)
+    family = "each of K1's two designs" if fmt == "int4" else "the kernel"
     say(f"[{phase}] {fmt}: all {len(records)} comparisons within relative "
         f"Frobenius {REL_FRO_TOL} and rtol {RTOL}, atol {ATOL} "
         f"({min(r['bit_equal'] for r in records):.3%}-"
         f"{max(r['bit_equal'] for r in records):.3%} of elements bit-equal); "
-        f"row-independent at M in {ROWS}")
+        f"row-independent at M in {ROWS} (bit for bit within {family})")
     for M in ROWS if other is not None else ():
         # a layer's four projections (layer 0) and the lm_head, us per call
         # of this checkout's kernel against the other source's
@@ -792,6 +845,143 @@ def phase_kernel(target, device, phase="3 kernel", against=None):
             f"{head[0]:8.1f} against {head[1]:8.1f} "
             f"({head[1] / head[0]:.2f}x)")
     return records, max_err
+
+
+def k1_counts():
+    """K1's wrappers' launch counts: (launches, tiled launches) summed."""
+    from specdec_tpu_torch.ops import quant_matmul as qm
+
+    wrappers = (qm.int4_matmul, qm.int4_matmul_stacked)
+    return (sum(w.launches for w in wrappers),
+            sum(w.tiled_launches for w in wrappers))
+
+
+def counted(kern, calls):
+    """``kern`` (a K1 call on x), tallying its calls and those of M at or
+    above the threshold of the library it launches (an ``--against``
+    source without a tiled instance reports none) in ``calls``."""
+    from specdec_tpu_torch.ops import quant_matmul as qm
+
+    def run(x):
+        calls["all"] += 1
+        calls["tiled"] += x.shape[0] >= qm.int4_tiled_min_rows()
+        return kern(x)
+    return run
+
+
+def check_k1_counts(phase, before, calls):
+    """K1's wrappers counted every call since ``before`` and, as tiled
+    launches, exactly the calls at or above the threshold."""
+    launched, tiled = (a - b for a, b in zip(k1_counts(), before))
+    if (launched, tiled) != (calls["all"], calls["tiled"]):
+        fail(f"[{phase}] K1 counted {launched} launches, {tiled} tiled; "
+             f"expected {calls['all']} and {calls['tiled']}")
+    say(f"[{phase}] K1 launches {launched}, of them {tiled} on the tiled "
+        "instance: the calls at or above its threshold")
+
+
+def plain_int4(x, a, b):
+    """K1's plain version in column slices, so that its [64-row blocks, M,
+    columns] f32 partial sums stay near 1.5 GB at any served width."""
+    from specdec_tpu_torch.ops import quant_matmul as qm
+
+    M, N, G = x.shape[0], a.shape[1], a.shape[0] // 8
+    step = max(128, int(1.5e9 / (G * M * 4)) // 128 * 128)
+    return torch.cat([qm.int4_matmul_reference(x, a[:, i:i + step],
+                                               b[:, i:i + step])
+                      for i in range(0, N, step)], dim=1)
+
+
+def compare_sliced(got, plain, step=8192):
+    """kernel_vs_plain and the bit-equal share over column slices (the
+    served heads' outputs are GBs in f32): (max abs error, relative
+    Frobenius error, within the tolerance, bit-equal share)."""
+    err, d2, p2, ok, equal = 0.0, 0.0, 0.0, True, 0
+    for i in range(0, got.shape[1], step):
+        g, p = got[:, i:i + step].float(), plain[:, i:i + step].float()
+        err = max(err, (g - p).abs().max().item())
+        d2 += (g - p).square().sum().item()
+        p2 += p.square().sum().item()
+        ok &= torch.allclose(g, p, rtol=RTOL, atol=ATOL)
+        equal += (g == p).sum().item()
+    rel = math.sqrt(d2 / p2)
+    return err, rel, ok and rel <= REL_FRO_TOL, equal / got.numel()
+
+
+def phase_served(device, against=None):
+    """3, served widths: K1 at the benchmark's configurations' widths and
+    row counts (SERVED, SERVED_ROWS) on random weights quantized on the
+    card, through the 2D wrapper: held to the plain version (tolerance and
+    bit-equal share), row-independent within the tiled instance (each
+    call's rows bit-equal to the same rows of the largest call), timed
+    against ``portbench.measure.int4_bound_s`` and a bf16 ``torch.matmul``
+    on the dequantized weights (a yardstick the port never calls), and,
+    with ``--against int4_pair_matmul=SRC``, SRC's kernel in turns; the
+    wrappers count exactly the calls at or above the threshold as tiled."""
+    from portbench.measure import int4_bound_s
+    from specdec_tpu_torch.ops import quant_matmul as qm
+    from specdec_tpu_torch.quant.core import dequantize, quantize_int4
+
+    other = (against[1] if against and against[0] == WEIGHT_LIBS["int4"]
+             else None)
+    threshold = qm.int4_tiled_min_rows()
+    if any(M < threshold for M in SERVED_ROWS):
+        fail(f"[3 served] threshold {threshold} above a served row count "
+             f"of {SERVED_ROWS}")
+    gen = torch.Generator(device=device).manual_seed(2727)
+    flush = torch.zeros(256 * 2 ** 20, dtype=torch.uint8, device=device)
+    counts, calls = k1_counts(), {"all": 0, "tiled": 0}
+    records = []
+    for name, K, N in SERVED:
+        w = quantize_int4(torch.randn((K, N), generator=gen, device=device)
+                          * 0.02)
+        kern = counted(lambda x, w=w: qm.int4_matmul(x, w), calls)
+        x_all = torch.randn((max(SERVED_ROWS), K), generator=gen,
+                            device=device).to(torch.bfloat16)
+        ys = {M: kern(x_all[:M]) for M in SERVED_ROWS}
+        torch.cuda.synchronize()
+        w_bf16 = dequantize(w, torch.bfloat16)
+        for M in SERVED_ROWS:
+            if not torch.equal(ys[M], ys[max(SERVED_ROWS)][:M]):
+                fail(f"[3 served] {name}: rows of the M={M} call differ "
+                     f"from the same rows of the M={max(SERVED_ROWS)} call")
+            x = x_all[:M]
+            err, rel, ok, equal = compare_sliced(
+                ys[M], plain_int4(x, w.packed, w.absmax))
+            if not ok or equal < MIN_BIT_EQUAL:
+                fail(f"[3 served] {name} M={M}: kernel vs plain max abs err "
+                     f"{err:.3g}, relative Frobenius {rel:.3g}, "
+                     f"{equal:.3%} bit-equal")
+            bound = int4_bound_s(M, K, N) * 1e3
+            rec = {"name": name, "K": K, "N": N, "M": M,
+                   "max_abs_err": err, "rel_fro_err": rel,
+                   "bit_equal": equal, "bound_ms": bound,
+                   "ms": gpu_ms(lambda: kern(x), flush),
+                   "library_ms": gpu_ms(lambda: torch.matmul(x, w_bf16),
+                                        flush)}
+            if other is not None:
+                with launching(WEIGHT_LIBS["int4"], other):
+                    t = [gpu_ms(lambda: kern(x), flush) for _ in (0, 1)]
+                rec["against_ms"] = min(t)
+                rec["ms"] = min(rec["ms"], gpu_ms(lambda: kern(x), flush))
+            rec["of_bound"] = bound / rec["ms"]
+            records.append(rec)
+            say(f"[3 served] {name:32s} M={M:5d} K={K:5d} N={N:6d}: kernel "
+                f"{rec['ms'] * 1e3:9.1f} us ({rec['of_bound']:6.1%} of the "
+                f"bound {bound * 1e3:8.1f} us), torch.matmul bf16 "
+                f"{rec['library_ms'] * 1e3:8.1f} us"
+                + (f", against {rec['against_ms'] * 1e3:9.1f} us"
+                   if other is not None else "")
+                + f"; max abs err {err:.3g}, rel {rel:.2g}, bit-equal "
+                f"{equal:.3%}")
+        del ys, w_bf16, x_all, w
+    check_k1_counts("3 served", counts, calls)
+    say(f"[3 served] all {len(records)} comparisons within relative "
+        f"Frobenius {REL_FRO_TOL} and rtol {RTOL}, atol {ATOL} "
+        f"({min(r['bit_equal'] for r in records):.3%}-"
+        f"{max(r['bit_equal'] for r in records):.3%} bit-equal), "
+        f"row-independent on the tiled instance (from M = {threshold})")
+    return records
 
 
 # the configurations the oracles and main paths run besides the default
@@ -6295,6 +6485,7 @@ def main():
 
     against = build_against(args.against) if args.against else None
     records, max_err = phase_kernel(pair[2], device, against=against)
+    served_records = phase_served(device, against)
     paged_records, paged_err = phase_paged_kernel(device, against)
     flash_records, flash_err = phase_flash_kernel(device, against)
     fmt_records = {q: phase_kernel(pairs[q][2], device, "3d kernel", against)
@@ -6437,6 +6628,7 @@ def main():
              "pipeline_nccl": launches_14a[key],
              "pipeline_gloo": launches_14b[key]},
             k1_8b=[r for r in k1_8b if (r["layer"] is None) == (key == "K1a")],
+            **({"served": served_records} if key == "K1a" else {}),
             training=[r for r in grad_records["int4"]
                       if (r["name"] == LM_HEAD[0]) == (key == "K1a")]))
     # K6: one kernel for both codecs; the top-level times are NF4's (the

@@ -31,12 +31,19 @@ sums, a bf16 result cast to ``x.dtype``):
 - INT8: the f32 sum times the channel's f32 scale.
 
 The kernels form the same bf16 weights and differ from their plain versions
-only in the order of the f32 sums (K1 also scales each 64-row block's sum
-in four pieces of 16 rows, one per K-split warp, and adds them).
+only in the order of the f32 sums. K1 has two designs, which its C entry
+picks by M alone: below ``int4_tiled_min_rows()`` (the library's
+threshold) it scales each 64-row block's sum in four pieces of 16 rows, one
+per K-split warp, and adds them; from it, the tiled instance (wgmma, 128
+rows of x by 128 columns a block) scales each 64-row block's sum once, as
+the plain version does, but sums in another order, so a row's bits may
+differ across the threshold (within the kernel-vs-plain tolerance) and
+agree within each design at any M.
 
 Each kernel wrapper counts its launches in a plain integer attribute
 (``int4_matmul.launches`` and so on), so a run can show which kernels its
-path went through.
+path went through; K1's wrappers also count, in ``tiled_launches``, the
+launches of M at or above the threshold, which take the tiled instance.
 
 Gradients: where grad mode is on and x requires grad, a wrapper runs as a
 ``torch.autograd.Function`` (``_WeightMatmul``) whose forward is the same
@@ -199,12 +206,32 @@ def _launch(w: Any, x2: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return y
 
 
+# the least M at which K1 takes its tiled instance, by library
+_TILED_MIN_ROWS: dict = {}
+
+
+def int4_tiled_min_rows() -> int:
+    """The least M at which K1 launches its tiled instance, as its
+    library reports it (``int4_pair_matmul_tiled_min_rows``); a library
+    without the export has no such instance, and the answer is then larger
+    than any M."""
+    from specdec_tpu_torch.ops._build import load
+
+    lib = load("int4_pair_matmul")
+    rows = _TILED_MIN_ROWS.get(lib)
+    if rows is None:
+        fn = getattr(lib, "int4_pair_matmul_tiled_min_rows", None)
+        rows = _TILED_MIN_ROWS[lib] = fn() if fn is not None else 2 ** 62
+    return rows
+
+
 def _forward(wrapper, w: Any, x2: torch.Tensor,
              idx: Optional[int]) -> torch.Tensor:
     """x2 [M, K] @ w (layer ``idx`` of a stack, or the 2D weight): the
-    plain version on the CPU, else the kernel, counted. While the tracer is
-    on, (M, K, N) goes to its record under the kernel's name, on either
-    device. Returns [M, N] in x2's dtype."""
+    plain version on the CPU, else the kernel, counted (and, for K1, the
+    calls that take its tiled instance). While the tracer is on, (M, K, N)
+    goes to its record under the kernel's name, on either device. Returns
+    [M, N] in x2's dtype."""
     a, b = _fields(w)
     if TRACER.on:
         TRACER.record(_KERNELS[type(w)], x2.shape[0], x2.shape[1],
@@ -215,6 +242,8 @@ def _forward(wrapper, w: Any, x2: torch.Tensor,
         _check_kernel_args(w, x2, a, b, stacked=idx is not None)
         out = _launch(w, x2, a, b, idx or 0)
         wrapper.launches += 1
+        if isinstance(w, Int4Weight):
+            wrapper.tiled_launches += x2.shape[0] >= int4_tiled_min_rows()
     return out.to(x2.dtype)
 
 
@@ -357,6 +386,8 @@ def quant_matmul_stacked(x: torch.Tensor, w: Any, idx: int) -> torch.Tensor:
 
 int4_matmul.launches = 0
 int4_matmul_stacked.launches = 0
+int4_matmul.tiled_launches = 0
+int4_matmul_stacked.tiled_launches = 0
 q4_halfplane_matmul.launches = 0
 q4_halfplane_matmul_stacked.launches = 0
 int8_matmul.launches = 0
